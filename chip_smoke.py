@@ -1,27 +1,41 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port's main path on one NVIDIA card.
+"""Drive the PyTorch / CUDA port's main paths on one NVIDIA card.
 
-    python3 chip_smoke.py                  # the five phases below
-    python3 chip_smoke.py --profile DIR    # also: a torch.profiler
-                                           # breakdown of main-path passes,
-                                           # written to DIR
+    python3 chip_smoke.py                  # the six phases below
+    python3 chip_smoke.py --profile DIR    # also: torch.profiler
+                                           # breakdowns of decode passes
+                                           # and of a train step, in DIR
 
 Phases, each printed on lines of its own:
 
 1. card — ``nvidia-smi`` name and power limit; build the kernel library
    from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a) and time it;
 2. kernels — each hand-written kernel against its plain PyTorch version
-   on the card, bf16 and f32, at the serving path's shapes and one ragged
-   shape, with CUDA-event times of the kernel, the plain version and a
-   library yardstick, then one ``{"kernels": [...]}`` line;
-3. device against host — full-width qwen1.5-4b cut to 2 layers, f32, the
-   same seeded weights on the card and on the CPU: decode logits agree;
-4. main path — qwen1.5-4b at full width, bf16, seeded random weights,
-   16 loadgen requests from 2 tenants through the paged ``ServeEngine``
-   (8 lanes); every request completes with in-vocab tokens, and the
-   kernels' launch counts equal engine passes x 81 (rmsnorm) and x 40
-   (fused_ff);
-5. the last line: ``{"ok": true, "device": {...}}``.
+   on the card: K1 ``rmsnorm`` and K2 ``fused_ff`` in bf16 and f32 at the
+   serving path's shapes and a ragged one, and in bf16 at the training
+   path's (8192 rows); K6 ``flash_attention`` in f32 and bf16 at the
+   training path's shape, a ragged GQA shape with a window, a non-causal
+   shape and a query offset; the gradients of the three kernels'
+   ``autograd.Function``s against autograd through the plain versions at
+   the training shapes; CUDA-event times of each kernel, its plain version
+   and a library yardstick beside its bound;
+3. device against host — full-width qwen1.5-4b cut to 2 layers, f32:
+   decode logits agree; full-width stablelm-3b cut to 2 layers, f32: one
+   train step's loss and grad-norm agree (the grad-norm within a bound
+   set by the host's own f32 error against an f64 evaluation);
+4. serving main path — qwen1.5-4b at full width, bf16, seeded random
+   weights, 16 loadgen requests from 2 tenants through the paged
+   ``ServeEngine`` (8 lanes); every request completes with in-vocab
+   tokens, and the kernels' launch counts equal engine passes x 81
+   (rmsnorm) and x 40 (fused_ff);
+5. training main path — stablelm-3b at full width, bf16, remat, seq 2048,
+   global batch 4, 3 steps of ``Trainer``; every loss and grad-norm is
+   finite, step 0's loss agrees with the same loss evaluated with every
+   kernel replaced by its plain version, and the launch counts equal
+   steps x (4L + 1) (rmsnorm), x 2L (fused_ff) and x 2L
+   (flash_attention): forward and per-layer recompute;
+6. the ``{"kernels": [...]}`` line, then the last line:
+   ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line.  No phase catches its
 own failure, and nothing falls back to the CPU or to a plain version.
@@ -48,6 +62,9 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 # Serving path shapes at qwen1.5-4b full width with 8 lanes.
 LANES, D_MODEL, D_FF = 8, 2560, 6912
+# Training path shapes at stablelm-3b full width: global batch 4 x seq 2048.
+BATCH, SEQ, HEADS, HEAD_DIM = 4, 2048, 32, 80
+ROWS = BATCH * SEQ
 
 
 def fail(msg: str) -> None:
@@ -85,6 +102,16 @@ def bound(nbytes: float, ops: float, dtype: str):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+KERNELS = {   # name -> (source, the TPU kernel it replaces)
+    "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:26"),
+    "fused_ff": ("src/repro_torch/kernels/csrc/fused_ff.cu",
+                 "src/repro/kernels/fused_ff.py:40"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:66"),
+}
+
+
 def check_close(name, got, want, atol, rtol):
     import torch
     err = (got.float() - want.float()).abs().max().item()
@@ -96,64 +123,87 @@ def check_close(name, got, want, atol, rtol):
     return err
 
 
-def kernel_phase():
+def record(name, path, shape, err, ms, plain_ms, nbytes, ops, dtype,
+           library_ms, **extra):
+    t_bound, by = bound(nbytes, ops, dtype)
+    src, replaces = KERNELS[name]
+    rec = dict(name=name, route="cuda", source=src, replaces=replaces,
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=t_bound,
+               bound_by=by, library_ms=library_ms, shape=shape, path=path,
+               **extra)
+    lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
+    comp = ("" if "library_composite_ms" not in extra else
+            f"  cuBLAS composite {extra['library_composite_ms']:.4f} ms")
+    print(f"  time {name} {shape} ({path}): kernel {ms:.4f} ms  plain "
+          f"{plain_ms:.4f} ms  bound {t_bound:.4g} ms ({by}){lib}{comp}",
+          flush=True)
+    return rec
+
+
+def rmsnorm_checks(gen, records):
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import fused_ff as ff_mod
     from repro_torch.kernels import ops
     from repro_torch.kernels import rmsnorm as rms_mod
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-    # Tolerances: bf16 outputs may differ by one bf16 rounding (2^-7
-    # relative) where f32 sums in another order land on either side of a
-    # rounding boundary; f32 rmsnorm by rsqrtf's 2 ulp, f32 fused_ff by
-    # 2560-term dot products summed in another order.
-    tol = {("rmsnorm", "bfloat16"): (1e-5, 2 ** -7),
-           ("rmsnorm", "float32"): (1e-5, 1e-5),
-           ("fused_ff", "bfloat16"): (1e-4, 2 ** -7),
-           ("fused_ff", "float32"): (1e-5, 1e-4)}
-    entries = {}
-    for dname, dt in dtypes.items():
-        for rows, cols in ((LANES, D_MODEL), (13, 1001)):
+    # bf16 outputs may differ by one bf16 rounding (2^-7 relative) where
+    # f32 sums in another order land on either side of a rounding
+    # boundary; f32 by rsqrtf's 2 ulp.
+    tol = {"bfloat16": (1e-5, 2 ** -7), "float32": (1e-5, 1e-5)}
+    for dname, dt in (("bfloat16", torch.bfloat16),
+                      ("float32", torch.float32)):
+        for rows, cols, path in ((LANES, D_MODEL, "serve"), (13, 1001, None),
+                                 (ROWS, D_MODEL, "train")):
+            if path == "train" and dname != "bfloat16":
+                continue
             x = (torch.randn(rows, cols, device="cuda", generator=gen)
                  * 0.5).to(dt)
             g = (torch.randn(cols, device="cuda", generator=gen) * 0.5
                  + 1.0).to(dt)
-            err = check_close(f"rmsnorm {dname} {rows}x{cols}",
-                              rms_mod.rmsnorm(x, g),
-                              ops.rmsnorm(x, g, impl="ref"),
-                              *tol[("rmsnorm", dname)])
-            if (rows, cols) != (LANES, D_MODEL):
+            shape = f"{rows}x{cols} {dname}"
+            err = check_close(f"rmsnorm {shape}", rms_mod.rmsnorm(x, g),
+                              ops.rmsnorm(x, g, impl="ref"), *tol[dname])
+            if path is None or dname != "bfloat16":
                 continue
             el = x.element_size()
-            t_bound, by = bound((2 * rows * cols + cols) * el,
-                                4 * rows * cols, dname)
-            lib = (event_ms(lambda: F.rms_norm(x, (cols,), g, eps=1e-6))
-                   if hasattr(F, "rms_norm") else None)
-            entries[("rmsnorm", dname)] = dict(
-                name="rmsnorm", route="cuda",
-                source="src/repro_torch/kernels/csrc/rmsnorm.cu",
-                replaces="src/repro/kernels/rmsnorm.py:26",
-                max_abs_err=err, ms=event_ms(lambda: rms_mod.rmsnorm(x, g)),
-                plain_ms=event_ms(lambda: ops.rmsnorm(x, g, impl="ref")),
-                bound_ms=t_bound, bound_by=by, library_ms=lib,
-                shape=f"{rows}x{cols} {dname}")
-        for m, k, n in ((LANES, D_MODEL, D_FF), (3, 1001, 777)):
+            records.append(record(
+                "rmsnorm", path, shape, err,
+                event_ms(lambda: rms_mod.rmsnorm(x, g)),
+                event_ms(lambda: ops.rmsnorm(x, g, impl="ref")),
+                (2 * rows * cols + cols) * el, 4 * rows * cols, dname,
+                event_ms(lambda: F.rms_norm(x, (cols,), g, eps=1e-6))))
+
+
+def fused_ff_checks(gen, records):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_ff as ff_mod
+    from repro_torch.kernels import ops
+
+    # bf16: one bf16 rounding of the output (2^-7 relative); f32: dot
+    # products of up to 2560 terms summed in another order.
+    tol = {"bfloat16": (1e-4, 2 ** -7), "float32": (1e-5, 1e-4)}
+    for dname, dt in (("bfloat16", torch.bfloat16),
+                      ("float32", torch.float32)):
+        for m, k, n, path in ((LANES, D_MODEL, D_FF, "serve"),
+                              (3, 1001, 777, None),
+                              (ROWS, D_MODEL, D_FF, "train")):
+            if path == "train" and dname != "bfloat16":
+                continue
             x = (torch.randn(m, k, device="cuda", generator=gen)
                  * 0.5).to(dt)
-            # Four weight pairs in rotation (283 MB in bf16): each call finds
-            # its weights out of the 50 MB L2, as a decode pass does.
+            # At decode, four weight pairs in rotation (283 MB in bf16):
+            # each call finds its weights out of the 50 MB L2, as a decode
+            # pass does.
             ws = [tuple((torch.randn(k, n, device="cuda", generator=gen)
                          * k ** -0.5).to(dt) for _ in range(2))
-                  for _ in range(4 if (m, k, n) == (LANES, D_MODEL, D_FF)
-                                 else 1)]
-            wg, wu = ws[0]
-            err = check_close(f"fused_ff {dname} {m}x{k}x{n}",
-                              ff_mod.fused_ff(x, wg, wu),
-                              ops.fused_ff(x, wg, wu, impl="ref"),
-                              *tol[("fused_ff", dname)])
-            if (m, k, n) != (LANES, D_MODEL, D_FF):
+                  for _ in range(4 if path == "serve" else 1)]
+            shape = f"{m}x{k}x{n} {dname}"
+            err = check_close(f"fused_ff {shape}",
+                              ff_mod.fused_ff(x, *ws[0]),
+                              ops.fused_ff(x, *ws[0], impl="ref"),
+                              *tol[dname])
+            if path is None or dname != "bfloat16":
                 continue
             turn = [0]
 
@@ -163,36 +213,123 @@ def kernel_phase():
                     return fn(*ws[turn[0]])
                 return call
 
-            def composite(a, b):
-                return F.silu(x @ a) * (x @ b)
-
+            iters = 30 if path == "serve" else 10
             el = x.element_size()
-            t_bound, by = bound((m * k + 2 * k * n + m * n) * el,
-                                4 * m * k * n + 4 * m * n, dname)
-            entries[("fused_ff", dname)] = dict(
-                name="fused_ff", route="cuda",
-                source="src/repro_torch/kernels/csrc/fused_ff.cu",
-                replaces="src/repro/kernels/fused_ff.py:40",
-                max_abs_err=err,
-                ms=event_ms(rotate(lambda a, b: ff_mod.fused_ff(x, a, b))),
-                plain_ms=event_ms(rotate(
-                    lambda a, b: ops.fused_ff(x, a, b, impl="ref"))),
-                bound_ms=t_bound, bound_by=by,
+            records.append(record(
+                "fused_ff", path, shape, err,
+                event_ms(rotate(lambda a, b: ff_mod.fused_ff(x, a, b)),
+                         iters),
+                event_ms(rotate(lambda a, b: ops.fused_ff(x, a, b,
+                                                          impl="ref")),
+                         iters),
+                (m * k + 2 * k * n + m * n) * el, 4 * m * k * n + 4 * m * n,
+                dname,
                 # no single PyTorch call computes silu(x@Wg)*(x@Wu)
-                library_ms=None,
-                library_composite_ms=event_ms(rotate(composite)),
-                shape=f"{m}x{k}x{n} {dname}")
+                None,
+                library_composite_ms=event_ms(rotate(
+                    lambda a, b: F.silu(x @ a) * (x @ b)), iters)))
             del ws
-    for (name, dname), e in sorted(entries.items()):
-        extra = (f"  cuBLAS composite x@Wg, x@Wu, silu*u "
-                 f"{e['library_composite_ms']:.4f} ms"
-                 if "library_composite_ms" in e else
-                 f"  F.rms_norm {e['library_ms']:.4f} ms"
-                 if e["library_ms"] is not None else "")
-        print(f"  time {name} {e['shape']}: kernel {e['ms']:.4f} ms  plain "
-              f"{e['plain_ms']:.4f} ms  bound {e['bound_ms']:.4f} ms "
-              f"({e['bound_by']}){extra}", flush=True)
-    return entries
+
+
+def flash_attention_checks(gen, records):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ops
+    from repro_torch.nn.attention import NO_WINDOW
+
+    # tests/test_kernels.py's tolerances for this kernel: atol 2e-4 in f32
+    # (:91), 3e-2 in bf16 (:104, one bf16 rounding of outputs near 1).
+    tol = {"float32": (2e-4, 0.0), "bfloat16": (3e-2, 0.0)}
+    cases = [  # B, H, KH, Sq, Sk, D, causal, window, q_offset
+        (BATCH, HEADS, HEADS, SEQ, SEQ, HEAD_DIM, True, NO_WINDOW, 0),
+        (2, 8, 2, 1000, 1000, HEAD_DIM, True, 256, 0),
+        (2, 8, 8, 1000, 1000, HEAD_DIM, False, NO_WINDOW, 0),
+        (1, 4, 2, 100, 300, 64, True, NO_WINDOW, 200),
+    ]
+    for dname, dt in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        for B, H, KH, Sq, Sk, D, causal, window, q_offset in cases:
+            q = torch.randn(B, H, Sq, D, device="cuda", generator=gen).to(dt)
+            k, v = (torch.randn(B, KH, Sk, D, device="cuda",
+                                generator=gen).to(dt) for _ in range(2))
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            win = "" if window == NO_WINDOW else f" window {window}"
+            shape = (f"({B},{H},{Sq},{D}) kv ({KH},{Sk}) "
+                     f"{'causal' if causal else 'full'}{win}"
+                     f"{f' q_offset {q_offset}' if q_offset else ''} "
+                     f"{dname}")
+            err = check_close(f"flash_attention {shape}",
+                              fa_mod.flash_attention(q, k, v, **kw),
+                              ops.flash_attention(q, k, v, impl="ref", **kw),
+                              *tol[dname])
+            if (Sq, dname) != (SEQ, "bfloat16"):
+                continue
+            el = q.element_size()
+            # the (query, key) pairs this run's mask keeps, two products each
+            pairs = sum(min(q_offset + i + 1, Sk) for i in range(Sq))
+            records.append(record(
+                "flash_attention", "train", shape, err,
+                event_ms(lambda: fa_mod.flash_attention(q, k, v, **kw), 20),
+                event_ms(lambda: ops.flash_attention(q, k, v, impl="ref",
+                                                     **kw), 10),
+                (2 * B * H * Sq + 2 * B * KH * Sk) * D * el,
+                4 * B * H * D * pairs, dname,
+                event_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), 20)))
+
+
+def gradient_checks(gen):
+    """Each kernel's ``autograd.Function`` against autograd through its
+    plain version, at the training path's shapes in bf16.  Both backward
+    passes compute the plain version's gradient in f32 and round it to
+    bf16 once, so they may differ by one bf16 rounding (2^-7 relative)
+    where f32 sums in another order (K6's backward runs a batch row at a
+    time) land on either side of a rounding boundary."""
+    import torch
+    from repro_torch.kernels import ops
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, device="cuda", generator=gen) * scale
+                + shift).to(torch.bfloat16)
+
+    cases = {
+        "rmsnorm": (lambda impl, x, g: ops.rmsnorm(x, g, impl=impl),
+                    [rnd(ROWS, D_MODEL), rnd(D_MODEL, scale=0.1, shift=1.0)]),
+        "fused_ff": (lambda impl, x, a, b: ops.fused_ff(x, a, b, impl=impl),
+                     [rnd(ROWS, D_MODEL, scale=0.5),
+                      rnd(D_MODEL, D_FF, scale=D_MODEL ** -0.5),
+                      rnd(D_MODEL, D_FF, scale=D_MODEL ** -0.5)]),
+        "flash_attention": (
+            lambda impl, q, k, v: ops.flash_attention(q, k, v, impl=impl),
+            [rnd(BATCH, HEADS, SEQ, HEAD_DIM) for _ in range(3)]),
+    }
+    for name, (fn, inputs) in cases.items():
+        mine = [t.clone().requires_grad_() for t in inputs]
+        plain = [t.clone().requires_grad_() for t in inputs]
+        out = fn(None, *mine)
+        dy = torch.randn(out.shape, device="cuda",
+                         generator=gen).to(out.dtype)
+        got = torch.autograd.grad(out, mine, dy)
+        want = torch.autograd.grad(fn("ref", *plain), plain, dy)
+        for i, (a, b) in enumerate(zip(got, want)):
+            scale = b.float().abs().max().item()
+            check_close(f"grad {name} input {i} {tuple(b.shape)} bfloat16",
+                        a, b, 2 ** -8 * scale, 2 ** -7)
+        del mine, plain, got, want
+
+
+def kernel_phase():
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    records = []
+    rmsnorm_checks(gen, records)
+    fused_ff_checks(gen, records)
+    flash_attention_checks(gen, records)
+    gradient_checks(gen)
+    torch.cuda.empty_cache()
+    return records
 
 
 # ---------------------------------------------------------------------------
@@ -208,9 +345,7 @@ def device_host_phase():
 
     cfg = get_config("qwen1.5-4b").replace(n_layers=2, dtype="float32")
     params = lm.init_model(cfg, torch.Generator().manual_seed(0))
-    to_cuda = (lambda t: {k: to_cuda(v) for k, v in t.items()}
-               if isinstance(t, dict) else t.to("cuda"))
-    dparams = to_cuda(params)
+    dparams = _tree_to(params, "cuda")
     B, bs, steps = LANES, 16, 4
     rng = np.random.default_rng(0)
     table = torch.from_numpy(
@@ -238,16 +373,83 @@ def device_host_phase():
         fail("device and host decode logits disagree")
 
 
-# ---------------------------------------------------------------------------
-# phase 4: the main path — full-width qwen1.5-4b through ServeEngine
-# ---------------------------------------------------------------------------
+def device_host_train_step():
+    """One train step of full-width stablelm-3b cut to 2 layers, f32, on
+    the card and on the host from the same parameters and batch.
 
-def main_path_phase(profile_dir):
+    The loss agrees within 1e-4 relative.  The grad-norm cannot: with the
+    reference's initialisation (a tied N(0, 1) embedding at width 2560,
+    logits in the hundreds) this function's f32 gradients are
+    ill-conditioned, and every f32 evaluation of it, on either device,
+    lies about 0.5% from an f64 evaluation.  So, as the CPU parity tests
+    bound f32 logits and gradients, the grad-norm is held to 1e-4 relative
+    plus twice the host's own f32 error against the host's f64
+    evaluation."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import fused_ff as ff_mod
-    from repro_torch.kernels import rmsnorm as rms_mod
+    from repro_torch.data.pipeline import make_data
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainState, compute_grads, make_train_step
+    from repro_torch.utils.tree import global_norm
+
+    cfg = get_config("stablelm-3b").replace(n_layers=2, dtype="float32")
+    batch = make_data(cfg, 128, 2, seed=0).batch_at(0)
+    params = lm.init_model(cfg, torch.Generator().manual_seed(0))
+    metrics = {}
+    for device in ("cpu", "cuda"):
+        opt = adamw(3e-4, weight_decay=0.1, max_grad_norm=1.0)
+        p = _tree_to(params, device)
+        state = TrainState(p, opt.init(p),
+                           torch.zeros((), dtype=torch.int32, device=device))
+        _, m = make_train_step(cfg, opt)(state, {
+            k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+        metrics[device] = {k: float(v) for k, v in m.items()}
+    cfg64 = cfg.replace(dtype="float64")
+    _, g64 = compute_grads(_tree_to(params, "cpu", torch.float64),
+                           {k: torch.from_numpy(v) for k, v in batch.items()},
+                           cfg64)
+    exact = float(global_norm(g64))
+    host, dev = metrics["cpu"], metrics["cuda"]
+    host_err = abs(host["grad_norm"] - exact) / exact
+    rel = {k: abs(dev[k] - host[k]) / abs(host[k])
+           for k in ("loss", "grad_norm")}
+    bounds = {"loss": 1e-4, "grad_norm": 1e-4 + 2 * host_err}
+    print(f"  train step host {host}\n  train step card {dev}\n"
+          f"  host f64 grad_norm {exact:.6f}: host f32 off by {host_err:.3e}, "
+          f"card f32 by {abs(dev['grad_norm'] - exact) / exact:.3e}\n"
+          f"  card against host: relative |d| {rel}, bounds {bounds}",
+          flush=True)
+    if not all(rel[k] <= bounds[k] for k in rel):
+        fail("device and host train steps disagree")
+
+
+def _tree_to(tree, device, dtype=None):
+    return {k: _tree_to(v, device, dtype) if isinstance(v, dict)
+            else v.to(device, dtype) for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the serving main path — full-width qwen1.5-4b through ServeEngine
+# ---------------------------------------------------------------------------
+
+def _reset_launches():
+    from repro_torch.kernels import flash_attention, fused_ff, rmsnorm
+    for mod in (rmsnorm, fused_ff, flash_attention):
+        mod.launches = 0
+
+
+def _read_launches():
+    from repro_torch.kernels import flash_attention, fused_ff, rmsnorm
+    return {"rmsnorm": rmsnorm.launches, "fused_ff": fused_ff.launches,
+            "flash_attention": flash_attention.launches}
+
+
+def serve_phase(profile_dir):
+    import torch
+    from repro_torch.configs import get_config
     from repro_torch.serve import ServeEngine, Tenant, TrafficConfig, run_load
+    from repro_torch.utils.tree import param_count
 
     cfg = get_config("qwen1.5-4b")
     t0 = time.perf_counter()
@@ -255,7 +457,7 @@ def main_path_phase(profile_dir):
         cfg, max_batch=LANES, max_seq=256, block_size=16, paged=True,
         tenants=[Tenant("t0"), Tenant("t1")], rng_seed=0, device="cuda")
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(engine.params))
+    n_params = param_count(engine.params)
     print(f"  {cfg.name}: {n_params / 1e9:.3f} B parameters in bf16, made "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
     engine.generate([1, 2, 3], 2, tenant="t0")      # warm-up: cuBLAS etc.
@@ -266,11 +468,10 @@ def main_path_phase(profile_dir):
 
     passes0 = engine.counters["passes"]
     torch.cuda.reset_peak_memory_stats()
-    rms_mod.launches = 0
-    ff_mod.launches = 0
+    _reset_launches()
     report = run_load(engine, traffic)
     torch.cuda.synchronize()
-    launches = {"rmsnorm": rms_mod.launches, "fused_ff": ff_mod.launches}
+    launches = _read_launches()
     passes = engine.counters["passes"] - passes0
 
     reqs = engine.finished
@@ -283,7 +484,7 @@ def main_path_phase(profile_dir):
             != traffic.n_requests or bad:
         fail(f"requests incomplete or out of vocab: {bad}")
     want = {"rmsnorm": passes * (2 * cfg.n_layers + 1),
-            "fused_ff": passes * cfg.n_layers}
+            "fused_ff": passes * cfg.n_layers, "flash_attention": 0}
     print(f"  passes {passes}; launches {launches}; expected {want}",
           flush=True)
     if launches != want or passes == 0:
@@ -299,15 +500,40 @@ def main_path_phase(profile_dir):
         "lane_utilization": report["stats"]["engine"]["lane_utilization"],
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    print("  main path " + json.dumps(stats), flush=True)
+    print("  serving main path " + json.dumps(stats), flush=True)
     if profile_dir:
         profile_passes(engine, cfg, profile_dir)
+    del engine
+    torch.cuda.empty_cache()
     return launches
 
 
-def _leaves(tree):
-    for v in tree.values():
-        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+def _kernel_breakdown(prof):
+    """(lines of device time by kernel name, device-busy microseconds) —
+    from the kernels' own events (an op's row in key_averages() repeats
+    the time of the kernels it launched)."""
+    import torch
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us, end = 0.0, float("-inf")
+    by_name = {}
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        start, stop = e.time_range.start, e.time_range.end
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + stop - start)
+    lines = [f"{t / 1e3:10.3f} ms {n:6d} x {t / n:9.2f} us  {name[:90]}"
+             for name, (n, t) in sorted(by_name.items(),
+                                        key=lambda kv: -kv[1][1])]
+    return lines, busy_us
+
+
+def _write_profile(out_dir, name, lines, prof):
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, name), "w") as f:
+        f.write("\n".join(lines) + "\n\n")
+        f.write(prof.key_averages().table(row_limit=60))
 
 
 def profile_passes(engine, cfg, out_dir: str, n_passes: int = 8):
@@ -332,25 +558,8 @@ def profile_passes(engine, cfg, out_dir: str, n_passes: int = 8):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     done = engine.counters["passes"] - before
-    # Device time from the kernels themselves (an op's row in
-    # key_averages() repeats the time of the kernels it launched).
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us, end = 0.0, float("-inf")
-    by_name = {}
-    for e in sorted(kernels, key=lambda e: e.time_range.start):
-        start, stop = e.time_range.start, e.time_range.end
-        busy_us += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + stop - start)
-    lines = [f"{t / 1e3:10.3f} ms {n:6d} x {t / n:9.2f} us  {name[:90]}"
-             for name, (n, t) in sorted(by_name.items(),
-                                        key=lambda kv: -kv[1][1])]
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_main_path.txt"), "w") as f:
-        f.write("\n".join(lines) + "\n\n")
-        f.write(prof.key_averages().table(row_limit=60))
+    lines, busy_us = _kernel_breakdown(prof)
+    _write_profile(out_dir, "profile_main_path.txt", lines, prof)
     print(f"  profile: {done} passes in {wall * 1e3:.1f} ms wall (profiler "
           f"on), device busy {busy_us / 1e3:.1f} ms = {busy_us / 1e6 / wall:.1%}"
           f" of wall; kernel time by name:", flush=True)
@@ -359,12 +568,122 @@ def profile_passes(engine, cfg, out_dir: str, n_passes: int = 8):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the training main path — full-width stablelm-3b through Trainer
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 3
+
+
+def train_phase(profile_dir):
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.train import TrainConfig, Trainer, loss_fn
+    from repro_torch.utils.tree import param_count
+
+    cfg = get_config("stablelm-3b")
+    tcfg = TrainConfig(steps=TRAIN_STEPS, seq_len=SEQ, global_batch=BATCH)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, tcfg, device="cuda")
+    torch.cuda.synchronize()
+    n_params = param_count(trainer.state.params)
+    print(f"  {cfg.name}: {n_params / 1e9:.3f} B parameters in {cfg.dtype}, "
+          f"remat {cfg.remat}, made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # step 0's loss evaluated once more with every kernel replaced by its
+    # plain version, from the same parameters and batch
+    batch0 = {k: torch.from_numpy(v).to("cuda")
+              for k, v in trainer.data.batch_at(0).items()}
+    with torch.no_grad(), ops.forced("ref"):
+        plain_loss = float(loss_fn(trainer.state.params, batch0, cfg)[0])
+    del batch0
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    log = trainer.run()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    tokens = BATCH * SEQ
+    for row in log:
+        print(f"  step {row['step']}: loss {row['loss']:.4f} grad_norm "
+              f"{row['grad_norm']:.4f} {row['seconds']:.3f} s "
+              f"({tokens / row['seconds']:.0f} tokens/s)", flush=True)
+    if len(log) != TRAIN_STEPS or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+            for r in log):
+        fail("a training loss or grad-norm is not finite")
+    # bf16 activations through 32 layers: the kernels and the plain
+    # versions round the same values to bf16 at the same places, but
+    # their f32 sums run in other orders, so bf16 roundings may flip.
+    rel = abs(log[0]["loss"] - plain_loss) / abs(plain_loss)
+    print(f"  step 0 loss {log[0]['loss']:.4f}; with the plain versions "
+          f"{plain_loss:.4f}; relative |d| {rel:.3e} (bound 1e-2)",
+          flush=True)
+    if not rel <= 1e-2:
+        fail("step 0's loss disagrees with the plain versions' loss")
+    L = cfg.n_layers
+    want = {"rmsnorm": TRAIN_STEPS * (4 * L + 1),
+            "fused_ff": TRAIN_STEPS * 2 * L,
+            "flash_attention": TRAIN_STEPS * 2 * L}
+    print(f"  launches {launches}; expected {want} (forward and per-layer "
+          f"recompute)", flush=True)
+    if launches != want:
+        fail("the training path did not go through the kernels once per "
+             "site and pass")
+    steady = [r["seconds"] for r in log[1:]]
+    stats = {
+        "steps": len(log), "wall_s": wall,
+        "step_s": [r["seconds"] for r in log],
+        "steady_step_s": statistics.median(steady),
+        "tokens_per_s": tokens / statistics.median(steady),
+        "loss": [r["loss"] for r in log],
+        "grad_norm": [r["grad_norm"] for r in log],
+        "max_memory_allocated_gb": peak_gb,
+    }
+    print("  training main path " + json.dumps(stats), flush=True)
+    if profile_dir:
+        profile_train_step(trainer, profile_dir)
+    return launches
+
+
+def profile_train_step(trainer, out_dir: str):
+    """torch.profiler over one more train step: device busy share and time
+    by kernel, written to ``out_dir``/profile_train_step.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step = trainer.tcfg.steps
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in trainer.data.batch_at(step).items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.state, metrics = trainer.train_step(trainer.state, batch)
+        float(metrics["loss"])
+        wall = time.perf_counter() - t0
+    lines, busy_us = _kernel_breakdown(prof)
+    _write_profile(out_dir, "profile_train_step.txt", lines, prof)
+    print(f"  profile: one train step in {wall * 1e3:.1f} ms wall (profiler "
+          f"on), device busy {busy_us / 1e3:.1f} ms = {busy_us / 1e6 / wall:.1%}"
+          f" of wall; kernel time by name:", flush=True)
+    print("\n".join("    " + line for line in lines[:25]), flush=True)
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also profile main-path passes with torch.profiler "
-                         "and write the tables to DIR")
+                    help="also profile decode passes and a train step "
+                         "with torch.profiler and write the tables to DIR")
     args = ap.parse_args()
 
     import torch
@@ -395,19 +714,35 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     phase("2 kernels")
-    entries = kernel_phase()
+    records = kernel_phase()
 
     phase("3 device against host")
     device_host_phase()
+    device_host_train_step()
 
-    phase("4 main path")
-    launches = main_path_phase(args.profile)
+    phase("4 serving main path")
+    launches = {"serve": serve_phase(args.profile)}
 
+    phase("5 training main path")
+    launches["train"] = train_phase(args.profile)
+
+    phase("6 kernels")
     kernels = []
-    for name in ("rmsnorm", "fused_ff"):
-        e = dict(entries[(name, "bfloat16")])
-        e["launches"] = launches[name]
-        kernels.append(e)
+    for name in KERNELS:
+        mine = [r for r in records if r["name"] == name]
+        # the headline numbers are those at the training path's shape
+        entry = {k: v for k, v in next(r for r in mine
+                                       if r["path"] == "train").items()
+                 if k not in ("shape", "path")}
+        by_path = {p: launches[p][name] for p in launches}
+        if not sum(by_path.values()):
+            fail(f"{name} was launched no time on the main paths")
+        entry.update(launches=sum(by_path.values()),
+                     launches_by_path=by_path,
+                     shapes=[{k: v for k, v in r.items()
+                              if k not in ("name", "route", "source",
+                                           "replaces")} for r in mine])
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

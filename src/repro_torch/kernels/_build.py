@@ -40,6 +40,10 @@ _SIGNATURES = {
     "repro_rmsnorm": [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
     # (x, wg, wu, out, M, K, N, dtype, stream)
     "repro_fused_ff": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (q, k, v, o, B, H, KH, Sq, Sk, D, scale, causal, window, q_offset,
+    #  dtype, stream)
+    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              ctypes.c_float, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

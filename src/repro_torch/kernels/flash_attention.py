@@ -1,0 +1,138 @@
+"""Attention with an online softmax: the hand-written Hopper kernel
+(``csrc/flash_attention.cu``) behind a checked wrapper, and its gradient.
+
+Port of ``repro/kernels/flash_attention.py`` (paper Table 2
+"flash-attention"), generalised to what the model calls through it
+(``nn.attention.chunked_attention``): grouped KV heads, a sliding window
+and a query offset.  The kernel's note in ``csrc/flash_attention.cu`` says
+what bounds it on the card and what its design does about that.  On CPU
+tensors the wrapper computes the plain version
+(:func:`repro_torch.kernels.ref.flash_attention`); on CUDA tensors it
+launches the kernel or raises.
+
+:class:`FlashAttentionFunction` is the differentiable form: its forward
+launches the kernel, its backward recomputes the plain version under
+autograd from the saved q, k and v, one batch row and a bounded group of
+KV heads at a time.  The JAX package differentiates its jnp attention
+with XLA's autodiff and has no backward kernel, so none is owed here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+# Kernel launches made by this process (the wrapper adds one per launch).
+launches = 0
+
+MAX_HEAD_DIM = 128
+# (query heads x Sq x Sk) f32 entries per recompute in the backward: each
+# of the plain version's (heads, Sq, Sk) tensors stays under 512 MB.
+_BACKWARD_ENTRIES = 1 << 27
+
+
+def _check_shapes(q, k, v, window, q_offset):
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape \
+            or k.shape[0] != q.shape[0] or k.shape[-1] != q.shape[-1]:
+        raise ValueError(f"flash_attention: need q (B, H, Sq, D) and k, v "
+                         f"(B, KH, Sk, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if k.shape[1] == 0 or q.shape[1] % k.shape[1]:
+        raise ValueError(f"flash_attention: H={q.shape[1]} is not a "
+                         f"multiple of KH={k.shape[1]}")
+    if k.shape[2] == 0:
+        raise ValueError("flash_attention: no keys (Sk = 0)")
+    if window < 1 or q_offset < 0:
+        raise ValueError(f"flash_attention: need window >= 1 and q_offset "
+                         f">= 0, got {window} and {q_offset}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = ref.NO_WINDOW,
+                    q_offset: int = 0, scale: float = None) -> torch.Tensor:
+    """q: (B, H, Sq, D); k, v: (B, KH, Sk, D) -> (B, H, Sq, D) in q's
+    type.  ``v``'s head dim must equal ``D`` (MLA's Dv != D is not
+    taken)."""
+    global launches
+    _check_shapes(q, k, v, window, q_offset)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    tensors = (q, k, v)
+    if all(t.device.type == "cpu" for t in tensors):
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, scale=scale)
+    if not (q.is_cuda and all(t.device == q.device for t in tensors)):
+        raise ValueError("flash_attention: the kernel needs q, k and v on "
+                         "one CUDA device, got "
+                         + ", ".join(str(t.device) for t in tensors))
+    if q.dtype not in _build.DTYPE_CODES \
+            or any(t.dtype != q.dtype for t in tensors):
+        raise TypeError("flash_attention: q, k and v must share f32 or "
+                        "bf16, got " + ", ".join(str(t.dtype)
+                                                 for t in tensors))
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("flash_attention: q, k and v must be contiguous")
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    if D > MAX_HEAD_DIM or B * H > 65535:
+        raise ValueError(f"flash_attention: the kernel takes D <= "
+                         f"{MAX_HEAD_DIM} and B*H <= 65535, got D={D}, "
+                         f"B*H={B * H}")
+    out = torch.empty_like(q)
+    lib = _build.library()
+    err = lib.repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KH,
+        Sq, Sk, D, float(scale), int(bool(causal)),
+        int(min(window, 2 ** 31 - 1)), int(q_offset),
+        _build.DTYPE_CODES[q.dtype],
+        _build.stream_handle(q.device))
+    _build.check(err, "flash_attention")
+    launches += 1
+    return out
+
+
+def flash_attention_backward(q, k, v, grad_out, *, causal, window, q_offset,
+                             scale):
+    """(dq, dk, dv) of the plain version at (q, k, v), by autograd through
+    it, one batch row and a group of KV heads at a time (so the plain
+    version's (heads, Sq, Sk) f32 tensors stay bounded)."""
+    B, H, Sq, _ = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    G = H // KH
+    step = max(1, _BACKWARD_ENTRIES // max(1, G * Sq * Sk))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    for b in range(B):
+        for h0 in range(0, KH, step):
+            h1 = min(KH, h0 + step)
+            qs = q[b:b + 1, h0 * G:h1 * G].detach().requires_grad_()
+            ks = k[b:b + 1, h0:h1].detach().requires_grad_()
+            vs = v[b:b + 1, h0:h1].detach().requires_grad_()
+            with torch.enable_grad():
+                o = ref.flash_attention(qs, ks, vs, causal=causal,
+                                        window=window, q_offset=q_offset,
+                                        scale=scale)
+            gq, gk, gv = torch.autograd.grad(
+                o, (qs, ks, vs), grad_out[b:b + 1, h0 * G:h1 * G])
+            dq[b:b + 1, h0 * G:h1 * G] = gq
+            dk[b:b + 1, h0:h1] = gk
+            dv[b:b + 1, h0:h1] = gv
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the kernel forward, the plain
+    version's gradient backward (recomputed from the saved inputs)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = dict(causal=causal, window=window, q_offset=q_offset,
+                        scale=scale)
+        return flash_attention(q, k, v, **ctx.args)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, grad_out, **ctx.args)
+        return dq, dk, dv, None, None, None, None

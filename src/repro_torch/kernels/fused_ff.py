@@ -7,6 +7,12 @@ kernel's note in ``csrc/fused_ff.cu`` says what bounds it on the card and
 what its design does about that.  On CPU tensors the wrapper computes the
 plain version (:func:`repro_torch.kernels.ref.fused_ff`); on CUDA tensors
 it launches the kernel or raises.
+
+:class:`FusedFFFunction` is the differentiable form: its forward launches
+the kernel, its backward gives the gradients of x and both weights by
+autograd through the plain version (f32 math, as the kernel's), recomputed
+from the saved inputs.  The JAX package has no backward kernel, so none is
+owed here.
 """
 
 from __future__ import annotations
@@ -53,3 +59,20 @@ def fused_ff(x: torch.Tensor, w_gate: torch.Tensor,
     _build.check(err, "fused_ff")
     launches += 1
     return out
+
+
+class FusedFFFunction(torch.autograd.Function):
+    """``fused_ff`` with gradients for x, Wg and Wu: the kernel forward,
+    the plain version's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up):
+        ctx.save_for_backward(x, w_gate, w_up)
+        return fused_ff(x, w_gate, w_up)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = tuple(t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = ref.fused_ff(*inputs)
+        return torch.autograd.grad(out, inputs, grad_out)

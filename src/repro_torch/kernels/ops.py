@@ -1,48 +1,83 @@
 """Dispatching wrappers: one call site per op, selectable implementation.
 
-``impl=None`` (the default) follows the tensor's device: the
-hand-written kernel's wrapper, which launches the CUDA kernel for CUDA
-tensors and computes the plain version for CPU tensors.  ``impl="ref"``
-forces the plain PyTorch version on any device (what ``chip_smoke.py``
-holds the kernels against); ``impl="cuda"`` demands the kernel and
-raises for a CPU tensor.  Model code (``repro_torch.nn.layers``) calls
-these, so the serving path goes through the kernels on the card.
+``impl=None`` (the default) follows the tensor's device: CUDA tensors go
+through the kernel's differentiable form (its ``autograd.Function``: the
+hand-written kernel forward, the plain version's gradient backward), CPU
+tensors through the plain version, which autograd differentiates as it
+is.  ``impl="ref"`` forces the plain PyTorch version on any device (what
+``chip_smoke.py`` holds the kernels against); ``impl="cuda"`` demands the
+kernel and raises for a CPU tensor.  ``with forced("ref"):`` makes every
+call inside that passes no ``impl`` take the plain versions, so a whole
+model can be evaluated without the kernels on the card.  Model code
+(``repro_torch.nn``) calls these, so the serving and training paths go
+through the kernels on the card.
 """
 
 from __future__ import annotations
 
-from typing import Literal, Optional
+import contextlib
+from typing import Iterator, Literal, Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa_mod
 from repro_torch.kernels import fused_ff as _ff_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rms_mod
 
 Impl = Optional[Literal["ref", "cuda"]]
 
+_forced: Impl = None     # what ``forced`` set, for every thread
 
-def _use_ref(impl: Impl, x: torch.Tensor, name: str) -> bool:
-    if impl == "ref":
-        return True
-    if impl == "cuda" and not x.is_cuda:
-        raise ValueError(f"{name}: impl='cuda' needs CUDA tensors, got a "
-                         f"tensor on {x.device}")
-    if impl not in (None, "cuda"):
+
+@contextlib.contextmanager
+def forced(impl: Impl) -> Iterator[None]:
+    """Calls made while this is open that pass no ``impl`` use ``impl``.
+
+    Process-wide, not per thread: autograd runs a CUDA backward pass (and
+    the layers it recomputes) on threads of its own, which must see the
+    same choice as the forward pass."""
+    global _forced
+    before, _forced = _forced, impl
+    try:
+        yield
+    finally:
+        _forced = before
+
+
+def _use_ref(impl: Impl, name: str, *tensors: torch.Tensor) -> bool:
+    if impl is None:
+        impl = _forced
+    if impl not in (None, "ref", "cuda"):
         raise ValueError(f"{name}: impl must be None, 'ref' or 'cuda', "
                          f"got {impl!r}")
-    return False
+    if impl == "cuda" and not all(t.is_cuda for t in tensors):
+        raise ValueError(f"{name}: impl='cuda' needs CUDA tensors, got "
+                         + ", ".join(str(t.device) for t in tensors))
+    return impl == "ref" or all(t.device.type == "cpu" for t in tensors)
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, impl: Impl = None,
             eps: float = 1e-6) -> torch.Tensor:
-    if _use_ref(impl, x, "rmsnorm"):
+    if _use_ref(impl, "rmsnorm", x, gamma):
         return ref.rmsnorm(x, gamma, eps)
-    return _rms_mod.rmsnorm(x, gamma, eps=eps)
+    return _rms_mod.RMSNormFunction.apply(x, gamma, eps)
 
 
 def fused_ff(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, *,
              impl: Impl = None) -> torch.Tensor:
-    if _use_ref(impl, x, "fused_ff"):
+    if _use_ref(impl, "fused_ff", x, w_gate, w_up):
         return ref.fused_ff(x, w_gate, w_up)
-    return _ff_mod.fused_ff(x, w_gate, w_up)
+    return _ff_mod.FusedFFFunction.apply(x, w_gate, w_up)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = ref.NO_WINDOW,
+                    q_offset: int = 0, scale: Optional[float] = None,
+                    impl: Impl = None) -> torch.Tensor:
+    """q: (B, H, Sq, D); k, v: (B, KH, Sk, D) -> (B, H, Sq, D)."""
+    if _use_ref(impl, "flash_attention", q, k, v):
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, scale=scale)
+    return _fa_mod.FlashAttentionFunction.apply(q, k, v, causal, window,
+                                                q_offset, scale)

@@ -6,6 +6,11 @@ kernel's note in ``csrc/rmsnorm.cu`` says what bounds it on the card and
 what its design does about that.  On a CPU tensor the wrapper computes
 the plain version (:func:`repro_torch.kernels.ref.rmsnorm`); on a CUDA
 tensor it launches the kernel or raises.
+
+:class:`RMSNormFunction` is the differentiable form: its forward launches
+the kernel, its backward gives the gradients of x and gamma by autograd
+through the plain version, recomputed from the saved inputs.  The JAX
+package has no backward kernel, so none is owed here.
 """
 
 from __future__ import annotations
@@ -44,3 +49,24 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *,
     _build.check(err, "rmsnorm")
     launches += 1
     return y
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """``rmsnorm`` with gradients for x and gamma: the kernel forward,
+    the plain version's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return rmsnorm(x, gamma, eps=eps)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        x, gamma = ctx.saved_tensors
+        xr = x.detach().requires_grad_()
+        gr = gamma.detach().requires_grad_()
+        with torch.enable_grad():
+            y = ref.rmsnorm(xr, gr, ctx.eps)
+        dx, dgamma = torch.autograd.grad(y, (xr, gr), grad_y)
+        return dx, dgamma, None

@@ -1,23 +1,28 @@
 """Decoder LM assembly, dense family: parameter specs, initialisation,
-the per-layer window schedule, and the embedding and head that frame a
-decode pass (:mod:`repro_torch.serve.decode` runs the layers).
+the per-layer window schedule, the embedding and head, and the
+full-sequence forward of training and prefill (decode passes run their
+layers in :mod:`repro_torch.serve.decode`).
 
 The other families of the reference (moe, ssm, hybrid, encdec) raise
-``NotImplementedError`` naming their ROADMAP item; the full-sequence
-training forward waits for the training slice (ROADMAP D5).
+``NotImplementedError`` naming their ROADMAP item, and so do the
+reference's distribution hooks (``mesh``, ``tp_axis``, ``seq_parallel``:
+ROADMAP A14).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import functools
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn.attention import NO_WINDOW
 from repro_torch.nn.core import init_params, stack_specs, torch_dtype
+from repro_torch.utils.tree import tree_leaves
 
 _FAMILY_ITEM = {
     "moe": "ROADMAP D2 (MoE and MLA decode)",
@@ -25,6 +30,7 @@ _FAMILY_ITEM = {
     "hybrid": "ROADMAP D3 (SSM decode and the ssd kernel)",
     "encdec": "ROADMAP D4 (encoder-decoder)",
 }
+_DIST_ITEM = "ROADMAP A14 (distribution)"
 
 
 def require_dense(cfg: ModelConfig, what: str) -> None:
@@ -116,3 +122,98 @@ def embed_forward(params: Dict, tokens: torch.Tensor,
         x = x * (cfg.d_model ** 0.5)   # gemma embeds are sqrt(d)-scaled
     return x
 
+
+# ---------------------------------------------------------------------------
+# full forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+def _no_dist(what: str, mesh=None, tp_axis=None) -> None:
+    if mesh is not None or tp_axis is not None:
+        raise NotImplementedError(f"{what}: mesh / tp_axis are not ported "
+                                  f"yet; see {_DIST_ITEM}")
+
+
+def apply_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
+               window: int = NO_WINDOW, q_offset: int = 0,
+               causal: bool = True, tp_axis: Optional[str] = None
+               ) -> torch.Tensor:
+    """Self-attention over the whole sequence: projections, optional
+    qk-norm, rope at ``q_offset + arange(S)``, ``chunked_attention``."""
+    _no_dist("apply_attn", tp_axis=tp_axis)
+    if cfg.mla:
+        raise NotImplementedError(f"apply_attn: MLA ({cfg.name}) is not "
+                                  f"ported yet; see {_FAMILY_ITEM['moe']}")
+    S = x.shape[1]
+    q, k, v = nn.qkv_project(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = nn.apply_rmsnorm(p["q_norm"], q)
+        k = nn.apply_rmsnorm(p["k_norm"], k)
+    positions = (q_offset + torch.arange(S, device=x.device))[None, :]
+    q = nn.apply_rope(q, positions, cfg.rope_theta)
+    k = nn.apply_rope(k, positions, cfg.rope_theta)
+    o = nn.chunked_attention(q, k, v, causal=causal, window=window,
+                             chunk=cfg.attn_chunk, q_offset=q_offset)
+    return nn.out_project(p, o)
+
+
+def dense_block(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
+                window: int = NO_WINDOW, mesh=None,
+                tp_axis: Optional[str] = None) -> torch.Tensor:
+    _no_dist("dense_block", mesh, tp_axis)
+    x = x + apply_attn(cfg, p["attn"], _apply_norm(cfg, p["ln1"], x),
+                       window=window)
+    x = x + _apply_mlp(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x))
+    return x
+
+
+def _unstack(stacked: Dict, n: int) -> List[Dict]:
+    """The per-layer parameter dicts of a stacked tree, as views.  One
+    ``unbind`` per leaf: its backward stacks the layers' gradients into
+    the stacked leaf's gradient once, where indexing layer by layer would
+    add a zero-filled full-size gradient per layer."""
+    out: List[Dict] = [{} for _ in range(n)]
+    for key, val in stacked.items():
+        parts = (_unstack(val, n) if isinstance(val, dict)
+                 else val.unbind(0))
+        for i in range(n):
+            out[i][key] = parts[i]
+    return out
+
+
+def _scan_layers(cfg: ModelConfig, block, stacked: Dict, x: torch.Tensor,
+                 windows: Optional[np.ndarray] = None, mesh=None,
+                 tp_axis: Optional[str] = None) -> torch.Tensor:
+    """The reference's ``lax.scan`` over the stacked layer axis, as a
+    Python loop.  With ``cfg.remat`` each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant): only its input is kept and
+    the layer is recomputed in the backward pass, the counterpart of
+    ``jax.checkpoint(policy=nothing_saveable)``."""
+    _no_dist("_scan_layers", mesh, tp_axis)
+    if cfg.seq_parallel:
+        raise NotImplementedError(f"seq_parallel ({cfg.name}) needs a mesh; "
+                                  f"see {_DIST_ITEM}")
+    if cfg.remat and cfg.remat_policy != "nothing":
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r}: only 'nothing' (recompute "
+            f"the whole layer) is ported")
+    n = tree_leaves(stacked)[0].shape[0]
+    for i, layer_p in enumerate(_unstack(stacked, n)):
+        kw = {} if windows is None else {"window": int(windows[i])}
+        body = functools.partial(block, cfg, layer_p, **kw)
+        if cfg.remat:
+            x = torch.utils.checkpoint.checkpoint(
+                body, x, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = body(x)
+    return x
+
+
+def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
+            mesh=None) -> torch.Tensor:
+    """tokens (B, S) -> f32 logits (B, S, vocab), dense family."""
+    require_dense(cfg, "forward")
+    _no_dist("forward", mesh)
+    x = embed_forward(params, tokens, cfg)
+    x = _scan_layers(cfg, dense_block, params["layers"], x,
+                     windows=window_schedule(cfg))
+    return head_forward(params, x, cfg)

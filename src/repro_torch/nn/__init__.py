@@ -1,7 +1,8 @@
 """PyTorch NN substrate: params as nested dicts of tensors + (spec, apply)
 function pairs, leaf for leaf the JAX package's layout."""
 
-from repro_torch.nn.attention import (NO_WINDOW, decode_attention,
+from repro_torch.nn.attention import (NO_WINDOW, chunked_attention,
+                                      decode_attention,
                                       gather_page_window, gather_pages,
                                       gqa_spec, masked_decode_attention,
                                       out_project, paged_decode_attention,
@@ -19,8 +20,8 @@ from repro_torch.nn.rope import apply_rope
 
 __all__ = ["NO_WINDOW", "ParamSpec", "apply_dense", "apply_embedding",
            "apply_gelu_mlp", "apply_layernorm", "apply_lm_head",
-           "apply_rmsnorm", "apply_rope", "apply_swiglu", "decode_attention",
-           "dense", "embedding_spec", "gather_page_window", "gather_pages",
+           "apply_rmsnorm", "apply_rope", "apply_swiglu", "chunked_attention",
+           "decode_attention", "dense", "embedding_spec", "gather_page_window", "gather_pages",
            "gelu_mlp_spec", "gqa_spec", "init_params", "layernorm_spec",
            "lm_head_spec", "masked_decode_attention",
            "out_project", "paged_decode_attention", "paged_flat_index",

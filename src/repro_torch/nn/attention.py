@@ -1,6 +1,8 @@
-"""GQA attention, the decode half: projections, the masked one-query
-softmax, and the dense and paged KV caches.
+"""GQA attention: projections, full-sequence attention, the masked
+one-query softmax, and the dense and paged KV caches.
 
+  * ``chunked_attention`` — training / prefill: the whole sequence in one
+    ``ops.flash_attention`` (on the card the hand-written kernel K6);
   * ``decode_attention`` / ``masked_decode_attention`` — one query against
     the KV cache, masked to the current position / sliding window;
   * the paged layout — physical pages shared by every request, addressed
@@ -8,8 +10,7 @@ softmax, and the dense and paged KV caches.
 
 Sliding windows are a per-layer int with ``NO_WINDOW`` meaning global.
 Cache writes happen in place (``index_copy_``): the reference's
-functional update would copy the whole cache every step.  The training
-half (``chunked_attention``) waits for the port's training slice.
+functional update would copy the whole cache every step.
 """
 
 from __future__ import annotations
@@ -18,10 +19,9 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_LOGIT, NO_WINDOW, wide
 from repro_torch.nn.core import apply_dense, dense
-
-NO_WINDOW = 1 << 30
-_NEG = -1e30
 
 
 def gqa_spec(d_model: int, n_heads: int, n_kv: int, head_dim: int,
@@ -51,6 +51,27 @@ def out_project(p: Dict, o: torch.Tensor) -> torch.Tensor:
     return apply_dense(p["wo"], o.reshape(B, S, H * D))
 
 
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = NO_WINDOW,
+                      chunk: int = 1024, q_offset: int = 0,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Sk, KH, D) with H % KH == 0.
+
+    The reference's online softmax over KV chunks, computed by one
+    ``ops.flash_attention`` call over the whole key axis (the kernel walks
+    its own key tiles); ``chunk`` is kept for the reference's contract
+    (``Sk % chunk == 0``).  Returns (B, Sq, H, Dv) in q's type."""
+    Sk = k.shape[1]
+    chunk = min(chunk, Sk)
+    assert Sk % chunk == 0, (Sk, chunk)
+    o = ops.flash_attention(q.transpose(1, 2).contiguous(),
+                            k.transpose(1, 2).contiguous(),
+                            v.transpose(1, 2).contiguous(), causal=causal,
+                            window=int(window), q_offset=q_offset,
+                            scale=scale)
+    return o.transpose(1, 2)
+
+
 def masked_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                             v_cache: torch.Tensor, mask: torch.Tensor, *,
                             scale: Optional[float] = None) -> torch.Tensor:
@@ -69,15 +90,15 @@ def masked_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     G = H // KH
     if scale is None:
         scale = D ** -0.5
-    qf = q.float().reshape(B, KH, G, D) * scale                # (B,KH,G,D)
-    kf = k_cache.float().permute(0, 2, 3, 1)                   # (B,KH,D,S)
+    qf = wide(q).reshape(B, KH, G, D) * scale                  # (B,KH,G,D)
+    kf = k_cache.to(qf.dtype).permute(0, 2, 3, 1)              # (B,KH,D,S)
     logits = torch.matmul(qf, kf)                              # (B,KH,G,S)
     maskb = mask[:, None, None, :] if mask.ndim == 2 else mask
-    logits = logits.masked_fill(~maskb, _NEG)
+    logits = logits.masked_fill(~maskb, NEG_LOGIT)
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
     ell = p.sum(dim=-1, keepdim=True)
-    vf = v_cache.float().permute(0, 2, 1, 3)                   # (B,KH,S,Dv)
+    vf = v_cache.to(qf.dtype).permute(0, 2, 1, 3)              # (B,KH,S,Dv)
     o = torch.matmul(p, vf) / ell                              # (B,KH,G,Dv)
     return o.reshape(B, 1, H, Dv).to(q.dtype)
 

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import matmul
+from repro_torch.kernels.ref import matmul, wide
 from repro_torch.nn.core import ParamSpec, apply_dense, dense
 
 
@@ -41,11 +41,11 @@ def layernorm_spec(d: int) -> Dict:
 
 
 def apply_layernorm(p: Dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    xf = wide(x)
     mu = xf.mean(dim=-1, keepdim=True)
     var = (xf - mu).square().mean(dim=-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+    return (y * p["scale"].to(y.dtype) + p["bias"].to(y.dtype)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -98,7 +98,8 @@ def apply_embedding(p: Dict, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(p: Dict, x: torch.Tensor) -> torch.Tensor:
     """Tied unembedding: logits in f32 for a stable softmax/loss."""
-    return matmul(x.float(), p["table"].float().T)
+    xf = wide(x)
+    return matmul(xf, p["table"].to(xf.dtype).T)
 
 
 def lm_head_spec(d_model: int, vocab: int) -> Dict:
@@ -106,4 +107,4 @@ def lm_head_spec(d_model: int, vocab: int) -> Dict:
 
 
 def apply_lm_head(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    return apply_dense(p["out"], x.float())
+    return apply_dense(p["out"], wide(x))

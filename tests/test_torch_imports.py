@@ -14,7 +14,9 @@ SUBPACKAGES = ["repro_torch", "repro_torch.configs", "repro_torch.kernels",
                "repro_torch.kernels.ops", "repro_torch.kernels._build",
                "repro_torch.nn", "repro_torch.models",
                "repro_torch.models.convert", "repro_torch.serve",
-               "repro_torch.launch.serve"]
+               "repro_torch.launch.serve", "repro_torch.optim",
+               "repro_torch.data", "repro_torch.ckpt", "repro_torch.train",
+               "repro_torch.utils", "repro_torch.launch.train"]
 
 
 def test_import_loads_no_jax_and_no_repro():

@@ -1,22 +1,30 @@
-"""The port's kernel modules on the CPU: the plain versions of ``rmsnorm``
-and ``fused_ff`` against the JAX package's Pallas kernels (interpret mode)
-and its jnp oracles, on the same seeded numpy inputs; and the wrappers'
-dispatch rules (a CPU tensor takes the plain version and launches
-nothing; anything else launches the kernel or raises).
+"""The port's kernel modules on the CPU: the plain versions of ``rmsnorm``,
+``fused_ff`` and ``flash_attention`` against the JAX package's Pallas
+kernels (interpret mode) and its jnp oracles, on the same seeded numpy
+inputs; the gradients of the kernels' ``autograd.Function``s against
+JAX's gradients of the same oracles; and the wrappers' dispatch rules (a
+CPU tensor takes the plain version and launches nothing; anything else
+launches the kernel or raises).
 
 Tolerances are those of ``tests/test_kernels.py`` for the same kernels:
 f32 atol 2e-5 (rmsnorm) / 1e-4 (fused_ff, 128-term dot products summed
-in another order), bf16 atol 2e-2 / 5e-2 (one bf16 rounding of the
-output, plus bf16 operands), rtol 2e-2 / 3e-2."""
+in another order) / 2e-4 (flash_attention), bf16 atol 2e-2 / 5e-2 / 3e-2
+(one bf16 rounding of the output, plus bf16 operands), rtol 2e-2 / 3e-2.
+Gradients are f32 against f32 at atol 1e-5 to 1e-4 (sums of up to 96
+terms in another order)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.flash_attention import \
+    flash_attention as pallas_flash_attention
 from repro.kernels.fused_ff import fused_ff as pallas_fused_ff
 from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
+from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import fused_ff as ff_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as rms_mod
@@ -144,3 +152,156 @@ def test_non_cpu_tensors_never_fall_back():
         ff_mod.fused_ff(torch.randn(2, 4), torch.randn(5, 3),
                         torch.randn(5, 3))
     assert (rms_mod.launches, ff_mod.launches) == (0, 0)
+
+
+# ---------------------------------------------------------------------------
+# K6 flash_attention
+# ---------------------------------------------------------------------------
+
+def _qkv(rng, shape_q, shape_kv, dtype="float32"):
+    arrs = [(rng.standard_normal(s)).astype(np.float32)
+            for s in (shape_q, shape_kv, shape_kv)]
+    return [_pair(a, dtype) for a in arrs]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_matches_pallas(causal):
+    """The Pallas kernel in interpret mode, S 256, D 64, bq = bk = 128,
+    atol 2e-4 (``tests/test_kernels.py::test_flash_attention``)."""
+    rng = np.random.default_rng(6)
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, (1, 4, 256, 64), (1, 4, 256, 64))
+    got = fa_mod.flash_attention(tq, tk, tv, causal=causal)
+    want = pallas_flash_attention(jq, jk, jv, bq=128, bk=128, causal=causal,
+                                  interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,d", [(256, 64), (512, 32)])
+def test_flash_attention_plain_matches_oracle(causal, s, d):
+    rng = np.random.default_rng(s + d)
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, (1, 4, s, d), (1, 4, s, d))
+    np.testing.assert_allclose(
+        _f32(ops.flash_attention(tq, tk, tv, causal=causal)),
+        _f32(jref.flash_attention(jq, jk, jv, causal=causal)), atol=2e-4)
+
+
+def test_flash_attention_plain_matches_oracle_bf16():
+    """``test_flash_attention_paper_config``: bf16, S 1024, D 32, atol
+    3e-2."""
+    rng = np.random.default_rng(7)
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, (1, 4, 1024, 32),
+                                        (1, 4, 1024, 32), "bfloat16")
+    got = ref.flash_attention(tq, tk, tv)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(got), _f32(jref.flash_attention(jq, jk,
+                                                                    jv)),
+                               atol=3e-2)
+
+
+def test_flash_attention_causal_alignment_with_fewer_queries():
+    """With Sq != Sk the JAX package's two causal attentions disagree: the
+    Pallas kernel masks k <= q aligned top-left (its rows start at key 0),
+    the jnp oracle aligns bottom-right (its last row sees every key).  The
+    port places row i at ``q_offset + i``: q_offset 0 is the kernel's
+    alignment, q_offset Sk - Sq the oracle's.  On the card the CUDA kernel
+    is held against this plain version only (``chip_smoke.py``)."""
+    rng = np.random.default_rng(8)
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, (1, 2, 128, 64), (1, 2, 256, 64))
+    top_left = pallas_flash_attention(jq, jk, jv, bq=128, bk=128,
+                                      causal=True, interpret=True)
+    np.testing.assert_allclose(_f32(ref.flash_attention(tq, tk, tv)),
+                               _f32(top_left), atol=2e-4)
+    np.testing.assert_allclose(
+        _f32(ref.flash_attention(tq, tk, tv, q_offset=128)),
+        _f32(jref.flash_attention(jq, jk, jv)), atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# the autograd Functions (on the CPU their forward is the plain version)
+# ---------------------------------------------------------------------------
+
+def _grads_close(got, want, atol, rtol=1e-4):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_f32(g), _f32(w), atol=atol, rtol=rtol)
+
+
+def test_rmsnorm_function_gradients_match_jax():
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((24, 96)).astype(np.float32)
+    g = (rng.standard_normal(96) * 0.5 + 1.0).astype(np.float32)
+    dy = rng.standard_normal((24, 96)).astype(np.float32)
+    tx, tg = (torch.from_numpy(a).requires_grad_() for a in (x, g))
+    y = rms_mod.RMSNormFunction.apply(tx, tg, 1e-6)
+    got = torch.autograd.grad(y, (tx, tg), torch.from_numpy(dy))
+    _, vjp = jax.vjp(jref.rmsnorm, jnp.asarray(x), jnp.asarray(g))
+    _grads_close(got, vjp(jnp.asarray(dy)), atol=1e-5)
+    assert rms_mod.launches == 0
+
+
+def test_fused_ff_function_gradients_match_jax():
+    rng = np.random.default_rng(12)
+    x = (rng.standard_normal((40, 64)) * 0.5).astype(np.float32)
+    wg, wu = ((rng.standard_normal((64, 96)) * 0.2).astype(np.float32)
+              for _ in range(2))
+    dy = rng.standard_normal((40, 96)).astype(np.float32)
+    ts = [torch.from_numpy(a).requires_grad_() for a in (x, wg, wu)]
+    got = torch.autograd.grad(ff_mod.FusedFFFunction.apply(*ts), ts,
+                              torch.from_numpy(dy))
+    _, vjp = jax.vjp(jref.fused_ff, *(jnp.asarray(a) for a in (x, wg, wu)))
+    _grads_close(got, vjp(jnp.asarray(dy)), atol=1e-4)
+    assert ff_mod.launches == 0
+
+
+@pytest.mark.parametrize("causal,window,q_offset", [
+    (True, ref.NO_WINDOW, 0), (True, 24, 40), (False, 32, 0)])
+def test_flash_attention_function_gradients(causal, window, q_offset,
+                                            monkeypatch):
+    """The Function's backward (the plain version's gradient, recomputed a
+    batch row and a KV-head group at a time — forced to one head here)
+    against autograd through the plain version in one piece, with GQA;
+    and, for the kernel's own case, against JAX's gradient of its jnp
+    oracle."""
+    monkeypatch.setattr(fa_mod, "_BACKWARD_ENTRIES", 1)
+    rng = np.random.default_rng(13)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((2, 4, 80, 16), (2, 2, 80, 16), (2, 2, 80, 16))]
+    dy = rng.standard_normal((2, 4, 80, 16)).astype(np.float32)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrs]
+    got = torch.autograd.grad(
+        fa_mod.FlashAttentionFunction.apply(*ts, causal, window, q_offset,
+                                            None), ts, torch.from_numpy(dy))
+    want = torch.autograd.grad(ref.flash_attention(*ts, **kw), ts,
+                               torch.from_numpy(dy))
+    _grads_close(got, want, atol=1e-5)
+    if window == ref.NO_WINDOW and q_offset == 0:
+        # the oracle has no GQA: repeat each KV head for its query heads
+        jq, jk, jv = (jnp.asarray(a) for a in arrs)
+        _, vjp = jax.vjp(lambda q, k, v: jref.flash_attention(
+            q, jnp.repeat(k, 2, axis=1), jnp.repeat(v, 2, axis=1),
+            causal=causal), jq, jk, jv)
+        _grads_close(got, vjp(jnp.asarray(dy)), atol=1e-4)
+    assert fa_mod.launches == 0
+
+
+def test_flash_attention_dispatch():
+    """CPU tensors take the plain version; other devices launch or raise;
+    malformed inputs raise before either."""
+    q = torch.randn(1, 4, 8, 16)
+    kv = torch.randn(1, 2, 8, 16)
+    assert torch.equal(fa_mod.flash_attention(q, kv, kv),
+                       ref.flash_attention(q, kv, kv))
+    meta = [torch.empty(t.shape, device="meta") for t in (q, kv, kv)]
+    with pytest.raises(ValueError):
+        fa_mod.flash_attention(*meta)
+    with pytest.raises(ValueError):     # H not a multiple of KH
+        fa_mod.flash_attention(torch.randn(1, 3, 8, 16), kv, kv)
+    with pytest.raises(ValueError):     # Dv != D
+        fa_mod.flash_attention(q, kv, torch.randn(1, 2, 8, 8))
+    with pytest.raises(ValueError):
+        fa_mod.flash_attention(q, kv, kv, window=0)
+    with pytest.raises(ValueError):     # forced onto the kernel on the CPU
+        with ops.forced("cuda"):
+            ops.flash_attention(q, kv, kv)
+    assert fa_mod.launches == 0
