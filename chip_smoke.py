@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port's main paths on one NVIDIA card.
 
-    python3 chip_smoke.py                  # the six phases below
+    python3 chip_smoke.py                  # the seven phases below
     python3 chip_smoke.py --profile DIR    # also: torch.profiler
                                            # breakdowns of decode passes
                                            # and of a train step, in DIR
@@ -15,7 +15,9 @@ Phases, each printed on lines of its own:
    serving path's shapes and a ragged one, and in bf16 at the training
    path's (8192 rows); K6 ``flash_attention`` in f32 and bf16 at the
    training path's shape, a ragged GQA shape with a window, a non-causal
-   shape and a query offset; the gradients of the three kernels'
+   shape and a query offset; K3 ``matmul_leakyrelu`` and K4 ``bmm`` in f32
+   and bf16 at ``tests/test_kernels.py``'s shapes, a ragged shape and the
+   optimizer path's shapes; the gradients of the three model kernels'
    ``autograd.Function``s against autograd through the plain versions at
    the training shapes; CUDA-event times of each kernel, its plain version
    and a library yardstick beside its bound;
@@ -34,7 +36,14 @@ Phases, each printed on lines of its own:
    kernel replaced by its plain version, and the launch counts equal
    steps x (4L + 1) (rmsnorm), x 2L (fused_ff) and x 2L
    (flash_attention): forward and per-layer recompute;
-6. the ``{"kernels": [...]}`` line, then the last line:
+6. optimizer main path — ``python -m repro_torch.launch.optimize
+   matmul_leakyrelu bmm --strategy greedy`` into a fresh schedule cache
+   must print the reference's cycles (8294 -> 8289, 8275 -> 8271), then
+   ``--deploy`` must read the artifacts back; each deployed kernel is
+   launched through the registry, ``get_kernel(name).kernel_fn(a, b,
+   **artifact.config)``, on the card at the path's shapes in bf16 and f32
+   and held against ``ref_fn``, and each launches once per call;
+7. the ``{"kernels": [...]}`` line, then the last line:
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line.  No phase catches its
@@ -65,6 +74,14 @@ LANES, D_MODEL, D_FF = 8, 2560, 6912
 # Training path shapes at stablelm-3b full width: global batch 4 x seq 2048.
 BATCH, SEQ, HEADS, HEAD_DIM = 4, 2048, 32, 80
 ROWS = BATCH * SEQ
+# Optimizer path shapes: K3 as a 3B-class MLP up-projection (8192 rows of
+# width 2560 into 6912), K4 as qwen1.5-4b's 20 heads of 128 over 2048
+# positions.
+MLR_SHAPE = (ROWS, D_MODEL, D_FF)               # M, K, N
+BMM_SHAPE = (20, 2048, 128, 2048)               # B, M, K, N
+# what launch.optimize prints for the pair: the reference's cycles
+OPTIMIZE_LINES = {"matmul_leakyrelu": "8294 -> 8289 cycles",
+                  "bmm": "8275 -> 8271 cycles"}
 
 
 def fail(msg: str) -> None:
@@ -102,13 +119,18 @@ def bound(nbytes: float, ops: float, dtype: str):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-KERNELS = {   # name -> (source, the TPU kernel it replaces)
+KERNELS = {   # name -> (source, the TPU kernel it replaces, headline path)
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
-                "src/repro/kernels/rmsnorm.py:26"),
+                "src/repro/kernels/rmsnorm.py:26", "train"),
     "fused_ff": ("src/repro_torch/kernels/csrc/fused_ff.cu",
-                 "src/repro/kernels/fused_ff.py:40"),
+                 "src/repro/kernels/fused_ff.py:40", "train"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention.py:66"),
+                        "src/repro/kernels/flash_attention.py:66", "train"),
+    "matmul_leakyrelu": ("src/repro_torch/kernels/csrc/gemm.cu",
+                         "src/repro/kernels/matmul_leakyrelu.py:43",
+                         "optimize"),
+    "bmm": ("src/repro_torch/kernels/csrc/gemm.cu",
+            "src/repro/kernels/bmm.py:35", "optimize"),
 }
 
 
@@ -126,7 +148,7 @@ def check_close(name, got, want, atol, rtol):
 def record(name, path, shape, err, ms, plain_ms, nbytes, ops, dtype,
            library_ms, **extra):
     t_bound, by = bound(nbytes, ops, dtype)
-    src, replaces = KERNELS[name]
+    src, replaces, _ = KERNELS[name]
     rec = dict(name=name, route="cuda", source=src, replaces=replaces,
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=t_bound,
                bound_by=by, library_ms=library_ms, shape=shape, path=path,
@@ -279,6 +301,93 @@ def flash_attention_checks(gen, records):
                     q, k, v, is_causal=True), 20)))
 
 
+def _f64_tolerance(plain, exact, floor):
+    """atol at a path's shape: twice the plain version's own error against
+    an f64 evaluation of the same function (kernel and plain version round
+    the same f32 sums, added in other orders), and at least the test's."""
+    return max(floor, 2 * (plain.double() - exact).abs().max().item())
+
+
+# tests/test_kernels.py's tolerances for K3 and K4: atol (_ATOL :18), rtol
+GEMM_TOL = {"float32": (2e-5, 2e-2), "bfloat16": (2e-2, 2e-2)}
+
+
+def _gemm_inputs(gen, dt, a_shape, b_shape, b_scale=None):
+    """a ~ N(0, 0.5^2); b ~ N(0, b_scale^2), by default K^-1/2 (a
+    projection's weights: a @ b is O(1))."""
+    import torch
+    if b_scale is None:
+        b_scale = a_shape[-1] ** -0.5
+    a = (torch.randn(*a_shape, device="cuda", generator=gen) * 0.5).to(dt)
+    b = (torch.randn(*b_shape, device="cuda", generator=gen)
+         * b_scale).to(dt)
+    return a, b
+
+
+def gemm_checks(gen, records):
+    """K3 and K4, called as the registry calls them (the wrappers, with the
+    reference's block-size keywords): ``tests/test_kernels.py``'s cases, a
+    ragged shape, and the optimizer path's shapes with times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import bmm as bmm_mod
+    from repro_torch.kernels import matmul_leakyrelu as mlr_mod
+    from repro_torch.kernels import ops
+
+    for dname, dt in (("bfloat16", torch.bfloat16),
+                      ("float32", torch.float32)):
+        atol, rtol = GEMM_TOL[dname]
+        for m, k, n, bm, bn, bk in ((128, 128, 128, 128, 128, 128),
+                                    (256, 256, 128, 128, 128, 128),
+                                    (128, 128, 256, 64, 128, 64),
+                                    (131, 77, 45, 1, 1, 1)):
+            # the test's inputs: both operands N(0, 0.5^2)
+            a, b = _gemm_inputs(gen, dt, (m, k), (k, n), 0.5)
+            check_close(f"matmul_leakyrelu {m}x{k}x{n} {dname}",
+                        mlr_mod.matmul_leakyrelu(a, b, bm=bm, bn=bn, bk=bk),
+                        ops.matmul_leakyrelu(a, b, impl="ref"), atol, rtol)
+        for B, m, k, n, blk in ((3, 128, 128, 128, 64), (2, 33, 17, 65, 1)):
+            a, b = _gemm_inputs(gen, dt, (B, m, k), (B, k, n), 0.5)
+            check_close(f"bmm ({B},{m},{k})x({B},{k},{n}) {dname}",
+                        bmm_mod.bmm(a, b, bm=blk, bn=blk, bk=blk),
+                        ops.bmm(a, b, impl="ref"), atol, rtol)
+
+        m, k, n = MLR_SHAPE
+        a, b = _gemm_inputs(gen, dt, (m, k), (k, n))
+        plain = ops.matmul_leakyrelu(a, b, impl="ref")
+        tol = _f64_tolerance(plain, ops.matmul_leakyrelu(
+            a.double(), b.double(), impl="ref"), atol)
+        shape = f"{m}x{k}x{n} {dname}"
+        err = check_close(f"matmul_leakyrelu {shape}",
+                          mlr_mod.matmul_leakyrelu(a, b), plain, tol, 0.0)
+        el = a.element_size()
+        records.append(record(
+            "matmul_leakyrelu", "optimize", shape, err,
+            event_ms(lambda: mlr_mod.matmul_leakyrelu(a, b), 10),
+            event_ms(lambda: ops.matmul_leakyrelu(a, b, impl="ref"), 10),
+            (m * k + k * n + m * n) * el, 2 * m * k * n, dname,
+            # no single PyTorch call computes LeakyReLU(a @ b)
+            None, library_composite_ms=event_ms(
+                lambda: F.leaky_relu(torch.matmul(a, b), 0.01), 10)))
+        del a, b, plain
+
+        B, m, k, n = BMM_SHAPE
+        a, b = _gemm_inputs(gen, dt, (B, m, k), (B, k, n))
+        plain = ops.bmm(a, b, impl="ref")
+        tol = _f64_tolerance(plain, ops.bmm(a.double(), b.double(),
+                                            impl="ref"), atol)
+        shape = f"({B},{m},{k})x({B},{k},{n}) {dname}"
+        err = check_close(f"bmm {shape}", bmm_mod.bmm(a, b), plain, tol, 0.0)
+        el = a.element_size()
+        records.append(record(
+            "bmm", "optimize", shape, err,
+            event_ms(lambda: bmm_mod.bmm(a, b), 20),
+            event_ms(lambda: ops.bmm(a, b, impl="ref"), 20),
+            B * (m * k + k * n + m * n) * el, 2 * B * m * k * n, dname,
+            event_ms(lambda: torch.bmm(a, b), 20)))
+        del a, b, plain
+
+
 def gradient_checks(gen):
     """Each kernel's ``autograd.Function`` against autograd through its
     plain version, at the training path's shapes in bf16.  Both backward
@@ -327,6 +436,7 @@ def kernel_phase():
     rmsnorm_checks(gen, records)
     fused_ff_checks(gen, records)
     flash_attention_checks(gen, records)
+    gemm_checks(gen, records)
     gradient_checks(gen)
     torch.cuda.empty_cache()
     return records
@@ -433,16 +543,23 @@ def _tree_to(tree, device, dtype=None):
 # phase 4: the serving main path — full-width qwen1.5-4b through ServeEngine
 # ---------------------------------------------------------------------------
 
+def _kernel_modules():
+    import importlib
+    return {name: importlib.import_module(f"repro_torch.kernels.{name}")
+            for name in KERNELS}
+
+
 def _reset_launches():
-    from repro_torch.kernels import flash_attention, fused_ff, rmsnorm
-    for mod in (rmsnorm, fused_ff, flash_attention):
+    for mod in _kernel_modules().values():
         mod.launches = 0
 
 
 def _read_launches():
-    from repro_torch.kernels import flash_attention, fused_ff, rmsnorm
-    return {"rmsnorm": rmsnorm.launches, "fused_ff": fused_ff.launches,
-            "flash_attention": flash_attention.launches}
+    return {name: mod.launches for name, mod in _kernel_modules().items()}
+
+
+def _expected_launches(**counts):
+    return {name: counts.get(name, 0) for name in KERNELS}
 
 
 def serve_phase(profile_dir):
@@ -483,8 +600,8 @@ def serve_phase(profile_dir):
     if report["completed"] != traffic.n_requests or len(reqs) \
             != traffic.n_requests or bad:
         fail(f"requests incomplete or out of vocab: {bad}")
-    want = {"rmsnorm": passes * (2 * cfg.n_layers + 1),
-            "fused_ff": passes * cfg.n_layers, "flash_attention": 0}
+    want = _expected_launches(rmsnorm=passes * (2 * cfg.n_layers + 1),
+                              fused_ff=passes * cfg.n_layers)
     print(f"  passes {passes}; launches {launches}; expected {want}",
           flush=True)
     if launches != want or passes == 0:
@@ -629,9 +746,9 @@ def train_phase(profile_dir):
     if not rel <= 1e-2:
         fail("step 0's loss disagrees with the plain versions' loss")
     L = cfg.n_layers
-    want = {"rmsnorm": TRAIN_STEPS * (4 * L + 1),
-            "fused_ff": TRAIN_STEPS * 2 * L,
-            "flash_attention": TRAIN_STEPS * 2 * L}
+    want = _expected_launches(rmsnorm=TRAIN_STEPS * (4 * L + 1),
+                              fused_ff=TRAIN_STEPS * 2 * L,
+                              flash_attention=TRAIN_STEPS * 2 * L)
     print(f"  launches {launches}; expected {want} (forward and per-layer "
           f"recompute)", flush=True)
     if launches != want:
@@ -675,6 +792,95 @@ def profile_train_step(trainer, out_dir: str):
           f"on), device busy {busy_us / 1e3:.1f} ms = {busy_us / 1e6 / wall:.1%}"
           f" of wall; kernel time by name:", flush=True)
     print("\n".join("    " + line for line in lines[:25]), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the optimizer main path — launch.optimize, deploy, the registry
+# ---------------------------------------------------------------------------
+
+def _optimize_cli(cache_dir, *extra):
+    """``python -m repro_torch.launch.optimize matmul_leakyrelu bmm
+    --strategy greedy``, as a user runs it; returns its output lines."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    cmd = [sys.executable, "-m", "repro_torch.launch.optimize",
+           *OPTIMIZE_LINES, "--strategy", "greedy", "--cache-dir", cache_dir,
+           *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=600)
+    print(f"  $ python {' '.join(cmd[1:])}  ({time.perf_counter() - t0:.1f} s)"
+          f"\n" + "\n".join("    " + line for line in proc.stdout.splitlines()),
+          flush=True)
+    if proc.returncode != 0:
+        fail(f"launch.optimize exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    return proc.stdout.splitlines()
+
+
+def optimize_phase():
+    """The optimizer pipeline on the host (its measurement is the simulated
+    TSASS machine, as in the reference), then the deployed kernels on the
+    card through the registry."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.kernels import get_kernel
+    from repro_torch.sched import OptimizationSession
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_cache_",
+                                 dir=os.path.join(ROOT, "build"))
+    try:
+        searched = _optimize_cli(cache_dir)
+        deployed = _optimize_cli(cache_dir, "--deploy")
+        for name, cycles in OPTIMIZE_LINES.items():
+            if not any(line.startswith(f"[optimize] {name}: {cycles} ")
+                       for line in searched):
+                fail(f"launch.optimize did not print {name}: {cycles}")
+            if not any(line.startswith(f"[optimize] {name}: cached config ")
+                       and f" {cycles} " in line for line in deployed):
+                fail(f"launch.optimize --deploy did not read back {name}: "
+                     f"{cycles}")
+        session = OptimizationSession(strategy="greedy", cache_dir=cache_dir)
+        configs = {name: session.deploy(name).config
+                   for name in OPTIMIZE_LINES}
+    finally:
+        shutil.rmtree(cache_dir)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    m, k, n = MLR_SHAPE
+    B, bm, bk, bn = BMM_SHAPE
+    shapes = {"matmul_leakyrelu": ((m, k), (k, n)),
+              "bmm": ((B, bm, bk), (B, bk, bn))}
+    inputs = {(name, dname): _gemm_inputs(gen, dt, *shapes[name])
+              for dname, dt in (("bfloat16", torch.bfloat16),
+                                ("float32", torch.float32))
+              for name in OPTIMIZE_LINES}
+    torch.cuda.synchronize()
+    _reset_launches()
+    outs = {key: get_kernel(key[0]).kernel_fn(a, b, **configs[key[0]])
+            for key, (a, b) in inputs.items()}
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    want = _expected_launches(matmul_leakyrelu=2, bmm=2)
+    print(f"  deployed configs {configs}; launches {launches}; expected "
+          f"{want}", flush=True)
+    if launches != want:
+        fail("the optimizer path did not launch each deployed kernel once "
+             "per call")
+    for (name, dname), got in outs.items():
+        a, b = inputs[name, dname]
+        ref_fn = get_kernel(name).ref_fn
+        plain = ref_fn(a, b)
+        if got.shape != plain.shape or not torch.isfinite(got).all():
+            fail(f"deployed {name} {dname}: misshapen or non-finite output")
+        tol = _f64_tolerance(plain, ref_fn(a.double(), b.double()),
+                             GEMM_TOL[dname][0])
+        check_close(f"deployed {name} {configs[name]} {dname}", got, plain,
+                    tol, 0.0)
+    del inputs, outs
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -726,13 +932,18 @@ def main() -> int:
     phase("5 training main path")
     launches["train"] = train_phase(args.profile)
 
-    phase("6 kernels")
+    phase("6 optimizer main path")
+    launches["optimize"] = optimize_phase()
+
+    phase("7 kernels")
     kernels = []
-    for name in KERNELS:
+    for name, (_, _, headline) in KERNELS.items():
         mine = [r for r in records if r["name"] == name]
-        # the headline numbers are those at the training path's shape
-        entry = {k: v for k, v in next(r for r in mine
-                                       if r["path"] == "train").items()
+        # the headline numbers are those at the kernel's own path's shape,
+        # in bf16
+        entry = {k: v for k, v in next(
+            r for r in mine if r["path"] == headline
+            and r["shape"].endswith("bfloat16")).items()
                  if k not in ("shape", "path")}
         by_path = {p: launches[p][name] for p in launches}
         if not sum(by_path.values()):

@@ -44,6 +44,11 @@ _SIGNATURES = {
     #  dtype, stream)
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               ctypes.c_float, _I, _I, _I, _I, _P],
+    # (a, b, out, M, K, N, negative_slope, dtype, stream)
+    "repro_matmul_leakyrelu": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I,
+                               _P],
+    # (a, b, out, B, M, K, N, dtype, stream)
+    "repro_bmm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -10,7 +10,9 @@ kernel and raises for a CPU tensor.  ``with forced("ref"):`` makes every
 call inside that passes no ``impl`` take the plain versions, so a whole
 model can be evaluated without the kernels on the card.  Model code
 (``repro_torch.nn``) calls these, so the serving and training paths go
-through the kernels on the card.
+through the kernels on the card.  ``matmul_leakyrelu`` and ``bmm`` have
+no gradient (nothing trains through them, as in the reference): on CUDA
+tensors they launch the kernel itself.
 """
 
 from __future__ import annotations
@@ -20,8 +22,10 @@ from typing import Iterator, Literal, Optional
 
 import torch
 
+from repro_torch.kernels import bmm as _bmm_mod
 from repro_torch.kernels import flash_attention as _fa_mod
 from repro_torch.kernels import fused_ff as _ff_mod
+from repro_torch.kernels import matmul_leakyrelu as _mlr_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rms_mod
 
@@ -81,3 +85,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    q_offset=q_offset, scale=scale)
     return _fa_mod.FlashAttentionFunction.apply(q, k, v, causal, window,
                                                 q_offset, scale)
+
+
+def matmul_leakyrelu(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
+                     bn: int = 128, bk: int = 128,
+                     negative_slope: float = 0.01,
+                     impl: Impl = None) -> torch.Tensor:
+    """a: (M, K), b: (K, N) -> LeakyReLU(a @ b).  The kernel takes M, N, K
+    that are multiples of the block sizes, as the reference's kernel
+    asserts; the plain version, as the reference's oracle, takes any."""
+    if _use_ref(impl, "matmul_leakyrelu", a, b):
+        return ref.matmul_leakyrelu(a, b, negative_slope)
+    return _mlr_mod.matmul_leakyrelu(a, b, bm=bm, bn=bn, bk=bk,
+                                     negative_slope=negative_slope)
+
+
+def bmm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128,
+        bk: int = 128, impl: Impl = None) -> torch.Tensor:
+    """a: (B, M, K), b: (B, K, N) -> a @ b, with the block-size contract
+    of :func:`matmul_leakyrelu`."""
+    if _use_ref(impl, "bmm", a, b):
+        return ref.bmm(a, b)
+    return _bmm_mod.bmm(a, b, bm=bm, bn=bn, bk=bk)

@@ -4,7 +4,7 @@ Each hand-written Hopper kernel in this package has its plain version
 here.  The wrappers take it for tensors that lie on the CPU, the CPU
 tests hold the JAX package's oracles against it, and ``chip_smoke.py``
 holds each kernel against it on the card.  The remaining oracles
-(matmul_leakyrelu, bmm, softmax, ssd) land with their kernels.
+(softmax, ssd) land with their kernels.
 """
 
 from __future__ import annotations
@@ -38,6 +38,23 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         y = (torch.cat([x2, x2]) @ w)[:1]
         return y.reshape(*lead, w.shape[-1])
     return x @ w
+
+
+def matmul_leakyrelu(a: torch.Tensor, b: torch.Tensor,
+                     negative_slope: float = 0.01) -> torch.Tensor:
+    """Fused GEMM + LeakyReLU epilogue: the product in f32, the epilogue
+    on the f32 sum, one rounding to a's type (paper Table 2:
+    mmLeakyReLu)."""
+    af = wide(a)
+    y = matmul(af, b.to(af.dtype))
+    return torch.where(y >= 0, y, negative_slope * y).to(a.dtype)
+
+
+def bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batch matrix multiplication (B, M, K) x (B, K, N) in f32, one
+    rounding to a's type (paper Table 2: bmm)."""
+    af = wide(a)
+    return torch.matmul(af, b.to(af.dtype)).to(a.dtype)
 
 
 def fused_ff(x: torch.Tensor, w_gate: torch.Tensor,

@@ -16,7 +16,9 @@ SUBPACKAGES = ["repro_torch", "repro_torch.configs", "repro_torch.kernels",
                "repro_torch.models.convert", "repro_torch.serve",
                "repro_torch.launch.serve", "repro_torch.optim",
                "repro_torch.data", "repro_torch.ckpt", "repro_torch.train",
-               "repro_torch.utils", "repro_torch.launch.train"]
+               "repro_torch.utils", "repro_torch.launch.train",
+               "repro_torch.core", "repro_torch.sched",
+               "repro_torch.launch.specs", "repro_torch.launch.optimize"]
 
 
 def test_import_loads_no_jax_and_no_repro():

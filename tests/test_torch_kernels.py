@@ -1,15 +1,16 @@
 """The port's kernel modules on the CPU: the plain versions of ``rmsnorm``,
-``fused_ff`` and ``flash_attention`` against the JAX package's Pallas
-kernels (interpret mode) and its jnp oracles, on the same seeded numpy
-inputs; the gradients of the kernels' ``autograd.Function``s against
-JAX's gradients of the same oracles; and the wrappers' dispatch rules (a
-CPU tensor takes the plain version and launches nothing; anything else
-launches the kernel or raises).
+``fused_ff``, ``flash_attention``, ``matmul_leakyrelu`` and ``bmm`` against
+the JAX package's Pallas kernels (interpret mode) and its jnp oracles, on
+the same seeded numpy inputs; the gradients of the model kernels'
+``autograd.Function``s against JAX's gradients of the same oracles; and
+the wrappers' dispatch rules (a CPU tensor takes the plain version and
+launches nothing; anything else launches the kernel or raises).
 
 Tolerances are those of ``tests/test_kernels.py`` for the same kernels:
-f32 atol 2e-5 (rmsnorm) / 1e-4 (fused_ff, 128-term dot products summed
-in another order) / 2e-4 (flash_attention), bf16 atol 2e-2 / 5e-2 / 3e-2
-(one bf16 rounding of the output, plus bf16 operands), rtol 2e-2 / 3e-2.
+f32 atol 2e-5 (rmsnorm, matmul_leakyrelu, bmm) / 1e-4 (fused_ff, 128-term
+dot products summed in another order) / 2e-4 (flash_attention), bf16 atol
+2e-2 / 5e-2 / 3e-2 (one bf16 rounding of the output, plus bf16 operands),
+rtol 2e-2 / 3e-2.
 Gradients are f32 against f32 at atol 1e-5 to 1e-4 (sums of up to 96
 terms in another order)."""
 
@@ -20,12 +21,18 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.bmm import bmm as pallas_bmm
 from repro.kernels.flash_attention import \
     flash_attention as pallas_flash_attention
 from repro.kernels.fused_ff import fused_ff as pallas_fused_ff
+from repro.kernels.matmul_leakyrelu import \
+    matmul_leakyrelu as pallas_matmul_leakyrelu
 from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
+from repro_torch.kernels import KERNELS
+from repro_torch.kernels import bmm as bmm_mod
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import fused_ff as ff_mod
+from repro_torch.kernels import matmul_leakyrelu as mlr_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as rms_mod
 
@@ -305,3 +312,105 @@ def test_flash_attention_dispatch():
         with ops.forced("cuda"):
             ops.flash_attention(q, kv, kv)
     assert fa_mod.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# K3 matmul_leakyrelu and K4 bmm
+# ---------------------------------------------------------------------------
+
+GEMM_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}     # tests/test_kernels.py:18
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n,k,bm,bn,bk", [
+    (128, 128, 128, 128, 128, 128),
+    (256, 128, 256, 128, 128, 128),
+    (128, 256, 128, 64, 128, 64),
+])
+def test_matmul_leakyrelu_matches_pallas_and_oracle(dtype, m, n, k, bm, bn,
+                                                    bk):
+    """``tests/test_kernels.py::test_matmul_leakyrelu``'s cases."""
+    rng = np.random.default_rng(m + n + k)
+    a = (rng.standard_normal((m, k)) * 0.5).astype(np.float32)
+    b = (rng.standard_normal((k, n)) * 0.5).astype(np.float32)
+    (ja, ta), (jb, tb) = _pair(a, dtype), _pair(b, dtype)
+    got = KERNELS["matmul_leakyrelu"].kernel_fn(ta, tb, bm=bm, bn=bn, bk=bk)
+    assert got.dtype == ta.dtype and got.shape == (m, n)
+    for want in (pallas_matmul_leakyrelu(ja, jb, bm=bm, bn=bn, bk=bk,
+                                         interpret=True),
+                 jref.matmul_leakyrelu(ja, jb)):
+        np.testing.assert_allclose(_f32(got), _f32(want),
+                                   atol=GEMM_ATOL[dtype], rtol=2e-2)
+    assert torch.equal(got, ops.matmul_leakyrelu(ta, tb))
+    assert (got < 0).any() and (got > 0).any()       # both epilogue sides
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bmm_matches_pallas_and_oracle(dtype):
+    """``tests/test_kernels.py::test_bmm``: 3 x 128^3 in 64-tiles."""
+    rng = np.random.default_rng(1)
+    a, b = ((rng.standard_normal((3, 128, 128)) * 0.5).astype(np.float32)
+            for _ in range(2))
+    (ja, ta), (jb, tb) = _pair(a, dtype), _pair(b, dtype)
+    got = KERNELS["bmm"].kernel_fn(ta, tb, bm=64, bn=64, bk=64)
+    assert got.dtype == ta.dtype and got.shape == (3, 128, 128)
+    for want in (pallas_bmm(ja, jb, bm=64, bn=64, bk=64, interpret=True),
+                 jref.bmm(ja, jb)):
+        np.testing.assert_allclose(_f32(got), _f32(want),
+                                   atol=GEMM_ATOL[dtype], rtol=2e-2)
+    assert torch.equal(got, ops.bmm(ta, tb))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemm_plain_versions_take_any_shape(dtype):
+    """Shapes no block size divides, against the jnp oracles (the plain
+    versions, like the oracles and the CUDA kernel, take any shape)."""
+    rng = np.random.default_rng(3)
+    a = (rng.standard_normal((37, 70)) * 0.5).astype(np.float32)
+    b = (rng.standard_normal((70, 19)) * 0.5).astype(np.float32)
+    (ja, ta), (jb, tb) = _pair(a, dtype), _pair(b, dtype)
+    np.testing.assert_allclose(
+        _f32(ref.matmul_leakyrelu(ta, tb, 0.2)),
+        _f32(jref.matmul_leakyrelu(ja, jb, negative_slope=0.2)),
+        atol=GEMM_ATOL[dtype], rtol=2e-2)
+    a3 = (rng.standard_normal((2, 5, 33)) * 0.5).astype(np.float32)
+    b3 = (rng.standard_normal((2, 33, 9)) * 0.5).astype(np.float32)
+    (ja3, ta3), (jb3, tb3) = _pair(a3, dtype), _pair(b3, dtype)
+    np.testing.assert_allclose(_f32(ref.bmm(ta3, tb3)),
+                               _f32(jref.bmm(ja3, jb3)),
+                               atol=GEMM_ATOL[dtype], rtol=2e-2)
+
+
+def test_gemm_wrappers_keep_the_reference_contract():
+    """The reference's divisibility assertion; CPU tensors launch nothing;
+    tensors elsewhere launch the kernel or raise, never the plain
+    version."""
+    a, b = torch.randn(128, 64), torch.randn(64, 128)
+    with pytest.raises(AssertionError):
+        mlr_mod.matmul_leakyrelu(a, b, bk=128)
+    with pytest.raises(AssertionError):
+        mlr_mod.matmul_leakyrelu(a, torch.randn(32, 128), bk=32)  # K != K2
+    with pytest.raises(AssertionError):
+        bmm_mod.bmm(torch.randn(2, 96, 64), torch.randn(2, 64, 64), bm=64,
+                    bn=64, bk=64)
+    assert torch.equal(mlr_mod.matmul_leakyrelu(a, b, bk=64),
+                       ref.matmul_leakyrelu(a, b))
+    a3, b3 = torch.randn(2, 64, 64), torch.randn(2, 64, 64)
+    assert torch.equal(bmm_mod.bmm(a3, b3, bm=64, bn=64, bk=64),
+                       ref.bmm(a3, b3))
+    with pytest.raises(ValueError):
+        mlr_mod.matmul_leakyrelu(torch.empty(128, 128, device="meta"),
+                                 torch.empty(128, 128, device="meta"))
+    with pytest.raises(ValueError):
+        bmm_mod.bmm(torch.empty(1, 128, 128, device="meta"),
+                    torch.empty(1, 128, 128, device="meta"))
+    with pytest.raises(ValueError):     # mixed devices
+        bmm_mod.bmm(a3, torch.empty(2, 64, 64, device="meta"), bm=64, bn=64,
+                    bk=64)
+    with pytest.raises(ValueError):     # CUDA demanded for CPU tensors
+        ops.matmul_leakyrelu(a, b, bk=64, impl="cuda")
+    with pytest.raises(ValueError):
+        ops.bmm(a3, b3, impl="cuda")
+    with pytest.raises(ValueError):     # bad ranks
+        bmm_mod.bmm(a, b)
+    assert (mlr_mod.launches, bmm_mod.launches) == (0, 0)
