@@ -17,7 +17,11 @@ Phases, each printed on lines of its own:
    training path's shape, a ragged GQA shape with a window, a non-causal
    shape and a query offset; K3 ``matmul_leakyrelu`` and K4 ``bmm`` in f32
    and bf16 at ``tests/test_kernels.py``'s shapes, a ragged shape and the
-   optimizer path's shapes; the gradients of the three model kernels'
+   optimizer path's shapes; K5 ``softmax`` in f32 and bf16 at
+   ``tests/test_kernels.py``'s shape (512 x 4096, br 8), at 8192 columns
+   (the largest ``CONFIGS`` entry), at a ragged shape and at the PPO fleet
+   path's shape (40960 x 4096: qwen1.5-4b's 20 heads x 2048 query
+   positions); the gradients of the three model kernels'
    ``autograd.Function``s against autograd through the plain versions at
    the training shapes; CUDA-event times of each kernel, its plain version
    and a library yardstick beside its bound;
@@ -36,15 +40,24 @@ Phases, each printed on lines of its own:
    kernel replaced by its plain version, and the launch counts equal
    steps x (4L + 1) (rmsnorm), x 2L (fused_ff) and x 2L
    (flash_attention): forward and per-layer recompute;
-6. optimizer main path — ``python -m repro_torch.launch.optimize
+6. optimizer main paths — (a) ``python -m repro_torch.launch.optimize
    matmul_leakyrelu bmm --strategy greedy`` into a fresh schedule cache
    must print the reference's cycles (8294 -> 8289, 8275 -> 8271), then
    ``--deploy`` must read the artifacts back; each deployed kernel is
    launched through the registry, ``get_kernel(name).kernel_fn(a, b,
    **artifact.config)``, on the card at the path's shapes in bf16 and f32
    and held against ``ref_fn``, and each launches once per call;
-7. the ``{"kernels": [...]}`` line, then the last line:
-   ``{"ok": true, "device": {...}}``.
+   (b) the PPO fleet: ``python -m repro_torch.launch.optimize --arch
+   qwen1.5-4b --timesteps 2048`` (the default strategy, ppo, with its
+   agent on the card; the budget cut from the default 8192 so that the
+   18 cells fit) into a fresh cache: every cell starts at the reference's
+   ``-O3`` cycles and ends at or below them, and ``--deploy`` reads the 18
+   back; one cell, softmax at the first bucket, runs at the default
+   budget, timed; then each of the six deployed kernels is launched
+   through the registry at the first bucket's config, in bf16 and f32, at
+   the path's shapes, held against ``ref_fn``, twice each;
+7. the ``{"kernels": [...]}`` line (K1-K6, with their launches by path),
+   then the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line.  No phase catches its
 own failure, and nothing falls back to the CPU or to a plain version.
@@ -57,6 +70,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -82,6 +96,16 @@ BMM_SHAPE = (20, 2048, 128, 2048)               # B, M, K, N
 # what launch.optimize prints for the pair: the reference's cycles
 OPTIMIZE_LINES = {"matmul_leakyrelu": "8294 -> 8289 cycles",
                   "bmm": "8275 -> 8271 cycles"}
+# The PPO fleet path: qwen1.5-4b's kernel fleet, 6 kernels x 3 buckets,
+# each cell starting at the reference's -O3 cycles (the same in every
+# bucket), searched at a budget cut from the default 8192 timesteps.
+FLEET_ARCH, FLEET_TIMESTEPS, FLEET_CELLS = "qwen1.5-4b", 2048, 18
+FLEET_O3 = {"matmul_leakyrelu": 35519, "fused_ff": 9631, "rmsnorm": 29371,
+            "flash_attention": 6488, "softmax": 66060, "bmm": 8275}
+FLEET_BUCKET = "256x4096xf32"          # the fleet's first bucket
+# K5 at the fleet path's shape: qwen1.5-4b's 20 heads x 2048 query
+# positions, 4096 columns (the deployed config's)
+SOFTMAX_ROWS = 20 * 2048
 
 
 def fail(msg: str) -> None:
@@ -131,6 +155,8 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces, headline path)
                          "optimize"),
     "bmm": ("src/repro_torch/kernels/csrc/gemm.cu",
             "src/repro/kernels/bmm.py:35", "optimize"),
+    "softmax": ("src/repro_torch/kernels/csrc/softmax.cu",
+                "src/repro/kernels/softmax.py:23", "fleet"),
 }
 
 
@@ -388,6 +414,43 @@ def gemm_checks(gen, records):
         del a, b, plain
 
 
+# K5: tests/test_kernels.py's atol 2e-6 in f32; in bf16 one bf16 rounding
+# of the output (2^-7 relative: f32 results on either side of a rounding
+# boundary)
+SOFTMAX_TOL = {"float32": (2e-6, 0.0), "bfloat16": (0.0, 2 ** -7)}
+
+
+def softmax_checks(gen, records):
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import softmax as sm_mod
+
+    for dname, dt in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        for rows, cols, br, path in ((512, 4096, 8, None),
+                                     (64, 8192, 4, None),
+                                     (1000, 1001, None, None),
+                                     (SOFTMAX_ROWS, 4096, 8, "fleet")):
+            # the test's inputs: N(0, 4)
+            x = (torch.randn(rows, cols, device="cuda", generator=gen)
+                 * 2.0).to(dt)
+            shape = f"{rows}x{cols} {dname}"
+            err = check_close(f"softmax {shape} br {br}",
+                              sm_mod.softmax(x, br=br),
+                              ops.softmax(x, impl="ref"), *SOFTMAX_TOL[dname])
+            if path is None:
+                continue
+            # bytes: x read once, y written once; operations: max,
+            # subtract, exp, add and divide per element, in f32
+            records.append(record(
+                "softmax", path, shape, err,
+                event_ms(lambda: sm_mod.softmax(x, br=br)),
+                event_ms(lambda: ops.softmax(x, impl="ref"), 10),
+                2 * rows * cols * x.element_size(), 5 * rows * cols,
+                "float32", event_ms(lambda: torch.softmax(x, -1))))
+            del x
+
+
 def gradient_checks(gen):
     """Each kernel's ``autograd.Function`` against autograd through its
     plain version, at the training path's shapes in bf16.  Both backward
@@ -437,6 +500,7 @@ def kernel_phase():
     fused_ff_checks(gen, records)
     flash_attention_checks(gen, records)
     gemm_checks(gen, records)
+    softmax_checks(gen, records)
     gradient_checks(gen)
     torch.cuda.empty_cache()
     return records
@@ -798,28 +862,27 @@ def profile_train_step(trainer, out_dir: str):
 # phase 6: the optimizer main path — launch.optimize, deploy, the registry
 # ---------------------------------------------------------------------------
 
-def _optimize_cli(cache_dir, *extra):
-    """``python -m repro_torch.launch.optimize matmul_leakyrelu bmm
-    --strategy greedy``, as a user runs it; returns its output lines."""
+def _optimize_cli(*args, timeout=600):
+    """``python -m repro_torch.launch.optimize ARGS``, as a user runs it;
+    returns its output lines and its wall time (s)."""
     env = dict(os.environ, PYTHONPATH=SRC)
-    cmd = [sys.executable, "-m", "repro_torch.launch.optimize",
-           *OPTIMIZE_LINES, "--strategy", "greedy", "--cache-dir", cache_dir,
-           *extra]
+    cmd = [sys.executable, "-m", "repro_torch.launch.optimize", *args]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                          timeout=600)
-    print(f"  $ python {' '.join(cmd[1:])}  ({time.perf_counter() - t0:.1f} s)"
-          f"\n" + "\n".join("    " + line for line in proc.stdout.splitlines()),
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    print(f"  $ python {' '.join(cmd[1:])}  ({wall:.1f} s)\n"
+          + "\n".join("    " + line for line in proc.stdout.splitlines()),
           flush=True)
     if proc.returncode != 0:
         fail(f"launch.optimize exited {proc.returncode}:\n{proc.stderr[-3000:]}")
-    return proc.stdout.splitlines()
+    return proc.stdout.splitlines(), wall
 
 
 def optimize_phase():
-    """The optimizer pipeline on the host (its measurement is the simulated
-    TSASS machine, as in the reference), then the deployed kernels on the
-    card through the registry."""
+    """(a) The optimizer pipeline on the §5.7 pair, greedy, on the host
+    (its measurement is the simulated TSASS machine, as in the reference),
+    then the deployed kernels on the card through the registry."""
     import shutil
     import tempfile
 
@@ -831,8 +894,10 @@ def optimize_phase():
     cache_dir = tempfile.mkdtemp(prefix="chip_smoke_cache_",
                                  dir=os.path.join(ROOT, "build"))
     try:
-        searched = _optimize_cli(cache_dir)
-        deployed = _optimize_cli(cache_dir, "--deploy")
+        pair = [*OPTIMIZE_LINES, "--strategy", "greedy", "--cache-dir",
+                cache_dir]
+        searched, _ = _optimize_cli(*pair)
+        deployed, _ = _optimize_cli(*pair, "--deploy")
         for name, cycles in OPTIMIZE_LINES.items():
             if not any(line.startswith(f"[optimize] {name}: {cycles} ")
                        for line in searched):
@@ -883,6 +948,165 @@ def optimize_phase():
     return launches
 
 
+_CELL = re.compile(r"\[optimize\] (\w+)@(\w+): (\d+) -> (\d+) cycles "
+                   r"\(([0-9.]+)x, ppo, ([0-9.]+)s\)")
+_SPLIT = re.compile(r"\[optimize\]   search ([0-9.]+)s agent on (\S+), "
+                    r"([0-9.]+)s environments on the host \((\d+) updates\)")
+_DEPLOYED = re.compile(r"\[optimize\] (\w+)@(\w+): cached config (\{.*\}) "
+                       r"(\d+) -> (\d+) cycles")
+
+
+def _fleet_cells(lines):
+    """{(kernel, bucket): cell} from launch.optimize's PPO output: each
+    result line and the split line after it."""
+    cells = {}
+    for line, nxt in zip(lines, lines[1:] + [""]):
+        m, split = _CELL.match(line), _SPLIT.match(nxt)
+        if m is None:
+            continue
+        if split is None:
+            fail(f"no agent/environment split after {line!r}")
+        cells[m.group(1), m.group(2)] = {
+            "baseline": int(m.group(3)), "optimized": int(m.group(4)),
+            "seconds": float(m.group(6)),
+            "agent_s": float(split.group(1)), "agent_device": split.group(2),
+            "env_s": float(split.group(3)), "updates": int(split.group(4))}
+    return cells
+
+
+def fleet_phase():
+    """(b) The paper's PPO agent, on the card, over qwen1.5-4b's kernel
+    fleet through ``launch.optimize --arch``; then the six deployed
+    kernels on the card through the registry."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.kernels import get_kernel
+    from repro_torch.sched import OptimizationSession, Scenario
+
+    print(f"  budget: --timesteps {FLEET_TIMESTEPS} a cell, cut from the "
+          f"default 8192 so that the {FLEET_CELLS} cells fit the run; one "
+          f"cell at the default below", flush=True)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_fleet_",
+                                 dir=os.path.join(ROOT, "build"))
+    one_dir = tempfile.mkdtemp(prefix="chip_smoke_cell_",
+                               dir=os.path.join(ROOT, "build"))
+    try:
+        fleet = ["--arch", FLEET_ARCH, "--cache-dir", cache_dir]
+        searched, wall = _optimize_cli(*fleet, "--timesteps",
+                                       str(FLEET_TIMESTEPS))
+        cells = _fleet_cells(searched)
+        if len(cells) != FLEET_CELLS:
+            fail(f"the fleet printed {len(cells)} PPO cells, not "
+                 f"{FLEET_CELLS}")
+        for (name, bucket), c in cells.items():
+            if c["baseline"] != FLEET_O3[name] \
+                    or not c["optimized"] <= c["baseline"] \
+                    or not c["agent_device"].startswith("cuda"):
+                fail(f"fleet cell {name}@{bucket}: {c} (want a start at "
+                     f"{FLEET_O3[name]}, an end at or below it, the agent "
+                     f"on the card)")
+        deployed, _ = _optimize_cli(*fleet, "--deploy")
+        back = {(m.group(1), m.group(2)): (int(m.group(4)), int(m.group(5)))
+                for m in map(_DEPLOYED.match, deployed) if m}
+        if back != {key: (c["baseline"], c["optimized"])
+                    for key, c in cells.items()}:
+            fail(f"--deploy read back {back}")
+        one, one_wall = _optimize_cli("softmax", "--scenarios", FLEET_BUCKET,
+                                      "--cache-dir", one_dir)
+        one_cell = next(iter(_fleet_cells(one).values()))
+        session = OptimizationSession(cache_dir=cache_dir)
+        configs = {name: session.deploy(
+            name, scenario=Scenario.parse(FLEET_BUCKET)).config
+            for name in FLEET_O3}
+    finally:
+        shutil.rmtree(cache_dir)
+        shutil.rmtree(one_dir)
+    summary = {
+        "cells": {f"{n}@{b}": c for (n, b), c in cells.items()},
+        "fleet_wall_s": wall, "timesteps": FLEET_TIMESTEPS,
+        "agent_s": sum(c["agent_s"] for c in cells.values()),
+        "env_s": sum(c["env_s"] for c in cells.values()),
+        "one_cell_default_budget": dict(one_cell, wall_s=one_wall,
+                                        cell=f"softmax@{FLEET_BUCKET}",
+                                        timesteps=8192)}
+    print("  PPO fleet " + json.dumps(summary), flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale \
+            + shift
+
+    m, k, n = MLR_SHAPE
+    B, bm, bk, bn = BMM_SHAPE
+    d = configs["flash_attention"]["d"]
+    shapes = {   # the path's shapes at the deployed configs (f32 masters)
+        "rmsnorm": lambda: (rnd(ROWS, configs["rmsnorm"]["cols"], scale=0.5),
+                            rnd(configs["rmsnorm"]["cols"], scale=0.5,
+                                shift=1.0)),
+        "fused_ff": lambda: (rnd(ROWS, D_MODEL, scale=0.5),
+                             rnd(D_MODEL, D_FF, scale=D_MODEL ** -0.5),
+                             rnd(D_MODEL, D_FF, scale=D_MODEL ** -0.5)),
+        "flash_attention": lambda: tuple(rnd(BATCH, 20, SEQ, d)
+                                         for _ in range(3)),
+        "softmax": lambda: (rnd(SOFTMAX_ROWS, configs["softmax"]["cols"],
+                                scale=2.0),),
+        "matmul_leakyrelu": lambda: (rnd(m, k, scale=0.5),
+                                     rnd(k, n, scale=k ** -0.5)),
+        "bmm": lambda: (rnd(B, bm, bk, scale=0.5),
+                        rnd(B, bk, bn, scale=bk ** -0.5)),
+    }
+    inputs = {}
+    for name, make in shapes.items():
+        master = make()
+        for dname, dt in (("bfloat16", torch.bfloat16),
+                          ("float32", torch.float32)):
+            inputs[name, dname] = tuple(t.to(dt) for t in master)
+    torch.cuda.synchronize()
+    _reset_launches()
+    outs = {key: get_kernel(key[0]).kernel_fn(*xs, **configs[key[0]])
+            for key, xs in inputs.items()}
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    want = _expected_launches(**{name: 2 for name in FLEET_O3})
+    print(f"  deployed configs {configs}; launches {launches}; expected "
+          f"{want}", flush=True)
+    if launches != want:
+        fail("the fleet path did not launch each deployed kernel once per "
+             "call")
+    # each kernel's phase-2 tolerance; at the path's shapes the GEMMs and
+    # fused_ff also get twice the plain version's own f32 error against
+    # an f64 evaluation (sums of 2560 terms)
+    tols = {"rmsnorm": {"bfloat16": (1e-5, 2 ** -7),
+                        "float32": (1e-5, 1e-5)},
+            "flash_attention": {"float32": (2e-4, 0.0),
+                                "bfloat16": (3e-2, 0.0)},
+            "softmax": SOFTMAX_TOL,
+            "fused_ff": {"bfloat16": (1e-4, 2 ** -7),
+                         "float32": (1e-5, 0.0)},
+            "matmul_leakyrelu": {k: (v[0], 0.0) for k, v in GEMM_TOL.items()},
+            "bmm": {k: (v[0], 0.0) for k, v in GEMM_TOL.items()}}
+    for (name, dname), got in outs.items():
+        xs = inputs[name, dname]
+        ref_fn = get_kernel(name).ref_fn
+        plain = ref_fn(*xs)
+        if got.shape != plain.shape or not torch.isfinite(got).all():
+            fail(f"deployed {name} {dname}: misshapen or non-finite output")
+        atol, rtol = tols[name][dname]
+        if name in ("fused_ff", "matmul_leakyrelu", "bmm"):
+            atol = _f64_tolerance(plain, ref_fn(*(t.double() for t in xs)),
+                                  atol)
+        check_close(f"deployed {name} {configs[name]} "
+                    f"{tuple(xs[0].shape)} {dname}", got, plain, atol, rtol)
+        del plain
+    del inputs, outs
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -892,6 +1116,7 @@ def main() -> int:
                          "with torch.profiler and write the tables to DIR")
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card "
@@ -932,8 +1157,9 @@ def main() -> int:
     phase("5 training main path")
     launches["train"] = train_phase(args.profile)
 
-    phase("6 optimizer main path")
+    phase("6 optimizer main paths")
     launches["optimize"] = optimize_phase()
+    launches["fleet"] = fleet_phase()
 
     phase("7 kernels")
     kernels = []
@@ -954,6 +1180,8 @@ def main() -> int:
                               if k not in ("name", "route", "source",
                                            "replaces")} for r in mine])
         kernels.append(entry)
+    print(f"  every phase passed in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

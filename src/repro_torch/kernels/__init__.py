@@ -7,14 +7,16 @@ its inputs, launches it on PyTorch's current stream and counts its
 launches, with its plain PyTorch version in :mod:`ref`.  :mod:`ops`
 dispatches between the two, and the model kernels' ``autograd.Function``s
 give them a gradient.  Ported so far: ``rmsnorm``, ``fused_ff``,
-``flash_attention``, ``matmul_leakyrelu`` and ``bmm``; the other two TPU
-kernels are listed in ``ROADMAP.md``.
+``flash_attention``, ``matmul_leakyrelu``, ``bmm`` and ``softmax``; the
+last TPU kernel, ``ssd``, is listed in ``ROADMAP.md``.
 
 ``KERNELS`` is the registry (port of the reference's
 ``repro/kernels/__init__.py``): a :class:`KernelDef` per optimizable
 kernel holds its schedule spec constructor, its autotune configs, the Hopper
 kernel's wrapper (``kernel_fn``) and its plain version (``ref_fn``).  It
-registers the §5.7 pair; the other kernels' specs are ROADMAP A10.
+registers the six ported kernels in the reference's order; ``ssd`` joins
+with its kernel (ROADMAP A12), so an ``--arch`` fleet that needs it (the
+SSM and hybrid families) stops at ``get_kernel("ssd")``.
 
     from repro_torch.kernels import register_kernel
     from repro_torch.sched import KernelDef
@@ -25,7 +27,8 @@ registers the §5.7 pair; the other kernels' specs are ROADMAP A10.
 from typing import Dict
 
 from repro_torch.kernels import (bmm, flash_attention, fused_ff,
-                                 matmul_leakyrelu, ops, ref, rmsnorm)
+                                 matmul_leakyrelu, ops, ref, rmsnorm,
+                                 softmax)
 from repro_torch.sched.session import KernelDef
 
 KERNELS: Dict[str, KernelDef] = {}
@@ -53,12 +56,24 @@ def get_kernel(name: str) -> KernelDef:
                        f"{sorted(KERNELS)}") from None
 
 
-register_kernel(KernelDef(
-    "matmul_leakyrelu", matmul_leakyrelu.make_spec, matmul_leakyrelu.CONFIGS,
-    matmul_leakyrelu.matmul_leakyrelu, ref.matmul_leakyrelu))
-register_kernel(KernelDef("bmm", bmm.make_spec, bmm.CONFIGS, bmm.bmm,
-                          ref.bmm))
+for _kdef in (
+    KernelDef("matmul_leakyrelu", matmul_leakyrelu.make_spec,
+              matmul_leakyrelu.CONFIGS, matmul_leakyrelu.matmul_leakyrelu,
+              ref.matmul_leakyrelu),
+    KernelDef("fused_ff", fused_ff.make_spec, fused_ff.CONFIGS,
+              fused_ff.fused_ff, ref.fused_ff),
+    KernelDef("bmm", bmm.make_spec, bmm.CONFIGS, bmm.bmm, ref.bmm),
+    KernelDef("flash_attention", flash_attention.make_spec,
+              flash_attention.CONFIGS, flash_attention.flash_attention,
+              ref.flash_attention),
+    KernelDef("softmax", softmax.make_spec, softmax.CONFIGS, softmax.softmax,
+              ref.softmax),
+    KernelDef("rmsnorm", rmsnorm.make_spec, rmsnorm.CONFIGS, rmsnorm.rmsnorm,
+              ref.rmsnorm),
+):
+    register_kernel(_kdef)
+del _kdef
 
 __all__ = ["KERNELS", "KernelDef", "bmm", "flash_attention", "fused_ff",
            "get_kernel", "matmul_leakyrelu", "ops", "ref",
-           "register_kernel", "rmsnorm", "unregister_kernel"]
+           "register_kernel", "rmsnorm", "softmax", "unregister_kernel"]

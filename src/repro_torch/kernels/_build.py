@@ -49,6 +49,8 @@ _SIGNATURES = {
                                _P],
     # (a, b, out, B, M, K, N, dtype, stream)
     "repro_bmm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (x, y, rows, cols, dtype, stream)
+    "repro_softmax": [_P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,6 @@
 """Attention with an online softmax: the hand-written Hopper kernel
-(``csrc/flash_attention.cu``) behind a checked wrapper, and its gradient.
+(``csrc/flash_attention.cu``) behind a checked wrapper, its gradient, and
+the kernel's schedule spec for the optimizer.
 
 Port of ``repro/kernels/flash_attention.py`` (paper Table 2
 "flash-attention"), generalised to what the model calls through it
@@ -15,13 +16,21 @@ launches the kernel, its backward recomputes the plain version under
 autograd from the saved q, k and v, one batch row and a bounded group of
 KV heads at a time.  The JAX package differentiates its jnp attention
 with XLA's autodiff and has no backward kernel, so none is owed here.
+
+``make_spec`` / ``CONFIGS`` are the schedule optimizer's view of the
+kernel (its steady-state tile loop and autotune space), as in the
+reference; ``tile_fn`` and ``epilogue_fn`` are torch functions that
+:mod:`repro_torch.sched.lowering` traces.
 """
 
 from __future__ import annotations
 
+from typing import Dict, Optional
+
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.sched.spec import KernelSpec, TileIO
 
 # Kernel launches made by this process (the wrapper adds one per launch).
 launches = 0
@@ -50,12 +59,26 @@ def _check_shapes(q, k, v, window, q_offset):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = ref.NO_WINDOW,
-                    q_offset: int = 0, scale: float = None) -> torch.Tensor:
+                    q_offset: int = 0, scale: float = None,
+                    bq: Optional[int] = None, bk: Optional[int] = None,
+                    d: Optional[int] = None) -> torch.Tensor:
     """q: (B, H, Sq, D); k, v: (B, KH, Sk, D) -> (B, H, Sq, D) in q's
     type.  ``v``'s head dim must equal ``D`` (MLA's Dv != D is not
-    taken)."""
+    taken).
+
+    ``bq``/``bk`` are the reference's query and key block sizes: Sq and
+    Sk must be multiples of those given, as the reference asserts.  ``d``
+    is the head dim a deployed config names; it must equal D.  The CUDA
+    kernel's own tiling does not depend on them (see
+    ``csrc/flash_attention.cu``)."""
     global launches
     _check_shapes(q, k, v, window, q_offset)
+    if (bq is not None and q.shape[2] % bq) \
+            or (bk is not None and k.shape[2] % bk):
+        raise AssertionError((tuple(q.shape), tuple(k.shape), bq, bk))
+    if d is not None and d != q.shape[-1]:
+        raise ValueError(f"flash_attention: the config's d={d} is not the "
+                         f"head dim {q.shape[-1]}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
     tensors = (q, k, v)
@@ -136,3 +159,43 @@ class FlashAttentionFunction(torch.autograd.Function):
         q, k, v = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(q, k, v, grad_out, **ctx.args)
         return dq, dk, dv, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# schedule-optimizer integration
+# ---------------------------------------------------------------------------
+
+def make_spec(cfg: Dict) -> KernelSpec:
+    bq, bk, d = cfg["bq"], cfg["bk"], cfg["d"]
+
+    def tile_fn(q, k, v):
+        s = q @ k.T
+        m = torch.amax(s, -1, keepdim=True)
+        p = torch.exp(s - m)
+        ell = torch.sum(p, -1, keepdim=True)
+        return (p @ v, ell)
+
+    def epilogue_fn(acc, ell):
+        return (acc / ell,)
+
+    return KernelSpec(
+        name="flash_attention",
+        tile_fn=tile_fn,
+        epilogue_fn=epilogue_fn,
+        inputs=[TileIO("q", (bq, d), invariant=True),
+                TileIO("k", (bk, d)), TileIO("v", (bk, d))],
+        outputs=[TileIO("o", (bq, d))],
+        steps=3,
+        accumulate=True,
+        config=dict(cfg),
+        flops_per_step=4 * bq * bk * d,
+    )
+
+
+# paper configuration: B=1, n_head=4, seq=4096, d_head=32 (+ larger heads)
+CONFIGS = [
+    {"bq": 128, "bk": 128, "d": 64},
+    {"bq": 128, "bk": 256, "d": 64},
+    {"bq": 256, "bk": 128, "d": 64},
+    {"bq": 128, "bk": 128, "d": 128},
+]

@@ -10,9 +10,9 @@ kernel and raises for a CPU tensor.  ``with forced("ref"):`` makes every
 call inside that passes no ``impl`` take the plain versions, so a whole
 model can be evaluated without the kernels on the card.  Model code
 (``repro_torch.nn``) calls these, so the serving and training paths go
-through the kernels on the card.  ``matmul_leakyrelu`` and ``bmm`` have
-no gradient (nothing trains through them, as in the reference): on CUDA
-tensors they launch the kernel itself.
+through the kernels on the card.  ``matmul_leakyrelu``, ``bmm`` and
+``softmax`` have no gradient (nothing trains through them, as in the
+reference): on CUDA tensors they launch the kernel itself.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from repro_torch.kernels import fused_ff as _ff_mod
 from repro_torch.kernels import matmul_leakyrelu as _mlr_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rms_mod
+from repro_torch.kernels import softmax as _sm_mod
 
 Impl = Optional[Literal["ref", "cuda"]]
 
@@ -73,6 +74,16 @@ def fused_ff(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, *,
     if _use_ref(impl, "fused_ff", x, w_gate, w_up):
         return ref.fused_ff(x, w_gate, w_up)
     return _ff_mod.FusedFFFunction.apply(x, w_gate, w_up)
+
+
+def softmax(x: torch.Tensor, *, br: Optional[int] = None,
+            impl: Impl = None) -> torch.Tensor:
+    """Softmax over the last axis of x (rows, cols).  ``br`` is the
+    reference's rows per program: rows must be a multiple of it when it
+    is given, as the reference's kernel asserts."""
+    if _use_ref(impl, "softmax", x):
+        return ref.softmax(x)
+    return _sm_mod.softmax(x, br=br)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

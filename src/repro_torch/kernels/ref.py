@@ -3,8 +3,8 @@
 Each hand-written Hopper kernel in this package has its plain version
 here.  The wrappers take it for tensors that lie on the CPU, the CPU
 tests hold the JAX package's oracles against it, and ``chip_smoke.py``
-holds each kernel against it on the card.  The remaining oracles
-(softmax, ssd) land with their kernels.
+holds each kernel against it on the card.  The remaining oracle (ssd)
+lands with its kernel.
 """
 
 from __future__ import annotations
@@ -65,6 +65,14 @@ def fused_ff(x: torch.Tensor, w_gate: torch.Tensor,
     g = matmul(xf, w_gate.to(xf.dtype))
     u = matmul(xf, w_up.to(xf.dtype))
     return (F.silu(g) * u).to(x.dtype)
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """Numerically stable softmax over the last axis, in f32 (max-subtract,
+    exp, normalize), cast to x's type once (paper Table 2: softmax)."""
+    xf = wide(x)
+    e = torch.exp(xf - xf.amax(dim=-1, keepdim=True))
+    return (e / e.sum(dim=-1, keepdim=True)).to(x.dtype)
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,

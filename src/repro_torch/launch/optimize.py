@@ -1,24 +1,33 @@
 """Schedule-optimizer launcher: run a kernel fleet through the session API.
 
-    PYTHONPATH=src python -m repro_torch.launch.optimize matmul_leakyrelu \
-        bmm --strategy greedy --backend fast
+    PYTHONPATH=src python -m repro_torch.launch.optimize rmsnorm softmax \
+        --strategy ppo --backend fast --timesteps 4096
+
+    # optimize every kernel an architecture's forward pass leans on, at
+    # every workload point its supported shapes imply
+    PYTHONPATH=src python -m repro_torch.launch.optimize --arch qwen1.5-4b
 
     # fleet campaign: scenarios × targets product, resumable per bucket
-    PYTHONPATH=src python -m repro_torch.launch.optimize matmul_leakyrelu \
-        bmm --strategy greedy --scenarios 8x4096,64x32768xbf16xhalf \
+    PYTHONPATH=src python -m repro_torch.launch.optimize rmsnorm softmax \
+        --scenarios 8x4096,64x32768xbf16xhalf \
         --targets tpu-tsass-v1,tpu-tsass-v2
 
     # deploy-time lookup only (no search, no autotune — §4.2 split)
-    PYTHONPATH=src python -m repro_torch.launch.optimize bmm --deploy
+    PYTHONPATH=src python -m repro_torch.launch.optimize rmsnorm --deploy
 
 Port of ``repro/launch/optimize.py``, with the reference's flags and
-defaults.  The search runs on the host, as in the reference: the
-simulated TSASS machine is the measurement, so there is no ``--device``.
-The registry holds the §5.7 pair (``matmul_leakyrelu``, ``bmm``); the
-default ``--strategy ppo`` and the ``beam``/``lookahead`` strategies
-raise ``NotImplementedError`` until they are ported (ROADMAP A7, A11),
-and ``--arch`` fails on the first fleet kernel whose spec is not ported
-yet (ROADMAP A10).
+defaults, and one more: ``--device``, where the PPO agent runs (default
+``cuda``; with the default and no card the launcher raises before any
+search, and never runs the agent on the CPU unless ``--device cpu`` asks
+for it).  The environments and their measurement, the simulated TSASS
+machine, run on the host whatever the strategy, so ``greedy`` and
+``random`` use no device.  For each PPO cell the launcher prints the
+search's wall time split between the agent's calls and the rest (the
+environments on the host).  The registry holds the six ported kernels;
+an ``--arch`` fleet that needs ``ssd`` (the SSM and hybrid families)
+fails on it until its spec is ported (ROADMAP A12), and the
+``beam``/``lookahead`` strategies raise ``NotImplementedError`` until the
+cost model is (ROADMAP A11).
 
 Sibling of ``launch.train`` / ``launch.serve``: one session shares the
 per-target stall tables and the cross-kernel measurement memo across the
@@ -35,6 +44,8 @@ import argparse
 import os
 from typing import List, Optional, Sequence, Tuple
 
+import torch
+
 from repro_torch.sched import (OptimizationSession, OptimizeRequest,
                                make_budgeted_strategy)
 from repro_torch.sched.backends import BACKENDS, make_backend, warm_start_memo
@@ -44,6 +55,7 @@ from repro_torch.sched.scenario import (DEFAULT_BUCKET, TARGETS,
                                         MachineTarget, Scenario, bucket_of,
                                         require_target)
 from repro_torch.sched.session import STRATEGIES
+from repro_torch.utils.device import resolve_device
 
 MEMO_FILENAME = "measure_memo.pkl"
 LEDGER_FILENAME = "campaign_state.json"
@@ -155,6 +167,10 @@ def main() -> None:
     ap.add_argument("--strict-memo", action="store_true",
                     help="die on a corrupt --memo-dir payload instead of "
                          "quarantining it and warm-starting empty")
+    ap.add_argument("--device", default=None,
+                    help="torch device of the PPO agent (default: cuda; "
+                         "raises without one); greedy and random search "
+                         "use no device")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args()
 
@@ -202,11 +218,20 @@ def main() -> None:
                 print(f"[optimize] warm-started memo from {memo_path}: "
                       f"{n} entries")
 
+    device = args.device
+    if args.strategy == "ppo" and not args.deploy:
+        # fail before any search, not once per cell inside the campaign
+        device = resolve_device(args.device)
+        if device.type == "cuda":
+            # the reference's agent computes in f32 (repro_torch.core.ppo)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
     session = OptimizationSession(
         backend=backend,
         strategy=make_budgeted_strategy(args.strategy,
                                         timesteps=args.timesteps,
-                                        episode_length=args.episode_length),
+                                        episode_length=args.episode_length,
+                                        device=device),
         cache_dir=args.cache_dir)
 
     def label(kernel: str, bucket: Optional[str],
@@ -255,6 +280,12 @@ def main() -> None:
         print(f"[optimize] {label(res.kernel, res.scenario, res.target)}: "
               f"{art.baseline_cycles:.0f} -> {art.optimized_cycles:.0f} "
               f"cycles ({art.speedup:.3f}x, {tag}, {res.seconds:.1f}s)")
+        if res.game is not None and res.game.stats:
+            last = res.game.stats[-1]
+            print(f"[optimize]   search {last['agent_seconds']:.2f}s agent "
+                  f"on {res.game.agent.device}, {last['env_seconds']:.2f}s "
+                  f"environments on the host "
+                  f"({len(res.game.stats)} updates)")
     for res in failed:
         state = "skipped (retry budget spent)" if res.skipped else "FAILED"
         print(f"[optimize] {label(res.kernel, res.scenario, res.target)}: "

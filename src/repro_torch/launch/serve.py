@@ -23,7 +23,7 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.models import for_config
 from repro_torch.serve import (ServeEngine, Tenant, TrafficConfig, generate,
                                run_load)
-from repro_torch.serve.engine import resolve_device
+from repro_torch.utils.device import resolve_device
 
 
 def _print_fairness(engine) -> None:

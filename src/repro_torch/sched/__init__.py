@@ -5,8 +5,8 @@ Port of ``repro/sched``.  The public surface is the session API
 (:mod:`repro_torch.sched.session`): ``OptimizationSession`` over pluggable
 measurement backends (:mod:`repro_torch.sched.backends`) and search
 strategies, with fleet-scale ``optimize_many`` and index-driven
-``deploy``.  The reference's deprecated ``CuAsmRL`` shim
-(``sched/api.py``) is not ported (ROADMAP A7).
+``deploy``.  ``CuAsmRL`` survives as a deprecated one-kernel shim
+(:mod:`repro_torch.sched.api`).
 """
 
 # the session first: it binds the autotune *module*, which the line
@@ -18,6 +18,7 @@ from repro_torch.sched.session import (STRATEGIES, GreedySwapStrategy,
                                        RandomSearchStrategy, SearchOutcome,
                                        SearchStrategy, make_budgeted_strategy,
                                        make_strategy)
+from repro_torch.sched.api import CuAsmRL
 from repro_torch.sched.autotune import TuneResult, autotune
 from repro_torch.sched.backends import (BACKENDS, FastTimingBackend,
                                         MeasureBackend, OracleBackend,
@@ -56,7 +57,7 @@ __all__ = [
     "unregister_target", "nearest_bucket", "resolve_schedule",
     "schedule_plan",
     # building blocks
-    "KernelDef", "TARGET", "TuneResult", "autotune", "naive_schedule",
+    "CuAsmRL", "KernelDef", "TARGET", "TuneResult", "autotune", "naive_schedule",
     "schedule", "LoweredKernel", "lower", "KernelSpec", "TileIO",
     "probabilistic_test",
 ]

@@ -35,9 +35,10 @@ are keyed by; a call with no mapping raises rather than guess.
 
 Two traits of the reference as installed (jax 0.9) that the port keeps,
 so that listings and cycles agree:
-  * ``jnp.where`` traces as a call named ``jit``, which ``_CALL_PRIMS``
-    (listing ``pjit``) does not walk into: the whole call lowers as one
-    fallback VADD over its first two operands (predicate, true value);
+  * ``jnp.where`` and ``jax.nn.silu`` trace as calls named ``jit``, which
+    ``_CALL_PRIMS`` (listing ``pjit``) does not walk into: the whole call
+    lowers through the eltwise fallback, VADDs over its first two operands
+    (``where``'s predicate and true value; ``silu``'s one operand);
   * literals are keyed by their f32 value (jax's weak-typed ``0`` and
     ``0.0`` are one literal), one register per distinct value, in order
     of first use.
@@ -138,11 +139,15 @@ _PRIM = {
     "exp": "exp", "log": "log", "rsqrt": "rsqrt", "sqrt": "sqrt",
     "sigmoid": "logistic", "tanh": "tanh", "abs": "abs",
     "lt": "lt", "gt": "gt", "ge": "ge", "eq": "eq",
-    # jnp.where is a call named "jit" that the reference does not walk
-    # into (module note): it lowers through the eltwise fallback
-    "where": "jit",
+    # jnp.where and jax.nn.silu are calls named "jit" that the reference
+    # does not walk into (module note): they lower through the eltwise
+    # fallback
+    "where": "jit", "silu": "jit",
     "sum": "reduce_sum", "amax": "reduce_max", "amin": "reduce_min",
-    "reshape": "reshape", "t": "transpose", "float": "convert_element_type",
+    # jnp.mean is reduce_sum, then div by the literal count (_Lowerer._walk)
+    "mean": "mean",
+    "reshape": "reshape", "t": "transpose", "T": "transpose",
+    "float": "convert_element_type",
 }
 
 
@@ -191,15 +196,19 @@ class _Traced:
 
     @staticmethod
     def prim(node) -> str:
-        name = (node.target if node.op == "call_method"
-                else getattr(node.target, "__name__", str(node.target)))
+        if node.target is getattr:           # an attribute: ``k.T``
+            name = node.args[1]
+        elif node.op == "call_method":
+            name = node.target
+        else:
+            name = getattr(node.target, "__name__", str(node.target))
         try:
             return _PRIM[name]
         except KeyError:
             raise NotImplementedError(
                 f"lowering: no TSASS mapping for the torch call {name!r} "
-                f"(the tile functions of the kernels still to port arrive "
-                f"with their mappings, ROADMAP A10)") from None
+                f"(add it to _PRIM as the jax primitive its jnp "
+                f"counterpart traces to)") from None
 
 
 class _Lowerer:
@@ -326,6 +335,17 @@ class _Lowerer:
             elif prim in _REDUCE_OP:
                 env[node] = self._emit_reduce(traced, node, env,
                                               _REDUCE_OP[prim])
+            elif prim == "mean":
+                # jax traces jnp.mean as reduce_sum, broadcast_in_dim (a
+                # view), then div by the count as an f32 literal
+                total = self._emit_reduce(traced, node, env,
+                                          _REDUCE_OP["reduce_sum"])[0]
+                count = (int(np.prod(traced.shape(node.args[0])))
+                         // max(1, int(np.prod(traced.shape(node)))))
+                env[node] = self._emit_vpu(
+                    traced.shape(node),
+                    [total, self._read(env, float(count))[0]],
+                    _ELTWISE_OP["div"])
             else:   # elementwise / fallback
                 env[node] = self._emit_eltwise(
                     traced, node, env, _ELTWISE_OP.get(prim, "VADD"))
@@ -360,11 +380,14 @@ class _Lowerer:
         return [accs[0]]
 
     def _emit_eltwise(self, traced: _Traced, node, env, opcode) -> List[str]:
-        out_elems = int(np.prod(traced.shape(node))) or 1
-        n = max(1, math.ceil(out_elems / VPU_ELEMS))
         operands = [a for a in node.args
                     if isinstance(a, (torch.fx.Node, bool, int, float))]
         srcs = [self._read(env, a)[0] for a in operands[:3]]
+        return self._emit_vpu(traced.shape(node), srcs, opcode)
+
+    def _emit_vpu(self, out_shape, srcs: List[str], opcode) -> List[str]:
+        out_elems = int(np.prod(out_shape)) or 1
+        n = max(1, math.ceil(out_elems / VPU_ELEMS))
         dsts = []
         for i in range(min(n, 16)):
             d = self.ra.data()

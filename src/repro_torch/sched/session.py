@@ -7,8 +7,8 @@ re-architected around three small protocols):
   the cross-kernel measurement memo;
 * :class:`SearchStrategy` — how the schedule space is searched (PPO over
   the assembly game, plus cheap greedy-swap and random-search baselines for
-  A/B tests and CI; the port runs the greedy and random strategies, PPO
-  and the cost-model-guided ones raise until they are ported);
+  A/B tests and CI; the cost-model-guided ones raise until they are
+  ported);
 * :class:`OptimizeRequest` / :class:`OptimizeResult` — declarative inputs
   and outputs replacing the old tangle of constructor kwargs.
 
@@ -16,10 +16,10 @@ re-architected around three small protocols):
 built once and shared by every kernel), the shared memo (via its backend)
 and a versioned :class:`repro_torch.sched.cache.ScheduleCache`, and exposes
 
-    session = OptimizationSession(strategy="greedy")
-    res  = session.optimize(OptimizeRequest(kernel="bmm"))
-    fleet = session.optimize_many(["matmul_leakyrelu", "bmm"])
-    art  = session.deploy("bmm")            # index lookup; no autotune,
+    session = OptimizationSession()
+    res  = session.optimize(OptimizeRequest(kernel="rmsnorm"))
+    fleet = session.optimize_many(["rmsnorm", "softmax", "fused_ff"])
+    art  = session.deploy("rmsnorm")        # index lookup; no autotune,
                                             # no machine execution
 
 ``optimize_many`` runs a whole kernel fleet through one session — serially
@@ -30,7 +30,8 @@ Kernel names resolve through the ``@register_kernel`` registry in
 
 Port of ``repro/sched/session.py``; the port's :class:`KernelDef` holds
 the kernel's hand-written Hopper callable where the reference holds its
-Pallas one.
+Pallas one, and its :class:`PPOStrategy` runs the agent on a device (the
+card unless asked for the CPU) while the environments run on the host.
 """
 
 from __future__ import annotations
@@ -45,8 +46,10 @@ from typing import (Dict, Iterable, List, Optional, Protocol, Sequence,
 import numpy as np
 
 from repro_torch.core.env import AssemblyGame
+from repro_torch.core.game import GameResult, train_on_program
 from repro_torch.core.isa import Instruction
 from repro_torch.core.microbench import build_stall_table
+from repro_torch.core.ppo import PPOConfig
 from repro_torch.sched import autotune as autotune_mod
 from repro_torch.sched import baseline, lowering, verify
 from repro_torch.sched.backends import (FastTimingBackend, MeasureBackend,
@@ -85,9 +88,8 @@ class OptimizeRequest:
     ``kernel`` is a registry name or a :class:`KernelDef`; ``config=None``
     autotunes the kernel's config grid first (§3.1 hierarchical search),
     a pinned config skips autotune.  ``strategy`` overrides the session
-    default (a name from :data:`STRATEGIES` or a strategy instance).
-    The reference's ``ppo`` field (the PPO strategy's config) arrives
-    with the PPO strategy (ROADMAP A7).
+    default (a name from :data:`STRATEGIES` or a strategy instance);
+    ``ppo`` configures the PPO strategy when it is the one running.
 
     ``scenario`` tunes the kernel for one workload point — the scenario
     flows into autotune and spec construction, and the artifact lands in
@@ -105,6 +107,7 @@ class OptimizeRequest:
     verbose: bool = False
     scenario: Optional[Scenario] = None
     target: Optional[Union[str, MachineTarget]] = None
+    ppo: Optional[PPOConfig] = None
 
     @property
     def kernel_name(self) -> str:
@@ -121,6 +124,7 @@ class OptimizeResult:
     backend: str
     stats: List[Dict]                       # per-update / per-step search rows
     tune: Optional[autotune_mod.TuneResult] = None
+    game: Optional[GameResult] = None       # populated by the PPO strategy
     seconds: float = 0.0
     scenario: Optional[str] = None          # bucket key (None = default)
     target: str = TARGET
@@ -170,6 +174,7 @@ class SearchOutcome:
     best_cycles: float
     baseline_cycles: float
     stats: List[Dict]
+    game: Optional[GameResult] = None
 
 
 @runtime_checkable
@@ -187,19 +192,34 @@ def _not_ported(name: str, needs: str, item: str):
         raise NotImplementedError(
             f"the {name!r} search strategy needs {needs}, which the port "
             f"does not have yet (ROADMAP {item}); the port runs the "
-            f"'greedy' and 'random' strategies")
+            f"'ppo', 'greedy' and 'random' strategies")
     return make
 
 
 class PPOStrategy:
-    """The paper's assembly game: PPO over vectorized envs (the
-    reference's ``repro.core.game.train_on_program``).  Not ported yet:
-    constructing it raises, naming ROADMAP A7."""
+    """The paper's assembly game: PPO over vectorized envs
+    (:func:`repro_torch.core.game.train_on_program`), measuring through
+    the backend's machine/memo.  The agent runs on ``device`` (default:
+    the card; the search raises without one)."""
 
     name = "ppo"
 
-    def __init__(self):
-        _not_ported("ppo", "core/ppo.py and core/game.py", "A7")()
+    def __init__(self, ppo: Optional[PPOConfig] = None, device=None):
+        self.ppo = ppo or PPOConfig()
+        self.device = device
+
+    def search(self, program, *, stall_db, backend, owner="", verbose=False):
+        game = train_on_program(
+            program, stall_db=stall_db, cfg=self.ppo,
+            machine_factory=backend.new_machine,
+            use_fast_measure=backend.fast_measure,
+            measure_workers=backend.measure_workers,
+            measure_cache=backend.memo_view(program, owner),
+            verbose=verbose, device=self.device)
+        return SearchOutcome(best_program=game.best_program,
+                             best_cycles=game.best_cycles,
+                             baseline_cycles=game.baseline_cycles,
+                             stats=game.stats, game=game)
 
 
 def _strategy_env(program, stall_db, backend, owner, episode_length):
@@ -303,13 +323,20 @@ def make_strategy(name: str, **kwargs) -> SearchStrategy:
 
 
 def make_budgeted_strategy(name: str, timesteps: int = 8192,
-                           episode_length: int = 32) -> SearchStrategy:
+                           episode_length: int = 32,
+                           num_envs: int = 8, device=None) -> SearchStrategy:
     """A strategy instance whose search budget honours the launcher-style
     ``--timesteps`` / ``--episode-length`` flags, for every strategy.  One
-    definition so the CLI and the tests stay in lockstep: greedy applies
-    up to one episode of steepest-descent moves; random search spends the
-    timestep budget across restarts; the strategies not ported yet raise
-    (their budgets arrive with them)."""
+    definition so the CLI and the tests stay in lockstep: PPO clamps its
+    rollout length to the budget and runs its agent on ``device``; greedy
+    applies up to one episode of steepest-descent moves; random search
+    spends the timestep budget across restarts; the strategies not ported
+    yet raise (their budgets arrive with them)."""
+    if name == "ppo":
+        return PPOStrategy(PPOConfig(
+            total_timesteps=timesteps, num_envs=num_envs,
+            num_steps=max(8, min(128, timesteps // num_envs)),
+            episode_length=episode_length), device=device)
     if name == "greedy":
         return GreedySwapStrategy(max_steps=episode_length)
     if name == "random":
@@ -416,7 +443,13 @@ class OptimizationSession:
 
     def _resolve_strategy(self, req: OptimizeRequest) -> SearchStrategy:
         s = req.strategy if req.strategy is not None else self.strategy
-        return make_strategy(s) if isinstance(s, str) else s
+        if isinstance(s, str):
+            if s == "ppo":
+                return PPOStrategy(req.ppo)
+            return make_strategy(s)
+        if req.ppo is not None and isinstance(s, PPOStrategy):
+            return PPOStrategy(req.ppo, device=s.device)
+        return s
 
     # -- §4.2 Listing 5: invoke optimization ----------------------------------
 
@@ -499,7 +532,7 @@ class OptimizationSession:
         return OptimizeResult(
             kernel=kdef.name, artifact=art, config=cfg, from_cache=False,
             strategy=strategy.name, backend=backend.name,
-            stats=outcome.stats, tune=tune,
+            stats=outcome.stats, tune=tune, game=outcome.game,
             seconds=time.time() - t_start, scenario=bucket,
             target=target.name,
             degraded=bool(getattr(backend, "circuit_open", False)))

@@ -46,18 +46,7 @@ from repro_torch.serve.decode import (decode_step, init_caches,
 from repro_torch.serve.pool import KVBlockPool, PoolCapacityError
 from repro_torch.serve.scheduler import (DEFAULT_TENANT, FairScheduler,
                                          Request, Tenant)
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``device`` if given, else the
-    card.  Never falls back to the CPU: with no CUDA device and none
-    asked for, this raises."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run on the CPU")
-    return torch.device("cuda")
+from repro_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass

@@ -27,7 +27,7 @@ from repro_torch.data.pipeline import make_data
 from repro_torch.models import lm
 from repro_torch.optim import adamw as adamw_fn
 from repro_torch.optim import linear_warmup_cosine
-from repro_torch.serve.engine import resolve_device
+from repro_torch.utils.device import resolve_device
 from repro_torch.train.step import TrainState, make_train_step
 from repro_torch.utils.tree import tree_map
 

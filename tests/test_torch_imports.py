@@ -18,7 +18,10 @@ SUBPACKAGES = ["repro_torch", "repro_torch.configs", "repro_torch.kernels",
                "repro_torch.data", "repro_torch.ckpt", "repro_torch.train",
                "repro_torch.utils", "repro_torch.launch.train",
                "repro_torch.core", "repro_torch.sched",
-               "repro_torch.launch.specs", "repro_torch.launch.optimize"]
+               "repro_torch.launch.specs", "repro_torch.launch.optimize",
+               "repro_torch.core.ppo", "repro_torch.core.game",
+               "repro_torch.core.moves", "repro_torch.sched.api",
+               "repro_torch.kernels.softmax"]
 
 
 def test_import_loads_no_jax_and_no_repro():

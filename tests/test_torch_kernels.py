@@ -1,5 +1,6 @@
 """The port's kernel modules on the CPU: the plain versions of ``rmsnorm``,
-``fused_ff``, ``flash_attention``, ``matmul_leakyrelu`` and ``bmm`` against
+``fused_ff``, ``flash_attention``, ``matmul_leakyrelu``, ``bmm`` and
+``softmax`` against
 the JAX package's Pallas kernels (interpret mode) and its jnp oracles, on
 the same seeded numpy inputs; the gradients of the model kernels'
 ``autograd.Function``s against JAX's gradients of the same oracles; and
@@ -10,7 +11,8 @@ Tolerances are those of ``tests/test_kernels.py`` for the same kernels:
 f32 atol 2e-5 (rmsnorm, matmul_leakyrelu, bmm) / 1e-4 (fused_ff, 128-term
 dot products summed in another order) / 2e-4 (flash_attention), bf16 atol
 2e-2 / 5e-2 / 3e-2 (one bf16 rounding of the output, plus bf16 operands),
-rtol 2e-2 / 3e-2.
+rtol 2e-2 / 3e-2; softmax f32 atol 2e-6 (``test_softmax_paper_config``),
+bf16 one bf16 rounding of the output (rtol 2^-7).
 Gradients are f32 against f32 at atol 1e-5 to 1e-4 (sums of up to 96
 terms in another order)."""
 
@@ -28,6 +30,7 @@ from repro.kernels.fused_ff import fused_ff as pallas_fused_ff
 from repro.kernels.matmul_leakyrelu import \
     matmul_leakyrelu as pallas_matmul_leakyrelu
 from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
+from repro.kernels.softmax import softmax as pallas_softmax
 from repro_torch.kernels import KERNELS
 from repro_torch.kernels import bmm as bmm_mod
 from repro_torch.kernels import flash_attention as fa_mod
@@ -35,6 +38,7 @@ from repro_torch.kernels import fused_ff as ff_mod
 from repro_torch.kernels import matmul_leakyrelu as mlr_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as rms_mod
+from repro_torch.kernels import softmax as sm_mod
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -414,3 +418,105 @@ def test_gemm_wrappers_keep_the_reference_contract():
     with pytest.raises(ValueError):     # bad ranks
         bmm_mod.bmm(a, b)
     assert (mlr_mod.launches, bmm_mod.launches) == (0, 0)
+
+
+# ---------------------------------------------------------------------------
+# K5 softmax
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,cols,br", [(512, 4096, 8), (64, 1024, 16)])
+def test_softmax_matches_pallas_and_oracle(dtype, rows, cols, br):
+    """``tests/test_kernels.py::test_softmax_paper_config``'s shapes and
+    inputs (N(0, 4)): f32 at its atol 2e-6; bf16 within one bf16 rounding
+    of the output (the f32 results on either side of a rounding
+    boundary)."""
+    rng = np.random.default_rng(rows + cols)
+    x = (rng.standard_normal((rows, cols)) * 2.0).astype(np.float32)
+    jx, tx = _pair(x, dtype)
+    got = KERNELS["softmax"].kernel_fn(tx, br=br)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    tol = (dict(atol=2e-6, rtol=0) if dtype == "float32"
+           else dict(atol=0, rtol=2 ** -7))
+    for want in (pallas_softmax(jx, br=br, interpret=True),
+                 jref.softmax(jx)):
+        np.testing.assert_allclose(_f32(got), _f32(want), **tol)
+    assert torch.equal(got, ops.softmax(tx))
+    np.testing.assert_allclose(_f32(got).sum(-1), 1.0, atol=1e-3)
+
+
+def test_softmax_wrapper_keeps_the_reference_contract():
+    """rows % br == 0 as the reference asserts, a config's cols must be
+    x's width; CPU tensors launch nothing; tensors elsewhere launch or
+    raise, never the plain version."""
+    x = torch.randn(16, 64)
+    with pytest.raises(AssertionError):
+        sm_mod.softmax(x, br=3)
+    with pytest.raises(ValueError):
+        sm_mod.softmax(x, cols=128)
+    assert torch.equal(sm_mod.softmax(x, br=8, cols=64), ref.softmax(x))
+    assert torch.equal(ops.softmax(x, impl="ref"), ref.softmax(x))
+    with pytest.raises(ValueError):
+        sm_mod.softmax(torch.empty(8, 64, device="meta"))
+    with pytest.raises(ValueError):     # CUDA demanded for a CPU tensor
+        ops.softmax(x, impl="cuda")
+    with pytest.raises(ValueError):     # bad rank
+        sm_mod.softmax(torch.randn(2, 3, 4))
+    assert sm_mod.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# the registry: every kernel called as a deployed config calls it
+# ---------------------------------------------------------------------------
+
+def _config_inputs(name, cfg, rng):
+    """Inputs of the shapes a deployed config allows, in f32 on the CPU."""
+    def t(*shape):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * 0.5).astype(np.float32))
+    if name == "rmsnorm":
+        return t(2 * cfg["br"], cfg["cols"]), t(cfg["cols"]) + 1.0
+    if name == "softmax":
+        return (t(2 * cfg["br"], cfg["cols"]),)
+    if name == "flash_attention":
+        return (t(1, 2, cfg["bq"], cfg["d"]),
+                t(1, 2, 2 * cfg["bk"], cfg["d"]),
+                t(1, 2, 2 * cfg["bk"], cfg["d"]))
+    if name == "bmm":
+        return (t(2, cfg["bm"], cfg["bk"]), t(2, cfg["bk"], cfg["bn"]))
+    m, n, k = cfg["bm"], cfg["bn"], 2 * cfg["bk"]
+    if name == "fused_ff":
+        return t(m, k), t(k, n), t(k, n)
+    return t(m, k), t(k, n)
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_registry_kernels_take_every_config(name):
+    """``kernel_fn(*inputs, **config)`` at every ``CONFIGS`` entry equals
+    ``ref_fn`` on CPU tensors (as ``chip_smoke.py`` launches the deployed
+    configs on the card); shapes the config's block sizes do not divide
+    fail the reference's assertion, and a config's shape key (``cols``,
+    ``d``) that is not the input's raises."""
+    kdef = KERNELS[name]
+    rng = np.random.default_rng(7)
+    for cfg in kdef.configs:
+        inputs = _config_inputs(name, cfg, rng)
+        assert torch.equal(kdef.kernel_fn(*inputs, **cfg),
+                           kdef.ref_fn(*inputs))
+    cfg = kdef.configs[0]
+    inputs = _config_inputs(name, cfg, rng)
+    shape_key = {"rmsnorm": "cols", "softmax": "cols",
+                 "flash_attention": "d"}.get(name)
+    if shape_key is not None:
+        with pytest.raises(ValueError):
+            kdef.kernel_fn(*inputs, **dict(cfg, **{shape_key: 7}))
+    # one row (one query, for attention) fewer: bm/br/bq no longer divide
+    if name == "flash_attention":
+        cut = [inputs[0][:, :, :-1], *inputs[1:]]
+    elif name == "bmm":
+        cut = [inputs[0][:, :-1], inputs[1]]
+    else:
+        cut = [inputs[0][:-1], *inputs[1:]]
+    with pytest.raises(AssertionError):
+        kdef.kernel_fn(*cut, **cfg)
+    assert getattr(rms_mod, "launches") == 0 and sm_mod.launches == 0

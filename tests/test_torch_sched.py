@@ -1,9 +1,10 @@
 """The port's optimizer pipeline (``repro_torch.sched`` and
 ``repro_torch.launch.optimize``) against the JAX package's on the CPU.
 
-- Lowering: for the §5.7 pair at every ``CONFIGS`` entry and the scenarios
-  below, the same instruction count, opcodes, tile/group/predicate
-  structure, operand text and ``-O3`` order, control codes and cycles.
+- Lowering: for the six registered kernels at every ``CONFIGS`` entry and
+  the scenarios below, the same instruction count, opcodes,
+  tile/group/predicate structure, operand text and ``-O3`` order, control
+  codes and cycles.
   Operand text is compared after normalizing LDV ``[UR2+...]`` addresses
   and long SMOV immediates: the reference derives them from Python's
   per-process salted ``hash()``, the port from a stable digest (it gives
@@ -11,8 +12,10 @@
 - The session: ``autotune`` choices, ``probabilistic_test`` verdicts, the
   greedy and seeded random searches (best cycles 8294 -> 8289 and
   8275 -> 8271), cache v3 indexes crossing both ways, the launcher's
-  output lines, and a supervised campaign's ``FailureLedger`` resume and
-  skip semantics, all equal to the reference's.
+  output lines (the pair, and qwen1.5-4b's 18-cell ``--arch`` fleet), and
+  a supervised campaign's ``FailureLedger`` resume and skip semantics, all
+  equal to the reference's.  The PPO strategy's own parity tests are in
+  ``tests/test_torch_ppo.py``.
 """
 
 import dataclasses
@@ -70,6 +73,9 @@ from repro_torch.sched.scenario import nearest_bucket as tnearest
 from repro_torch.sched.spec import KernelSpec, TileIO
 
 PAIR = ("matmul_leakyrelu", "bmm")
+# the registry, in the reference's order (ssd joins with its kernel)
+FLEET = ("matmul_leakyrelu", "fused_ff", "bmm", "flash_attention", "softmax",
+         "rmsnorm")
 
 # (instructions, -O3 cycles) of the reference's listing at each config
 GATE = {
@@ -82,6 +88,15 @@ GATE = {
     ("bmm", (128, 128, 64)): (74, 4153),
     ("bmm", (64, 64, 128)): (65, 3379),
     ("bmm", (256, 64, 64)): (86, 6007),
+}
+# (instructions, -O3 cycles) of the reference's listing at each CONFIGS
+# entry of the other four kernels, in CONFIGS order
+FLEET_GATE = {
+    "fused_ff": [(173, 12550), (119, 5856), (152, 10462), (171, 9631)],
+    "flash_attention": [(185, 5124), (323, 9877), (307, 6488),
+                        (241, 10679)],
+    "softmax": [(518, 15852), (678, 34040), (678, 34040), (518, 15852)],
+    "rmsnorm": [(270, 9561), (478, 15692), (479, 15868), (478, 15692)],
 }
 # tests/test_scenarios.py's workload points (None: the legacy single
 # point); they give matmul_leakyrelu 2 to 8 unrolled steps and two dtypes
@@ -134,6 +149,30 @@ def test_lowering_and_o3_match_reference(name, blocks, scen_text):
     assert cycles == JMachine().run(jo).cycles
     if scen_text is None:
         assert (len(to), cycles) == GATE[name, blocks]
+
+
+@pytest.mark.parametrize("scen_text", SCENARIOS)
+@pytest.mark.parametrize("name,index", [(n, i) for n in FLEET_GATE
+                                        for i in range(4)])
+def test_fleet_lowering_and_o3_match_reference(name, index, scen_text):
+    """The A5 gate on the other four kernels: rmsnorm (``jnp.mean`` as
+    reduce_sum and div by a literal), fused_ff (``jax.nn.silu`` through
+    the call fallback), flash_attention (``k.T``, an epilogue over two
+    accumulators) and softmax (one step per row tile)."""
+    cfg = get_kernel(name).configs[index]
+    assert cfg == jget_kernel(name).configs[index]
+    jl, tl = _pair_listings(name, cfg, scen_text)
+    assert _structure(tl.program) == _structure(jl.program)
+    assert _norm(ttext(tl.program)) == _norm(jtext(jl.program))
+    jo, to = jschedule(jl), schedule(tl)
+    assert [dataclasses.asdict(i.ctrl) for i in to] == \
+        [dataclasses.asdict(i.ctrl) for i in jo]
+    assert _norm(ttext(to)) == _norm(jtext(jo))
+    cycles = Machine().run(to).cycles
+    from repro.core import Machine as JMachine
+    assert cycles == JMachine().run(jo).cycles
+    if scen_text is None:
+        assert (len(to), cycles) == FLEET_GATE[name][index]
 
 
 def test_listing_is_the_same_in_every_process():
@@ -203,6 +242,11 @@ CALLS = [
      lambda a, b: (jax.nn.sigmoid(a @ b) * a,)),
     ("batched_matmul", lambda a, b: (torch.matmul(a, b),),
      lambda a, b: (jnp.matmul(a, b),), (3, 256, 128), (3, 128, 256)),
+    ("mean", lambda a, b: (torch.mean(a * a, -1, keepdim=True) * b,),
+     lambda a, b: (jnp.mean(a * a, axis=-1, keepdims=True) * b,)),
+    ("silu", lambda a, b: (torch.nn.functional.silu(a) * b,),
+     lambda a, b: (jax.nn.silu(a) * b,)),
+    ("attribute_T", lambda a, b: (a @ b.T,), lambda a, b: (a @ b.T,)),
 ]
 
 
@@ -224,7 +268,7 @@ def test_lowering_of_each_mapped_call_matches_reference(case):
 def test_unmapped_torch_call_raises():
     spec = KernelSpec("odd", lambda a: (a.cumprod(0),), [TileIO("a", (8, 8))],
                       [TileIO("y", (8, 8))])
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="no TSASS mapping"):
         lower(spec)
 
 
@@ -244,7 +288,7 @@ def test_scenario_buckets_and_dispatch_match():
 
 
 @pytest.mark.parametrize("scen_text", [None, "256x4096", "8x32768xf32xlow"])
-@pytest.mark.parametrize("name", PAIR)
+@pytest.mark.parametrize("name", FLEET)
 def test_autotune_picks_the_same_config(name, scen_text):
     got = autotune(get_kernel(name).make_spec, get_kernel(name).configs,
                    scenario=_scen(Scenario, scen_text))
@@ -381,21 +425,33 @@ def test_deploy_and_schedule_plan_measure_nothing(tmp_path, stall_db,
     assert calls == []
 
 
-def test_unported_strategies_and_registry():
-    with pytest.raises(NotImplementedError, match="A7"):
-        make_budgeted_strategy("ppo")
+def test_unported_strategies_and_registry(tmp_path, stall_db, monkeypatch):
+    """PPO runs (tests/test_torch_ppo.py holds it against the reference);
+    the cost-model strategies still raise, naming ROADMAP A11; the
+    default strategy, ppo, needs a card unless asked for the CPU; the
+    registry holds the six ported kernels and not ``ssd``."""
+    ppo = make_budgeted_strategy("ppo", timesteps=64, episode_length=8,
+                                 device="cpu")
+    assert ppo.name == "ppo" and ppo.ppo.total_timesteps == 64
+    res = OptimizationSession(strategy=ppo, cache_dir=str(tmp_path),
+                              stall_db=stall_db,
+                              verify_seeds=2).optimize("bmm")
+    assert res.strategy == "ppo" and res.game is not None
+    assert res.artifact.optimized_cycles <= res.artifact.baseline_cycles
     for name in ("beam", "lookahead"):
         with pytest.raises(NotImplementedError, match="A11"):
             make_budgeted_strategy(name)
-    with pytest.raises(NotImplementedError, match="A7"):
-        OptimizationSession().optimize("bmm")        # the default is ppo
-    assert sorted(KERNELS) == sorted(PAIR)
-    for name in PAIR:
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OptimizationSession(cache_dir=str(tmp_path / "d"),
+                            stall_db=stall_db).optimize("bmm")
+    assert list(KERNELS) == list(FLEET)
+    for name in FLEET:
         kdef = get_kernel(name)
         assert kdef.kernel_fn is not None and kdef.ref_fn is not None
         assert kdef.configs == jget_kernel(name).configs
     with pytest.raises(KeyError, match="registered kernels"):
-        get_kernel("fused_ff")
+        get_kernel("ssd")
     alias = register_kernel(KernelDef("bmm_alias", get_kernel("bmm").make_spec,
                                       get_kernel("bmm").configs))
     try:
@@ -442,14 +498,56 @@ def test_launcher_output_matches_reference(tmp_path, monkeypatch, capsys):
         or "[optimize] matmul_leakyrelu: cached" in want
 
 
+def test_arch_fleet_launcher_matches_reference(tmp_path, monkeypatch,
+                                               capsys):
+    """``--arch qwen1.5-4b --strategy greedy`` (the port with ``--device
+    cpu``) prints the reference's 18 cells — 6 kernels x 3 buckets, with
+    their cycles — and ``--deploy`` reads back the same configs."""
+    args = ["--arch", "qwen1.5-4b", "--strategy", "greedy"]
+    for extra in ([], ["--deploy"]):
+        got = _run_main(toptimize, args + extra + [
+            "--device", "cpu", "--cache-dir", str(tmp_path / "t")],
+            monkeypatch, capsys)
+        want = _run_main(joptimize, args + extra + [
+            "--cache-dir", str(tmp_path / "j")], monkeypatch, capsys)
+        assert got == want
+        cells = [line for line in got.splitlines()
+                 if re.match(r"\[optimize\] \w+@b", line)]
+        assert len(cells) == 18
+    want_cycles = {"matmul_leakyrelu": "35519 -> 35504",
+                   "fused_ff": "9631 -> 9121", "rmsnorm": "29371 -> 29349",
+                   "flash_attention": "6488 -> 6463",
+                   "softmax": "66060 -> 66060", "bmm": "8275 -> 8271"}
+    configs = {"matmul_leakyrelu": {"bm": 128, "bn": 256, "bk": 64},
+               "fused_ff": {"bm": 256, "bn": 128, "bk": 64},
+               "rmsnorm": {"br": 8, "cols": 2048},
+               "flash_attention": {"bq": 256, "bk": 128, "d": 64},
+               "softmax": {"br": 8, "cols": 4096},
+               "bmm": {"bm": 128, "bn": 128, "bk": 128}}
+    for line in cells:                     # the --deploy lines
+        name = line.split()[1].split("@")[0]
+        assert f"cached config {configs[name]} {want_cycles[name]} " in line
+
+
 def test_launcher_fails_fast_on_unported_paths(tmp_path, monkeypatch):
+    """The default strategy, ppo, needs a card and says so before any
+    search unless ``--device cpu`` asks for the CPU; an SSM fleet stops at
+    ``ssd``, whose spec comes with its kernel (ROADMAP A12); the cost-model
+    strategies raise, naming A11."""
     base = ["--cache-dir", str(tmp_path)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(sys, "argv", ["optimize", "bmm", *base])
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         toptimize.main()                             # --strategy ppo default
-    monkeypatch.setattr(sys, "argv", ["optimize", "--arch", "stablelm-3b",
+    assert not os.path.exists(os.path.join(str(tmp_path),
+                                           toptimize.LEDGER_FILENAME))
+    monkeypatch.setattr(sys, "argv", ["optimize", "--arch", "mamba2-1.3b",
                                       "--strategy", "greedy", *base])
-    with pytest.raises(KeyError, match="unknown kernel 'fused_ff'"):
+    with pytest.raises(KeyError, match="unknown kernel 'ssd'"):
+        toptimize.main()
+    monkeypatch.setattr(sys, "argv", ["optimize", "bmm", "--strategy", "beam",
+                                      *base])
+    with pytest.raises(NotImplementedError, match="A11"):
         toptimize.main()
 
 
