@@ -21,25 +21,34 @@ Phases, each printed on lines of its own:
    ``tests/test_kernels.py``'s shape (512 x 4096, br 8), at 8192 columns
    (the largest ``CONFIGS`` entry), at a ragged shape and at the PPO fleet
    path's shape (40960 x 4096: qwen1.5-4b's 20 heads x 2048 query
-   positions); the gradients of the three model kernels'
+   positions); K7 ``ssd`` in f32 and bf16 in the registry's flat layout
+   at ``tests/test_kernels.py``'s shape (chunk 32 and 64) and in the
+   model layout at the SSM training path's shape (mamba2-1.3b: (4, 2048,
+   64, 64) x (4, 2048, 1, 128)), a ragged two-group shape, chunk 128,
+   P 128 with N 64 and a strong decay; K1 also at that path's gated norm
+   (8192 x 4096); the gradients of the four model kernels'
    ``autograd.Function``s against autograd through the plain versions at
-   the training shapes; CUDA-event times of each kernel, its plain version
-   and a library yardstick beside its bound;
+   the training shapes (K7's under the strong decay); CUDA-event times of
+   each kernel, its plain version and a library yardstick beside its
+   bound;
 3. device against host — full-width qwen1.5-4b cut to 2 layers, f32:
-   decode logits agree; full-width stablelm-3b cut to 2 layers, f32: one
-   train step's loss and grad-norm agree (the grad-norm within a bound
-   set by the host's own f32 error against an f64 evaluation);
+   decode logits agree; full-width stablelm-3b and mamba2-1.3b cut to 2
+   layers, f32: one train step's loss and grad-norm agree (the grad-norm
+   within a bound set by the host's own f32 error against an f64
+   evaluation);
 4. serving main path — qwen1.5-4b at full width, bf16, seeded random
    weights, 16 loadgen requests from 2 tenants through the paged
    ``ServeEngine`` (8 lanes); every request completes with in-vocab
    tokens, and the kernels' launch counts equal engine passes x 81
    (rmsnorm) and x 40 (fused_ff);
-5. training main path — stablelm-3b at full width, bf16, remat, seq 2048,
-   global batch 4, 3 steps of ``Trainer``; every loss and grad-norm is
-   finite, step 0's loss agrees with the same loss evaluated with every
-   kernel replaced by its plain version, and the launch counts equal
-   steps x (4L + 1) (rmsnorm), x 2L (fused_ff) and x 2L
-   (flash_attention): forward and per-layer recompute;
+5. training main paths — stablelm-3b, then mamba2-1.3b, at full width,
+   bf16, remat, seq 2048, global batch 4, 3 steps of ``Trainer`` each;
+   every loss and grad-norm is finite, step 0's loss agrees with the same
+   loss evaluated with every kernel replaced by its plain version, and
+   the launch counts equal steps x (4L + 1) (rmsnorm), x 2L (fused_ff)
+   and x 2L (flash_attention) for stablelm-3b, and steps x (4L + 1)
+   (rmsnorm) and x 2L (ssd) for mamba2-1.3b: forward and per-layer
+   recompute;
 6. optimizer main paths — (a) ``python -m repro_torch.launch.optimize
    matmul_leakyrelu bmm --strategy greedy`` into a fresh schedule cache
    must print the reference's cycles (8294 -> 8289, 8275 -> 8271), then
@@ -55,8 +64,12 @@ Phases, each printed on lines of its own:
    back; one cell, softmax at the first bucket, runs at the default
    budget, timed; then each of the six deployed kernels is launched
    through the registry at the first bucket's config, in bf16 and f32, at
-   the path's shapes, held against ``ref_fn``, twice each;
-7. the ``{"kernels": [...]}`` line (K1-K6, with their launches by path),
+   the path's shapes, held against ``ref_fn``, twice each; (c) the SSM
+   fleet: ``--arch mamba2-1.3b --strategy greedy`` into a fresh cache
+   must print the reference's 16 cells and memo line, ``--deploy`` must
+   read them back, and the deployed ``ssd`` is launched through the
+   registry at the first bucket's config in bf16 and f32, once a call;
+7. the ``{"kernels": [...]}`` line (K1-K7, with their launches by path),
    then the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line.  No phase catches its
@@ -106,6 +119,22 @@ FLEET_BUCKET = "256x4096xf32"          # the fleet's first bucket
 # K5 at the fleet path's shape: qwen1.5-4b's 20 heads x 2048 query
 # positions, 4096 columns (the deployed config's)
 SOFTMAX_ROWS = 20 * 2048
+# The SSM training path, mamba2-1.3b at full width: global batch 4 x seq
+# 2048, 64 SSD heads of P 64, one group, state N 128, d_inner 4096 (the
+# gated norm's width); K7 in the model layout.
+SSM_ARCH, D_INNER = "mamba2-1.3b", 4096
+SSM_SHAPE = (BATCH, SEQ, 64, 1, 64, 128)       # B, S, H, G, P, N
+# The SSM fleet: greedy over mamba2-1.3b's 4 kernels x 4 buckets, the
+# reference's cycles (the same in the first three buckets)
+SSM_FLEET_CYCLES = {"matmul_leakyrelu": ("35519 -> 35504", "10458 -> 10455"),
+                    "fused_ff": ("9631 -> 9121", "9631 -> 9121"),
+                    "rmsnorm": ("29371 -> 29349", "29371 -> 29349"),
+                    "ssd": ("3945 -> 3943", "3945 -> 3943")}
+SSM_BUCKETS = ("b256_s4096_f32_full", "b32_s32768_f32_full",
+               "b128_s32768_f32_half", "b1_s524288_f32_low")
+SSM_FLEET_TAIL = ("[optimize] campaign: 16 succeeded (0 degraded), 0 failed",
+                  "[optimize] shared memo: 7399 entries, 30017/37416 hits "
+                  "(80.2%), 0 cross-kernel")
 
 
 def fail(msg: str) -> None:
@@ -157,6 +186,8 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces, headline path)
             "src/repro/kernels/bmm.py:35", "optimize"),
     "softmax": ("src/repro_torch/kernels/csrc/softmax.cu",
                 "src/repro/kernels/softmax.py:23", "fleet"),
+    "ssd": ("src/repro_torch/kernels/csrc/ssd.cu",
+            "src/repro/kernels/ssd.py:65", "train_ssm"),
 }
 
 
@@ -201,8 +232,9 @@ def rmsnorm_checks(gen, records):
     for dname, dt in (("bfloat16", torch.bfloat16),
                       ("float32", torch.float32)):
         for rows, cols, path in ((LANES, D_MODEL, "serve"), (13, 1001, None),
-                                 (ROWS, D_MODEL, "train")):
-            if path == "train" and dname != "bfloat16":
+                                 (ROWS, D_MODEL, "train"),
+                                 (ROWS, D_INNER, "train_ssm")):
+            if path in ("train", "train_ssm") and dname != "bfloat16":
                 continue
             x = (torch.randn(rows, cols, device="cuda", generator=gen)
                  * 0.5).to(dt)
@@ -451,9 +483,92 @@ def softmax_checks(gen, records):
             del x
 
 
+def ssd_tol(dname, scale):
+    """K7 against its plain version: f32 sums in another order (the
+    kernel stages chunks of 64 whatever the call's chunk), 1e-5 of the
+    largest output (the two lie under 1e-6 of it apart at the training
+    shape); bf16 one bf16 rounding of the output
+    (2^-7 relative), plus 2^-12 of the largest output where f32 sums of
+    opposite signs cancel."""
+    return ((1e-5 * scale, 0.0) if dname == "float32"
+            else (2 ** -12 * scale, 2 ** -7))
+
+
+def ssd_inputs(gen, shape, dt, strong=False):
+    """x, b, c ~ N(0, 1) in ``dt``; a in f32, -U(0, 0.5) a step (about
+    mamba2's -softplus(dt) at initialisation), or -3 - U(0, 1) for a
+    strong decay (a chunk's decay passes 88: an unmasked
+    e^{seg_t - seg_s} would overflow)."""
+    import torch
+    B, S, H, G, P, N = shape
+    x = torch.randn(B, S, H, P, device="cuda", generator=gen).to(dt)
+    u = torch.rand(B, S, H, device="cuda", generator=gen)
+    a = -3.0 - u if strong else -0.5 * u
+    b, c = (torch.randn(B, S, G, N, device="cuda", generator=gen).to(dt)
+            for _ in range(2))
+    return x, a, b, c
+
+
+def ssd_checks(gen, records):
+    """K7 in the model layout, and in the registry's flat layout at
+    ``tests/test_kernels.py``'s shape, against its plain version."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd as ssd_mod
+
+    cases = [  # (B, S, H, G, P, N), chunk, strong decay, flat, path
+        ((2, 128, 1, 1, 32, 16), 32, False, True, None),
+        ((2, 128, 1, 1, 32, 16), 64, False, True, None),
+        (SSM_SHAPE, 64, False, False, "train_ssm"),
+        ((2, 1000, 8, 2, 64, 64), 64, False, False, None),
+        (SSM_SHAPE, 128, False, False, None),
+        ((2, 1024, 16, 1, 128, 64), 64, False, False, None),
+        (SSM_SHAPE, 64, True, False, None),
+    ]
+    for dname, dt in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        for shp, chunk, strong, flat, path in cases:
+            x, a, b, c = ssd_inputs(gen, shp, dt, strong)
+            fn, plain = ssd_mod.ssd_chunk, ops.ssd_chunk
+            if flat:
+                x, a, b, c = x[:, :, 0], a[:, :, 0], b[:, :, 0], c[:, :, 0]
+                fn, plain = ssd_mod.ssd, ops.ssd
+            got = fn(x, a, b, c, chunk=chunk)
+            want = plain(x, a, b, c, chunk=chunk, impl="ref")
+            if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+                fail(f"ssd {shp} gave a non-finite output")
+            scale = want.float().abs().max().item()
+            shape = (f"{'flat ' if flat else ''}{tuple(x.shape)} x "
+                     f"{tuple(b.shape)} chunk {chunk}"
+                     f"{' strong decay' if strong else ''} {dname}")
+            err = check_close(f"ssd {shape}", got, want,
+                              *ssd_tol(dname, scale))
+            if path is None:
+                continue
+            B, S, H, G, P, N = shp
+            el = x.element_size()
+            # bytes: x, a, b, c read once, y written once; operations:
+            # the least the function needs, the recurrence's one FMA per
+            # state entry and position for the update and one for the
+            # read-out (the chunked form adds L(L+1)(N+P) a chunk of L)
+            ops_n = 4 * N * P * B * S * H
+            records.append(record(
+                "ssd", path, shape, err,
+                event_ms(lambda: fn(x, a, b, c, chunk=chunk), 20),
+                event_ms(lambda: ops.ssd_chunk(x, a, b, c, chunk=chunk,
+                                               impl="ref"), 10),
+                (2 * B * S * H * P + 2 * B * S * G * N) * el + B * S * H * 4,
+                ops_n, dname,
+                # no single PyTorch call computes the SSD scan
+                None))
+            del x, a, b, c, got, want
+    torch.cuda.empty_cache()
+
+
 def gradient_checks(gen):
     """Each kernel's ``autograd.Function`` against autograd through its
-    plain version, at the training path's shapes in bf16.  Both backward
+    plain version, at the training paths' shapes in bf16 (K7's a in f32,
+    strongly decaying to show no NaN in the gradient).  Both backward
     passes compute the plain version's gradient in f32 and round it to
     bf16 once, so they may differ by one bf16 rounding (2^-7 relative)
     where f32 sums in another order (K6's backward runs a batch row at a
@@ -475,6 +590,10 @@ def gradient_checks(gen):
         "flash_attention": (
             lambda impl, q, k, v: ops.flash_attention(q, k, v, impl=impl),
             [rnd(BATCH, HEADS, SEQ, HEAD_DIM) for _ in range(3)]),
+        "ssd": (lambda impl, x, a, b, c: ops.ssd_chunk(x, a, b, c,
+                                                       impl=impl),
+                list(ssd_inputs(gen, SSM_SHAPE, torch.bfloat16,
+                                strong=True))),
     }
     for name, (fn, inputs) in cases.items():
         mine = [t.clone().requires_grad_() for t in inputs]
@@ -485,8 +604,10 @@ def gradient_checks(gen):
         got = torch.autograd.grad(out, mine, dy)
         want = torch.autograd.grad(fn("ref", *plain), plain, dy)
         for i, (a, b) in enumerate(zip(got, want)):
+            if not torch.isfinite(a).all():
+                fail(f"grad {name} input {i} is not finite")
             scale = b.float().abs().max().item()
-            check_close(f"grad {name} input {i} {tuple(b.shape)} bfloat16",
+            check_close(f"grad {name} input {i} {tuple(b.shape)} {b.dtype}",
                         a, b, 2 ** -8 * scale, 2 ** -7)
         del mine, plain, got, want
 
@@ -501,6 +622,7 @@ def kernel_phase():
     flash_attention_checks(gen, records)
     gemm_checks(gen, records)
     softmax_checks(gen, records)
+    ssd_checks(gen, records)
     gradient_checks(gen)
     torch.cuda.empty_cache()
     return records
@@ -547,18 +669,19 @@ def device_host_phase():
         fail("device and host decode logits disagree")
 
 
-def device_host_train_step():
-    """One train step of full-width stablelm-3b cut to 2 layers, f32, on
-    the card and on the host from the same parameters and batch.
+def device_host_train_step(arch):
+    """One train step of ``arch`` (stablelm-3b, mamba2-1.3b) at full
+    width cut to 2 layers, f32, on the card and on the host from the same
+    parameters and batch.
 
     The loss agrees within 1e-4 relative.  The grad-norm cannot: with the
     reference's initialisation (a tied N(0, 1) embedding at width 2560,
     logits in the hundreds) this function's f32 gradients are
     ill-conditioned, and every f32 evaluation of it, on either device,
-    lies about 0.5% from an f64 evaluation.  So, as the CPU parity tests
-    bound f32 logits and gradients, the grad-norm is held to 1e-4 relative
-    plus twice the host's own f32 error against the host's f64
-    evaluation."""
+    lies about 0.5% from an f64 evaluation (stablelm-3b).  So, as the CPU
+    parity tests bound f32 logits and gradients, the grad-norm is held to
+    1e-4 relative plus twice the host's own f32 error against the host's
+    f64 evaluation."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_data
@@ -567,7 +690,7 @@ def device_host_train_step():
     from repro_torch.train import TrainState, compute_grads, make_train_step
     from repro_torch.utils.tree import global_norm
 
-    cfg = get_config("stablelm-3b").replace(n_layers=2, dtype="float32")
+    cfg = get_config(arch).replace(n_layers=2, dtype="float32")
     batch = make_data(cfg, 128, 2, seed=0).batch_at(0)
     params = lm.init_model(cfg, torch.Generator().manual_seed(0))
     metrics = {}
@@ -589,13 +712,13 @@ def device_host_train_step():
     rel = {k: abs(dev[k] - host[k]) / abs(host[k])
            for k in ("loss", "grad_norm")}
     bounds = {"loss": 1e-4, "grad_norm": 1e-4 + 2 * host_err}
-    print(f"  train step host {host}\n  train step card {dev}\n"
+    print(f"  {arch} train step host {host}\n  train step card {dev}\n"
           f"  host f64 grad_norm {exact:.6f}: host f32 off by {host_err:.3e}, "
           f"card f32 by {abs(dev['grad_norm'] - exact) / exact:.3e}\n"
           f"  card against host: relative |d| {rel}, bounds {bounds}",
           flush=True)
     if not all(rel[k] <= bounds[k] for k in rel):
-        fail("device and host train steps disagree")
+        fail(f"device and host train steps of {arch} disagree")
 
 
 def _tree_to(tree, device, dtype=None):
@@ -749,13 +872,23 @@ def profile_passes(engine, cfg, out_dir: str, n_passes: int = 8):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the training main path — full-width stablelm-3b through Trainer
+# phase 5: the training main paths — full-width stablelm-3b and mamba2-1.3b
 # ---------------------------------------------------------------------------
 
 TRAIN_STEPS = 3
 
 
-def train_phase(profile_dir):
+# launches a train step of L layers, by kernel: forward and per-layer
+# recompute (remat), and the final norm once
+TRAIN_SITES = {
+    "stablelm-3b": {"rmsnorm": lambda L: 4 * L + 1,
+                    "fused_ff": lambda L: 2 * L,
+                    "flash_attention": lambda L: 2 * L},
+    SSM_ARCH: {"rmsnorm": lambda L: 4 * L + 1, "ssd": lambda L: 2 * L},
+}
+
+
+def train_phase(arch, profile_dir):
     import math
 
     import torch
@@ -764,7 +897,7 @@ def train_phase(profile_dir):
     from repro_torch.train import TrainConfig, Trainer, loss_fn
     from repro_torch.utils.tree import param_count
 
-    cfg = get_config("stablelm-3b")
+    cfg = get_config(arch)
     tcfg = TrainConfig(steps=TRAIN_STEPS, seq_len=SEQ, global_batch=BATCH)
     t0 = time.perf_counter()
     trainer = Trainer(cfg, tcfg, device="cuda")
@@ -800,7 +933,7 @@ def train_phase(profile_dir):
             math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
             for r in log):
         fail("a training loss or grad-norm is not finite")
-    # bf16 activations through 32 layers: the kernels and the plain
+    # bf16 activations through 32 or 48 layers: the kernels and the plain
     # versions round the same values to bf16 at the same places, but
     # their f32 sums run in other orders, so bf16 roundings may flip.
     rel = abs(log[0]["loss"] - plain_loss) / abs(plain_loss)
@@ -809,10 +942,9 @@ def train_phase(profile_dir):
           flush=True)
     if not rel <= 1e-2:
         fail("step 0's loss disagrees with the plain versions' loss")
-    L = cfg.n_layers
-    want = _expected_launches(rmsnorm=TRAIN_STEPS * (4 * L + 1),
-                              fused_ff=TRAIN_STEPS * 2 * L,
-                              flash_attention=TRAIN_STEPS * 2 * L)
+    want = _expected_launches(**{
+        name: TRAIN_STEPS * per_step(cfg.n_layers)
+        for name, per_step in TRAIN_SITES[arch].items()})
     print(f"  launches {launches}; expected {want} (forward and per-layer "
           f"recompute)", flush=True)
     if launches != want:
@@ -828,15 +960,17 @@ def train_phase(profile_dir):
         "grad_norm": [r["grad_norm"] for r in log],
         "max_memory_allocated_gb": peak_gb,
     }
-    print("  training main path " + json.dumps(stats), flush=True)
+    print(f"  training main path ({arch}) " + json.dumps(stats), flush=True)
     if profile_dir:
         profile_train_step(trainer, profile_dir)
+    del trainer
+    torch.cuda.empty_cache()
     return launches
 
 
 def profile_train_step(trainer, out_dir: str):
     """torch.profiler over one more train step: device busy share and time
-    by kernel, written to ``out_dir``/profile_train_step.txt."""
+    by kernel, written to ``out_dir``/profile_train_step_ARCH.txt."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -851,7 +985,8 @@ def profile_train_step(trainer, out_dir: str):
         float(metrics["loss"])
         wall = time.perf_counter() - t0
     lines, busy_us = _kernel_breakdown(prof)
-    _write_profile(out_dir, "profile_train_step.txt", lines, prof)
+    _write_profile(out_dir, f"profile_train_step_{trainer.cfg.name}.txt",
+                   lines, prof)
     print(f"  profile: one train step in {wall * 1e3:.1f} ms wall (profiler "
           f"on), device busy {busy_us / 1e3:.1f} ms = {busy_us / 1e6 / wall:.1%}"
           f" of wall; kernel time by name:", flush=True)
@@ -1107,6 +1242,89 @@ def fleet_phase():
     return launches
 
 
+_GREEDY_CELL = re.compile(r"\[optimize\] (\w+)@(\w+): (\d+ -> \d+) cycles "
+                          r"\([0-9.]+x, greedy, ")
+
+
+def ssm_fleet_phase():
+    """(c) The SSM fleet, greedy: ``python -m repro_torch.launch.optimize
+    --arch mamba2-1.3b --strategy greedy`` into a fresh cache prints the
+    reference's 16 cells (4 kernels x 4 buckets) and its campaign and memo
+    lines, and ``--deploy`` reads the 16 back; then the deployed ``ssd``
+    is launched through the registry, ``get_kernel("ssd").kernel_fn(x, a,
+    b, c, **artifact.config)``, at the first bucket's config on the flat
+    path's shape (mamba2-1.3b's 64 heads x batch 4 as 256 rows of 2048
+    positions), in bf16 and f32, held against ``ref_fn``, once a call."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.kernels import get_kernel
+    from repro_torch.sched import OptimizationSession, Scenario
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_ssm_",
+                                 dir=os.path.join(ROOT, "build"))
+    try:
+        fleet = ["--arch", SSM_ARCH, "--strategy", "greedy", "--cache-dir",
+                 cache_dir]
+        searched, wall = _optimize_cli(*fleet)
+        deployed, deploy_wall = _optimize_cli(*fleet, "--deploy")
+        cells = {(m.group(1), m.group(2)): m.group(3)
+                 for m in map(_GREEDY_CELL.match, searched) if m}
+        want = {(name, bucket): cycles[bucket == SSM_BUCKETS[-1]]
+                for name, cycles in SSM_FLEET_CYCLES.items()
+                for bucket in SSM_BUCKETS}
+        if cells != want:
+            fail(f"the SSM fleet printed {cells}, not the reference's {want}")
+        for tail in SSM_FLEET_TAIL:
+            if not any(line.startswith(tail) for line in searched):
+                fail(f"the SSM fleet did not print {tail!r}")
+        back = {(m.group(1), m.group(2)): f"{m.group(4)} -> {m.group(5)}"
+                for m in map(_DEPLOYED.match, deployed) if m}
+        if back != want:
+            fail(f"--deploy read back {back}")
+        config = OptimizationSession(strategy="greedy", cache_dir=cache_dir) \
+            .deploy("ssd", scenario=Scenario.parse(FLEET_BUCKET)).config
+    finally:
+        shutil.rmtree(cache_dir)
+    print(f"  SSM fleet: {len(cells)} cells as the reference's, "
+          f"search {wall:.1f} s, deploy {deploy_wall:.1f} s; ssd deployed "
+          f"at {config}", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    B, S, H, _, P, N = SSM_SHAPE
+    master = ssd_inputs(gen, (B * H, S, 1, 1, P, N), torch.float32)
+    master = tuple(t[:, :, 0] for t in master)
+    inputs = {dname: (master[0].to(dt), master[1], master[2].to(dt),
+                      master[3].to(dt))
+              for dname, dt in (("bfloat16", torch.bfloat16),
+                                ("float32", torch.float32))}
+    kdef = get_kernel("ssd")
+    torch.cuda.synchronize()
+    _reset_launches()
+    outs = {dname: kdef.kernel_fn(*xs, **config)
+            for dname, xs in inputs.items()}
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    want_launches = _expected_launches(ssd=2)
+    print(f"  launches {launches}; expected {want_launches}", flush=True)
+    if launches != want_launches:
+        fail("the SSM fleet path did not launch the deployed ssd once per "
+             "call")
+    for dname, got in outs.items():
+        xs = inputs[dname]
+        plain = kdef.ref_fn(*xs)
+        if got.shape != plain.shape or not torch.isfinite(got).all():
+            fail(f"deployed ssd {dname}: misshapen or non-finite output")
+        check_close(f"deployed ssd {config} {tuple(xs[0].shape)} x "
+                    f"{tuple(xs[2].shape)} {dname}", got, plain,
+                    *ssd_tol(dname, plain.float().abs().max().item()))
+    del inputs, outs
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -1149,17 +1367,20 @@ def main() -> int:
 
     phase("3 device against host")
     device_host_phase()
-    device_host_train_step()
+    device_host_train_step("stablelm-3b")
+    device_host_train_step(SSM_ARCH)
 
     phase("4 serving main path")
     launches = {"serve": serve_phase(args.profile)}
 
-    phase("5 training main path")
-    launches["train"] = train_phase(args.profile)
+    phase("5 training main paths")
+    launches["train"] = train_phase("stablelm-3b", args.profile)
+    launches["train_ssm"] = train_phase(SSM_ARCH, args.profile)
 
     phase("6 optimizer main paths")
     launches["optimize"] = optimize_phase()
     launches["fleet"] = fleet_phase()
+    launches["fleet_ssm"] = ssm_fleet_phase()
 
     phase("7 kernels")
     kernels = []

@@ -6,17 +6,17 @@ Each kernel is CUDA C++ under ``csrc/`` (built by ``_build`` with
 its inputs, launches it on PyTorch's current stream and counts its
 launches, with its plain PyTorch version in :mod:`ref`.  :mod:`ops`
 dispatches between the two, and the model kernels' ``autograd.Function``s
-give them a gradient.  Ported so far: ``rmsnorm``, ``fused_ff``,
-``flash_attention``, ``matmul_leakyrelu``, ``bmm`` and ``softmax``; the
-last TPU kernel, ``ssd``, is listed in ``ROADMAP.md``.
+give them a gradient.  Every TPU kernel of the JAX package is ported:
+``rmsnorm``, ``fused_ff``, ``flash_attention``, ``matmul_leakyrelu``,
+``bmm``, ``softmax`` and ``ssd``.
 
 ``KERNELS`` is the registry (port of the reference's
 ``repro/kernels/__init__.py``): a :class:`KernelDef` per optimizable
 kernel holds its schedule spec constructor, its autotune configs, the Hopper
 kernel's wrapper (``kernel_fn``) and its plain version (``ref_fn``).  It
-registers the six ported kernels in the reference's order; ``ssd`` joins
-with its kernel (ROADMAP A12), so an ``--arch`` fleet that needs it (the
-SSM and hybrid families) stops at ``get_kernel("ssd")``.
+registers the seven kernels in the reference's order, ``ssd`` last (the
+reference registers ``ssd`` with no oracle; the port gives it its plain
+version, ``ref.ssd``).
 
     from repro_torch.kernels import register_kernel
     from repro_torch.sched import KernelDef
@@ -28,7 +28,7 @@ from typing import Dict
 
 from repro_torch.kernels import (bmm, flash_attention, fused_ff,
                                  matmul_leakyrelu, ops, ref, rmsnorm,
-                                 softmax)
+                                 softmax, ssd)
 from repro_torch.sched.session import KernelDef
 
 KERNELS: Dict[str, KernelDef] = {}
@@ -70,10 +70,11 @@ for _kdef in (
               ref.softmax),
     KernelDef("rmsnorm", rmsnorm.make_spec, rmsnorm.CONFIGS, rmsnorm.rmsnorm,
               ref.rmsnorm),
+    KernelDef("ssd", ssd.make_spec, ssd.CONFIGS, ssd.ssd, ref.ssd),
 ):
     register_kernel(_kdef)
 del _kdef
 
 __all__ = ["KERNELS", "KernelDef", "bmm", "flash_attention", "fused_ff",
            "get_kernel", "matmul_leakyrelu", "ops", "ref",
-           "register_kernel", "rmsnorm", "softmax", "unregister_kernel"]
+           "register_kernel", "rmsnorm", "softmax", "ssd", "unregister_kernel"]

@@ -35,6 +35,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # (x, gamma, y, rows, cols, eps, dtype, stream)
     "repro_rmsnorm": [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
@@ -51,6 +52,9 @@ _SIGNATURES = {
     "repro_bmm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (x, y, rows, cols, dtype, stream)
     "repro_softmax": [_P, _P, _I, _I, _I, _P],
+    # (x, a, b, c, y, B, S, H, G, P, N, the strides of x, a, b and c
+    #  (batch, sequence, head or group), dtype, stream)
+    "repro_ssd": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_I, _P],
 }
 
 _lock = threading.Lock()

@@ -10,7 +10,9 @@ kernel and raises for a CPU tensor.  ``with forced("ref"):`` makes every
 call inside that passes no ``impl`` take the plain versions, so a whole
 model can be evaluated without the kernels on the card.  Model code
 (``repro_torch.nn``) calls these, so the serving and training paths go
-through the kernels on the card.  ``matmul_leakyrelu``, ``bmm`` and
+through the kernels on the card.  ``ssd`` is the registry's flat call;
+``ssd_chunk``, the model layout, is the one the model differentiates.
+``matmul_leakyrelu``, ``bmm`` and
 ``softmax`` have no gradient (nothing trains through them, as in the
 reference): on CUDA tensors they launch the kernel itself.
 """
@@ -29,6 +31,7 @@ from repro_torch.kernels import matmul_leakyrelu as _mlr_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rms_mod
 from repro_torch.kernels import softmax as _sm_mod
+from repro_torch.kernels import ssd as _ssd_mod
 
 Impl = Optional[Literal["ref", "cuda"]]
 
@@ -118,3 +121,23 @@ def bmm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128,
     if _use_ref(impl, "bmm", a, b):
         return ref.bmm(a, b)
     return _bmm_mod.bmm(a, b, bm=bm, bn=bn, bk=bk)
+
+
+def ssd_chunk(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+              c: torch.Tensor, *, chunk: int = 64,
+              impl: Impl = None) -> torch.Tensor:
+    """Model layout: x (B, S, H, P), a (B, S, H), b, c (B, S, G, N) ->
+    y (B, S, H, P); any S."""
+    if _use_ref(impl, "ssd_chunk", x, a, b, c):
+        return ref.ssd_chunk(x, a, b, c, chunk)
+    return _ssd_mod.SSDFunction.apply(x, a, b, c, chunk)
+
+
+def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+        *, chunk: int = 64, impl: Impl = None) -> torch.Tensor:
+    """Flat layout: x (BH, S, P), a (BH, S), b, c (BH, S, N) -> (BH, S, P).
+    The kernel takes S that is a multiple of ``chunk``, as the
+    reference's kernel asserts; the plain version takes any."""
+    if _use_ref(impl, "ssd", x, a, b, c):
+        return ref.ssd(x, a, b, c, chunk)
+    return _ssd_mod.ssd(x, a, b, c, chunk=chunk)

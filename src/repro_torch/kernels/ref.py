@@ -3,8 +3,7 @@
 Each hand-written Hopper kernel in this package has its plain version
 here.  The wrappers take it for tensors that lie on the CPU, the CPU
 tests hold the JAX package's oracles against it, and ``chip_smoke.py``
-holds each kernel against it on the card.  The remaining oracle (ssd)
-lands with its kernel.
+holds each kernel against it on the card.
 """
 
 from __future__ import annotations
@@ -118,3 +117,76 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.matmul(p.reshape(B, KH, G * Sq, Sk), v.to(qf.dtype))
     o = o.reshape(B, KH, G, Sq, Dv) / ell.clamp_min(1e-30)
     return o.reshape(B, H, Sq, Dv).to(q.dtype)
+
+
+def ssd_chunk(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+              c: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+    """Mamba-2 SSD (state-space duality) scan in its chunked dual form, in
+    f32, cast to x's type once (the function of the reference's
+    sequential-scan oracle ``repro/kernels/ref.py::ssd_chunk`` and of the
+    TPU kernel ``repro/kernels/ssd.py::_kernel``).
+
+    x: (B, S, H, P) inputs; a: (B, S, H) log-decay (<= 0); b, c:
+    (B, S, G, N) input/output projections, group g serving heads
+    g*H/G .. (g+1)*H/G - 1.  Returns y: (B, S, H, P) with
+    ``y[t] = sum_{s<=t} e^{A_t - A_s} (c_t . b_s) x_s``, A the running
+    sum of a.  The sequence is cut into chunks of ``chunk`` positions
+    (any S: the tail is padded with a = 0 and x = 0, then trimmed); each
+    chunk's own part is one masked product, ``(C B^T * L) X`` with
+    ``L[t, s] = e^{seg_t - seg_s} [t >= s]`` and ``seg`` the chunk's
+    running sum of a, and the (P, N) state carries the earlier chunks in
+    through ``e^{seg_t} C state^T``, updated as ``e^{seg_end} state +
+    (X e^{seg_end - seg})^T B`` in a loop over the chunks.  The exponent
+    of L is masked before ``exp`` (never after), so a steep decay gives
+    no inf and its gradient no NaN."""
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    R, L = H // G, chunk
+    nc = -(-S // L)
+    pad = nc * L - S
+    xf = wide(x)
+    af, bf, cf = a.to(xf.dtype), b.to(xf.dtype), c.to(xf.dtype)
+    if pad:
+        xf, bf, cf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xf, bf, cf))
+        af = F.pad(af, (0, 0, 0, pad))
+    # chunked layouts: (B, G, R, nc, L, ...), b and c shared by a group
+    xc = xf.reshape(B, nc, L, G, R, P).permute(0, 3, 4, 1, 2, 5)
+    ac = af.reshape(B, nc, L, G, R).permute(0, 3, 4, 1, 2)
+    bc = bf.reshape(B, nc, L, G, N).permute(0, 3, 1, 2, 4)[:, :, None]
+    cc = cf.reshape(B, nc, L, G, N).permute(0, 3, 1, 2, 4)[:, :, None]
+    seg = torch.cumsum(ac, -1)                             # (B,G,R,nc,L)
+    # expo[t, s] = seg_t - seg_s = a_{s+1} + ... + a_t, summed as it
+    # stands: the difference of two running sums would lose their low
+    # bits (about 1e-5 relative at mamba2's decay)
+    keep = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
+    after = keep.tril(-1)                                  # k > s
+    expo = torch.cumsum(ac[..., :, None].expand(*ac.shape, L).masked_fill(
+        ~after, 0), -2).masked_fill(~keep, float("-inf"))
+    scores = torch.matmul(cc, bc.transpose(-1, -2))        # (B,G,1,nc,L,L)
+    y = torch.matmul(scores * torch.exp(expo), xc)         # (B,G,R,nc,L,P)
+    # e^{seg_end - seg_s}: the last row of expo
+    local = torch.matmul((xc * torch.exp(expo[..., -1, :])[..., None])
+                         .transpose(-1, -2), bc)           # (B,G,R,nc,P,N)
+    decay = torch.exp(seg[..., -1])                        # (B,G,R,nc)
+    state = xf.new_zeros(B, G, R, P, N)
+    before = []
+    # one unbind per tensor: its backward stacks the chunks' gradients
+    # once, where indexing chunk by chunk would add a zero-filled
+    # full-size gradient per chunk
+    for d, loc in zip(decay.unbind(-1), local.unbind(3)):
+        before.append(state)
+        state = d[..., None, None] * state + loc
+    state_in = torch.stack(before, dim=3)                  # (B,G,R,nc,P,N)
+    y = y + torch.exp(seg)[..., None] * torch.matmul(
+        cc, state_in.transpose(-1, -2))
+    y = y.permute(0, 3, 4, 1, 2, 5).reshape(B, nc * L, H, P)[:, :S]
+    return y.to(x.dtype)
+
+
+def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+        chunk: int = 64) -> torch.Tensor:
+    """:func:`ssd_chunk` in the flat layout of the registry's kernel
+    (``repro/kernels/ops.py::ssd``): x (BH, S, P); a (BH, S); b, c
+    (BH, S, N), one head and one group per row."""
+    return ssd_chunk(x[:, :, None], a[:, :, None], b[:, :, None],
+                     c[:, :, None], chunk)[:, :, 0]

@@ -23,11 +23,10 @@ for it).  The environments and their measurement, the simulated TSASS
 machine, run on the host whatever the strategy, so ``greedy`` and
 ``random`` use no device.  For each PPO cell the launcher prints the
 search's wall time split between the agent's calls and the rest (the
-environments on the host).  The registry holds the six ported kernels;
-an ``--arch`` fleet that needs ``ssd`` (the SSM and hybrid families)
-fails on it until its spec is ported (ROADMAP A12), and the
-``beam``/``lookahead`` strategies raise ``NotImplementedError`` until the
-cost model is (ROADMAP A11).
+environments on the host).  The registry holds all seven kernels, so
+every ``--arch`` fleet runs (mamba2-1.3b's 16 cells include ``ssd``);
+the ``beam``/``lookahead`` strategies raise ``NotImplementedError`` until
+the cost model is ported (ROADMAP A11).
 
 Sibling of ``launch.train`` / ``launch.serve``: one session shares the
 per-target stall tables and the cross-kernel measurement memo across the

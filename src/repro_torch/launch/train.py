@@ -1,10 +1,12 @@
 """Training launcher:
 ``python -m repro_torch.launch.train --arch stablelm-3b --full``.
 
-Trains a dense-family model on ``--device`` (the card by default; it
+Trains a model of a family whose forward is ported (dense, e.g.
+stablelm-3b; ssm, mamba2-1.3b) on ``--device`` (the card by default; it
 refuses to start when there is none) with the reference's flags:
 ``--device cpu`` trains the reduced config on the CPU, ``--full`` takes
-the published widths (card only, in practice).  It prints the reference's
+the published widths (card only, in practice).  Other families raise
+``NotImplementedError`` naming their ROADMAP item.  It prints the reference's
 ``[train] step=... loss=... gnorm=... ms`` lines.  The reference's
 ``--pipe``, ``--model`` and ``--pods`` meshes wait for the port's
 distribution slice (ROADMAP A14): above their defaults they raise.

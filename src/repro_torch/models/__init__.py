@@ -1,9 +1,10 @@
-"""Model assembly for the ported architecture families (dense so far)."""
+"""Model assembly for the ported architecture families (the forward of
+the dense and ssm families so far)."""
 
 from repro_torch.models import lm
-from repro_torch.models.lm import require_dense
+from repro_torch.models.lm import FORWARD_FAMILIES, require_family
 
 
 def for_config(cfg):
-    require_dense(cfg, "for_config")
+    require_family(cfg, "for_config", FORWARD_FAMILIES)
     return lm

@@ -1,9 +1,9 @@
-"""Decoder LM assembly, dense family: parameter specs, initialisation,
-the per-layer window schedule, the embedding and head, and the
-full-sequence forward of training and prefill (decode passes run their
-layers in :mod:`repro_torch.serve.decode`).
+"""Decoder LM assembly, dense and ssm families: parameter specs,
+initialisation, the per-layer window schedule, the embedding and head,
+and the full-sequence forward of training and prefill (decode passes run
+their layers in :mod:`repro_torch.serve.decode`, dense family only).
 
-The other families of the reference (moe, ssm, hybrid, encdec) raise
+The other families of the reference (moe, hybrid, encdec) raise
 ``NotImplementedError`` naming their ROADMAP item, and so do the
 reference's distribution hooks (``mesh``, ``tp_axis``, ``seq_parallel``:
 ROADMAP A14).
@@ -12,7 +12,7 @@ ROADMAP A14).
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -22,23 +22,37 @@ from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn.attention import NO_WINDOW
 from repro_torch.nn.core import init_params, stack_specs, torch_dtype
+from repro_torch.nn.ssm import SSMConfig
 from repro_torch.utils.tree import tree_leaves
 
 _FAMILY_ITEM = {
-    "moe": "ROADMAP D2 (MoE and MLA decode)",
-    "ssm": "ROADMAP D3 (SSM decode and the ssd kernel)",
-    "hybrid": "ROADMAP D3 (SSM decode and the ssd kernel)",
+    "moe": "ROADMAP D2 (MoE and MLA)",
+    "ssm": "ROADMAP D3 (SSM and hybrid serving)",
+    "hybrid": "ROADMAP A12 (the hybrid forward) and D3 (SSM and hybrid "
+              "serving)",
     "encdec": "ROADMAP D4 (encoder-decoder)",
 }
 _DIST_ITEM = "ROADMAP A14 (distribution)"
+# the families whose full-sequence forward (and so training) is ported
+FORWARD_FAMILIES = ("dense", "ssm")
 
 
-def require_dense(cfg: ModelConfig, what: str) -> None:
-    if cfg.family != "dense":
+def require_family(cfg: ModelConfig, what: str,
+                   families: Sequence[str] = ("dense",)) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item unless
+    ``cfg``'s family is one of ``families`` (the ones ``what`` is ported
+    for)."""
+    if cfg.family not in families:
         item = _FAMILY_ITEM.get(cfg.family, "ROADMAP D")
         raise NotImplementedError(
             f"{what}: family {cfg.family!r} ({cfg.name}) is not ported yet; "
             f"see {item}")
+
+
+def ssm_config(cfg: ModelConfig) -> SSMConfig:
+    return SSMConfig(d_model=cfg.d_model, d_inner=cfg.d_inner,
+                     n_heads=cfg.ssm_heads, head_p=cfg.ssm_head_p,
+                     n_groups=cfg.ssm_groups, d_state=cfg.ssm_state)
 
 
 def _norm_spec(cfg: ModelConfig, d: int) -> Dict:
@@ -78,11 +92,17 @@ def dense_block_spec(cfg: ModelConfig) -> Dict:
             "mlp": _mlp_spec(cfg)}
 
 
+def ssm_block_spec(cfg: ModelConfig) -> Dict:
+    return {"ln1": _norm_spec(cfg, cfg.d_model),
+            "ssm": nn.ssm_spec(ssm_config(cfg))}
+
+
 def model_spec(cfg: ModelConfig) -> Dict:
-    require_dense(cfg, "model_spec")
+    require_family(cfg, "model_spec", FORWARD_FAMILIES)
+    block = dense_block_spec if cfg.family == "dense" else ssm_block_spec
     spec: Dict = {"embed": nn.embedding_spec(cfg.vocab, cfg.d_model),
                   "final_norm": _norm_spec(cfg, cfg.d_model),
-                  "layers": stack_specs(dense_block_spec(cfg), cfg.n_layers)}
+                  "layers": stack_specs(block(cfg), cfg.n_layers)}
     if not cfg.tie_embeddings:
         spec["lm_head"] = nn.lm_head_spec(cfg.d_model, cfg.vocab)
     return spec
@@ -166,6 +186,11 @@ def dense_block(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
     return x
 
 
+def ssm_block(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    return x + nn.apply_ssm(p["ssm"], _apply_norm(cfg, p["ln1"], x),
+                            ssm_config(cfg))
+
+
 def _unstack(stacked: Dict, n: int) -> List[Dict]:
     """The per-layer parameter dicts of a stacked tree, as views.  One
     ``unbind`` per leaf: its backward stacks the layers' gradients into
@@ -210,10 +235,14 @@ def _scan_layers(cfg: ModelConfig, block, stacked: Dict, x: torch.Tensor,
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
             mesh=None) -> torch.Tensor:
-    """tokens (B, S) -> f32 logits (B, S, vocab), dense family."""
-    require_dense(cfg, "forward")
+    """tokens (B, S) -> f32 logits (B, S, vocab), dense and ssm
+    families."""
+    require_family(cfg, "forward", FORWARD_FAMILIES)
     _no_dist("forward", mesh)
     x = embed_forward(params, tokens, cfg)
-    x = _scan_layers(cfg, dense_block, params["layers"], x,
-                     windows=window_schedule(cfg))
+    if cfg.family == "dense":
+        x = _scan_layers(cfg, dense_block, params["layers"], x,
+                         windows=window_schedule(cfg))
+    else:
+        x = _scan_layers(cfg, ssm_block, params["layers"], x)
     return head_forward(params, x, cfg)

@@ -17,14 +17,18 @@ from repro_torch.nn.layers import (apply_embedding, apply_gelu_mlp,
                                    layernorm_spec, lm_head_spec, rmsnorm_spec,
                                    swiglu_spec, unembed)
 from repro_torch.nn.rope import apply_rope
+from repro_torch.nn.ssm import (SSMConfig, apply_ssm, apply_ssm_decode,
+                                init_ssm_cache, ssm_spec)
 
-__all__ = ["NO_WINDOW", "ParamSpec", "apply_dense", "apply_embedding",
-           "apply_gelu_mlp", "apply_layernorm", "apply_lm_head",
-           "apply_rmsnorm", "apply_rope", "apply_swiglu", "chunked_attention",
+__all__ = ["NO_WINDOW", "ParamSpec", "SSMConfig", "apply_dense",
+           "apply_embedding", "apply_gelu_mlp", "apply_layernorm",
+           "apply_lm_head", "apply_rmsnorm", "apply_rope", "apply_ssm",
+           "apply_ssm_decode", "apply_swiglu", "chunked_attention",
            "decode_attention", "dense", "embedding_spec", "gather_page_window", "gather_pages",
-           "gelu_mlp_spec", "gqa_spec", "init_params", "layernorm_spec",
+           "gelu_mlp_spec", "gqa_spec", "init_params", "init_ssm_cache",
+           "layernorm_spec",
            "lm_head_spec", "masked_decode_attention",
            "out_project", "paged_decode_attention", "paged_flat_index",
            "paged_update_cache", "qkv_project", "rmsnorm_spec",
-           "stack_specs", "swiglu_spec", "torch_dtype", "unembed",
+           "ssm_spec", "stack_specs", "swiglu_spec", "torch_dtype", "unembed",
            "update_cache"]

@@ -35,10 +35,11 @@ are keyed by; a call with no mapping raises rather than guess.
 
 Two traits of the reference as installed (jax 0.9) that the port keeps,
 so that listings and cycles agree:
-  * ``jnp.where`` and ``jax.nn.silu`` trace as calls named ``jit``, which
-    ``_CALL_PRIMS`` (listing ``pjit``) does not walk into: the whole call
-    lowers through the eltwise fallback, VADDs over its first two operands
-    (``where``'s predicate and true value; ``silu``'s one operand);
+  * ``jnp.where``, ``jax.nn.silu`` and ``jnp.cumsum`` trace as calls named
+    ``jit``, which ``_CALL_PRIMS`` (listing ``pjit``) does not walk into:
+    the whole call lowers through the eltwise fallback, VADDs over its
+    first two operands (``where``'s predicate and true value; ``silu``'s
+    and ``cumsum``'s one operand);
   * literals are keyed by their f32 value (jax's weak-typed ``0`` and
     ``0.0`` are one literal), one register per distinct value, in order
     of first use.
@@ -139,16 +140,44 @@ _PRIM = {
     "exp": "exp", "log": "log", "rsqrt": "rsqrt", "sqrt": "sqrt",
     "sigmoid": "logistic", "tanh": "tanh", "abs": "abs",
     "lt": "lt", "gt": "gt", "ge": "ge", "eq": "eq",
-    # jnp.where and jax.nn.silu are calls named "jit" that the reference
-    # does not walk into (module note): they lower through the eltwise
-    # fallback
-    "where": "jit", "silu": "jit",
+    # jnp.where, jax.nn.silu and jnp.cumsum are calls named "jit" that
+    # the reference does not walk into (module note): they lower through
+    # the eltwise fallback
+    "where": "jit", "silu": "jit", "cumsum": "jit",
+    # basic indexing (``a[:, 0]``, ``seg[-1]``, ``seg[:, None]``) traces to
+    # slice, dynamic_slice, squeeze and broadcast_in_dim: free views; an
+    # index holding a tensor is a gather and raises (``_check_index``)
+    "getitem": "slice",
     "sum": "reduce_sum", "amax": "reduce_max", "amin": "reduce_min",
     # jnp.mean is reduce_sum, then div by the literal count (_Lowerer._walk)
     "mean": "mean",
     "reshape": "reshape", "t": "transpose", "T": "transpose",
     "float": "convert_element_type",
 }
+
+
+# torch calls whose arguments past the first few are the call's
+# parameters (jax records them on the equation, not as operands)
+_OPERANDS = {"cumsum": 1}
+
+
+def _basic(item) -> bool:
+    if isinstance(item, slice):
+        return all(v is None or type(v) is int
+                   for v in (item.start, item.stop, item.step))
+    return item is None or item is Ellipsis or type(item) is int
+
+
+def _check_index(node) -> None:
+    """Indexing lowers for free only when the index is made of ints,
+    slices, None and Ellipsis; the reference traces a tensor (or bool)
+    index to ``gather``, which the lowering does not map."""
+    index = node.args[1]
+    items = index if isinstance(index, tuple) else (index,)
+    if not all(_basic(i) for i in items):
+        raise NotImplementedError(
+            f"lowering: no TSASS mapping for the torch call 'getitem' with "
+            f"the index {index!r} (a gather in the reference; ROADMAP A10)")
 
 
 def _digest(text: str) -> int:
@@ -175,6 +204,8 @@ class _Traced:
                 self.values[node] = torch.empty(tuple(next(inputs)),
                                                 device="meta")
             elif node.op in ("call_function", "call_method"):
+                if self.call_name(node) == "getitem":
+                    _check_index(node)
                 args = torch.fx.node.map_arg(node.args, self.values.get)
                 kwargs = torch.fx.node.map_arg(node.kwargs, self.values.get)
                 if node.op == "call_function":
@@ -195,13 +226,16 @@ class _Traced:
         return tuple(self.values[node].shape)
 
     @staticmethod
-    def prim(node) -> str:
+    def call_name(node) -> str:
         if node.target is getattr:           # an attribute: ``k.T``
-            name = node.args[1]
-        elif node.op == "call_method":
-            name = node.target
-        else:
-            name = getattr(node.target, "__name__", str(node.target))
+            return node.args[1]
+        if node.op == "call_method":
+            return node.target
+        return getattr(node.target, "__name__", str(node.target))
+
+    @classmethod
+    def prim(cls, node) -> str:
+        name = cls.call_name(node)
         try:
             return _PRIM[name]
         except KeyError:
@@ -380,7 +414,9 @@ class _Lowerer:
         return [accs[0]]
 
     def _emit_eltwise(self, traced: _Traced, node, env, opcode) -> List[str]:
-        operands = [a for a in node.args
+        args = node.args[:_OPERANDS.get(traced.call_name(node),
+                                        len(node.args))]
+        operands = [a for a in args
                     if isinstance(a, (torch.fx.Node, bool, int, float))]
         srcs = [self._read(env, a)[0] for a in operands[:3]]
         return self._emit_vpu(traced.shape(node), srcs, opcode)

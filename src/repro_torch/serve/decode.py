@@ -21,7 +21,7 @@ import torch
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import (_apply_mlp, _apply_norm, embed_forward,
-                                   head_forward, require_dense,
+                                   head_forward, require_family,
                                    window_schedule)
 from repro_torch.nn.attention import (NO_WINDOW, masked_decode_attention,
                                       paged_decode_attention,
@@ -53,7 +53,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 device="cpu") -> List:
     """One cache dict per layer: ``max_seq`` positions for global layers,
     ``min(window, max_seq)`` for windowed (ring-buffer) layers."""
-    require_dense(cfg, "init_caches")
+    require_family(cfg, "init_caches")
     caches = []
     for w in window_schedule(cfg):
         length = max_seq if w >= NO_WINDOW else min(int(w), max_seq)
@@ -66,7 +66,7 @@ def paged_cache_kinds(cfg: ModelConfig) -> List[str]:
     ``"paged"`` — block-major physical pages addressed through the block
     table.  (The reference's ``"slot"`` kind, recurrent state gathered by
     slot, arrives with the ssm and hybrid families.)"""
-    require_dense(cfg, "paged_cache_kinds")
+    require_family(cfg, "paged_cache_kinds")
     return ["paged"] * cfg.n_layers
 
 
@@ -177,7 +177,7 @@ def decode_step(params: Dict, caches: List, token, pos,
     generate path) or a ``(B,)`` int tensor of per-row positions (the
     continuous-batching ragged path; each row reads/writes its own cache
     position)."""
-    require_dense(cfg, "decode_step")
+    require_family(cfg, "decode_step")
     device = _device(params)
     if isinstance(pos, torch.Tensor) and pos.ndim >= 1:
         pos = pos.to(device)
@@ -207,7 +207,7 @@ def paged_decode_step(params: Dict, caches: List, block_table, token, pos,
     write avoids a spurious copy-on-write fork).  The mask becomes lane
     indices on the host once per pass (a host sync if it lies on the
     card; the engine hands it over from the host)."""
-    require_dense(cfg, "paged_decode_step")
+    require_family(cfg, "paged_decode_step")
     device = _device(params)
     block_table = torch.as_tensor(block_table, device=device)
     pos = torch.as_tensor(pos, device=device)

@@ -21,7 +21,8 @@ SUBPACKAGES = ["repro_torch", "repro_torch.configs", "repro_torch.kernels",
                "repro_torch.launch.specs", "repro_torch.launch.optimize",
                "repro_torch.core.ppo", "repro_torch.core.game",
                "repro_torch.core.moves", "repro_torch.sched.api",
-               "repro_torch.kernels.softmax"]
+               "repro_torch.kernels.softmax", "repro_torch.kernels.ssd",
+               "repro_torch.nn.ssm"]
 
 
 def test_import_loads_no_jax_and_no_repro():

@@ -5,7 +5,9 @@ the JAX package's Pallas kernels (interpret mode) and its jnp oracles, on
 the same seeded numpy inputs; the gradients of the model kernels'
 ``autograd.Function``s against JAX's gradients of the same oracles; and
 the wrappers' dispatch rules (a CPU tensor takes the plain version and
-launches nothing; anything else launches the kernel or raises).
+launches nothing; anything else launches the kernel or raises); and every
+registered kernel, ``ssd`` included, called as a deployed config calls it
+(``ssd``'s parity tests are in ``tests/test_torch_ssm.py``).
 
 Tolerances are those of ``tests/test_kernels.py`` for the same kernels:
 f32 atol 2e-5 (rmsnorm, matmul_leakyrelu, bmm) / 1e-4 (fused_ff, 128-term
@@ -39,6 +41,7 @@ from repro_torch.kernels import matmul_leakyrelu as mlr_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as rms_mod
 from repro_torch.kernels import softmax as sm_mod
+from repro_torch.kernels import ssd as ssd_mod
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -484,6 +487,10 @@ def _config_inputs(name, cfg, rng):
                 t(1, 2, 2 * cfg["bk"], cfg["d"]))
     if name == "bmm":
         return (t(2, cfg["bm"], cfg["bk"]), t(2, cfg["bk"], cfg["bn"]))
+    if name == "ssd":      # flat (BH, S, ...), S two chunks, a <= 0
+        S = 2 * cfg["chunk"]
+        return (t(2, S, cfg["p"]), -t(2, S).abs(), t(2, S, cfg["n"]),
+                t(2, S, cfg["n"]))
     m, n, k = cfg["bm"], cfg["bn"], 2 * cfg["bk"]
     if name == "fused_ff":
         return t(m, k), t(k, n), t(k, n)
@@ -496,27 +503,33 @@ def test_registry_kernels_take_every_config(name):
     ``ref_fn`` on CPU tensors (as ``chip_smoke.py`` launches the deployed
     configs on the card); shapes the config's block sizes do not divide
     fail the reference's assertion, and a config's shape key (``cols``,
-    ``d``) that is not the input's raises."""
+    ``d``, ``p``) that is not the input's raises.  (``ssd``'s plain version
+    takes the config's chunk: it blocks the sum, which moves the f32
+    rounding.)"""
     kdef = KERNELS[name]
     rng = np.random.default_rng(7)
     for cfg in kdef.configs:
         inputs = _config_inputs(name, cfg, rng)
+        chunk = {"chunk": cfg["chunk"]} if name == "ssd" else {}
         assert torch.equal(kdef.kernel_fn(*inputs, **cfg),
-                           kdef.ref_fn(*inputs))
+                           kdef.ref_fn(*inputs, **chunk))
     cfg = kdef.configs[0]
     inputs = _config_inputs(name, cfg, rng)
     shape_key = {"rmsnorm": "cols", "softmax": "cols",
-                 "flash_attention": "d"}.get(name)
+                 "flash_attention": "d", "ssd": "p"}.get(name)
     if shape_key is not None:
         with pytest.raises(ValueError):
             kdef.kernel_fn(*inputs, **dict(cfg, **{shape_key: 7}))
-    # one row (one query, for attention) fewer: bm/br/bq no longer divide
+    # one row (one query, for attention; one position, for ssd) fewer:
+    # bm/br/bq/chunk no longer divide
     if name == "flash_attention":
         cut = [inputs[0][:, :, :-1], *inputs[1:]]
+    elif name == "ssd":
+        cut = [t[:, :-1] for t in inputs]
     elif name == "bmm":
         cut = [inputs[0][:, :-1], inputs[1]]
     else:
         cut = [inputs[0][:-1], *inputs[1:]]
     with pytest.raises(AssertionError):
         kdef.kernel_fn(*cut, **cfg)
-    assert getattr(rms_mod, "launches") == 0 and sm_mod.launches == 0
+    assert rms_mod.launches == sm_mod.launches == ssd_mod.launches == 0

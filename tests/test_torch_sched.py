@@ -1,8 +1,8 @@
 """The port's optimizer pipeline (``repro_torch.sched`` and
 ``repro_torch.launch.optimize``) against the JAX package's on the CPU.
 
-- Lowering: for the six registered kernels at every ``CONFIGS`` entry and
-  the scenarios below, the same instruction count, opcodes,
+- Lowering: for the seven registered kernels at every ``CONFIGS`` entry
+  and the scenarios below, the same instruction count, opcodes,
   tile/group/predicate structure, operand text and ``-O3`` order, control
   codes and cycles.
   Operand text is compared after normalizing LDV ``[UR2+...]`` addresses
@@ -12,7 +12,8 @@
 - The session: ``autotune`` choices, ``probabilistic_test`` verdicts, the
   greedy and seeded random searches (best cycles 8294 -> 8289 and
   8275 -> 8271), cache v3 indexes crossing both ways, the launcher's
-  output lines (the pair, and qwen1.5-4b's 18-cell ``--arch`` fleet), and
+  output lines (the pair, qwen1.5-4b's 18-cell and mamba2-1.3b's 16-cell
+  ``--arch`` fleets), and
   a supervised campaign's ``FailureLedger`` resume and skip semantics, all
   equal to the reference's.  The PPO strategy's own parity tests are in
   ``tests/test_torch_ppo.py``.
@@ -73,9 +74,9 @@ from repro_torch.sched.scenario import nearest_bucket as tnearest
 from repro_torch.sched.spec import KernelSpec, TileIO
 
 PAIR = ("matmul_leakyrelu", "bmm")
-# the registry, in the reference's order (ssd joins with its kernel)
+# the registry, in the reference's order
 FLEET = ("matmul_leakyrelu", "fused_ff", "bmm", "flash_attention", "softmax",
-         "rmsnorm")
+         "rmsnorm", "ssd")
 
 # (instructions, -O3 cycles) of the reference's listing at each config
 GATE = {
@@ -90,13 +91,14 @@ GATE = {
     ("bmm", (256, 64, 64)): (86, 6007),
 }
 # (instructions, -O3 cycles) of the reference's listing at each CONFIGS
-# entry of the other four kernels, in CONFIGS order
+# entry of the other five kernels, in CONFIGS order
 FLEET_GATE = {
     "fused_ff": [(173, 12550), (119, 5856), (152, 10462), (171, 9631)],
     "flash_attention": [(185, 5124), (323, 9877), (307, 6488),
                         (241, 10679)],
     "softmax": [(518, 15852), (678, 34040), (678, 34040), (518, 15852)],
     "rmsnorm": [(270, 9561), (478, 15692), (479, 15868), (478, 15692)],
+    "ssd": [(161, 3945), (287, 11277), (179, 4291)],
 }
 # tests/test_scenarios.py's workload points (None: the legacy single
 # point); they give matmul_leakyrelu 2 to 8 unrolled steps and two dtypes
@@ -153,12 +155,13 @@ def test_lowering_and_o3_match_reference(name, blocks, scen_text):
 
 @pytest.mark.parametrize("scen_text", SCENARIOS)
 @pytest.mark.parametrize("name,index", [(n, i) for n in FLEET_GATE
-                                        for i in range(4)])
+                                        for i in range(len(FLEET_GATE[n]))])
 def test_fleet_lowering_and_o3_match_reference(name, index, scen_text):
-    """The A5 gate on the other four kernels: rmsnorm (``jnp.mean`` as
+    """The A5 gate on the other five kernels: rmsnorm (``jnp.mean`` as
     reduce_sum and div by a literal), fused_ff (``jax.nn.silu`` through
     the call fallback), flash_attention (``k.T``, an epilogue over two
-    accumulators) and softmax (one step per row tile)."""
+    accumulators), softmax (one step per row tile) and ssd (``jnp.cumsum``
+    through the call fallback, indexing as free views)."""
     cfg = get_kernel(name).configs[index]
     assert cfg == jget_kernel(name).configs[index]
     jl, tl = _pair_listings(name, cfg, scen_text)
@@ -269,6 +272,23 @@ def test_unmapped_torch_call_raises():
     spec = KernelSpec("odd", lambda a: (a.cumprod(0),), [TileIO("a", (8, 8))],
                       [TileIO("y", (8, 8))])
     with pytest.raises(NotImplementedError, match="no TSASS mapping"):
+        lower(spec)
+
+
+# indexing with a tensor: the reference traces it to gather, not a view
+GATHERS = [
+    ("mask", lambda a, b: (a[b > 0],)),
+    ("int_tensor", lambda a, b: (a[b.long()],)),
+    ("tuple_with_tensor", lambda a, b: (a[:, b[0].long()],)),
+]
+
+
+@pytest.mark.parametrize("case", GATHERS, ids=[c[0] for c in GATHERS])
+def test_tensor_indexing_raises(case):
+    _, fn = case
+    spec = KernelSpec("gather", fn, [TileIO("a", (8, 8)), TileIO("b", (8,))],
+                      [TileIO("y", (8, 8))])
+    with pytest.raises(NotImplementedError, match="'getitem' with the index"):
         lower(spec)
 
 
@@ -429,7 +449,9 @@ def test_unported_strategies_and_registry(tmp_path, stall_db, monkeypatch):
     """PPO runs (tests/test_torch_ppo.py holds it against the reference);
     the cost-model strategies still raise, naming ROADMAP A11; the
     default strategy, ppo, needs a card unless asked for the CPU; the
-    registry holds the six ported kernels and not ``ssd``."""
+    registry holds the seven kernels in the reference's order, ``ssd``
+    last, each with its Hopper kernel and its plain version, and an
+    unknown name raises ``KeyError`` listing them."""
     ppo = make_budgeted_strategy("ppo", timesteps=64, episode_length=8,
                                  device="cpu")
     assert ppo.name == "ppo" and ppo.ppo.total_timesteps == 64
@@ -451,7 +473,7 @@ def test_unported_strategies_and_registry(tmp_path, stall_db, monkeypatch):
         assert kdef.kernel_fn is not None and kdef.ref_fn is not None
         assert kdef.configs == jget_kernel(name).configs
     with pytest.raises(KeyError, match="registered kernels"):
-        get_kernel("ssd")
+        get_kernel("ssd_v2")
     alias = register_kernel(KernelDef("bmm_alias", get_kernel("bmm").make_spec,
                                       get_kernel("bmm").configs))
     try:
@@ -529,10 +551,35 @@ def test_arch_fleet_launcher_matches_reference(tmp_path, monkeypatch,
         assert f"cached config {configs[name]} {want_cycles[name]} " in line
 
 
+def test_ssm_fleet_launcher_matches_reference(tmp_path, monkeypatch,
+                                              capsys):
+    """``--arch mamba2-1.3b --strategy greedy`` prints the reference's 16
+    cells — 4 kernels (``ssd`` among them) x 4 buckets, with their
+    cycles — and its campaign and shared-memo lines; ``--deploy`` reads
+    back the same configs."""
+    args = ["--arch", "mamba2-1.3b", "--strategy", "greedy"]
+    for extra in ([], ["--deploy"]):
+        got = _run_main(toptimize, args + extra + [
+            "--device", "cpu", "--cache-dir", str(tmp_path / "t")],
+            monkeypatch, capsys)
+        want = _run_main(joptimize, args + extra + [
+            "--cache-dir", str(tmp_path / "j")], monkeypatch, capsys)
+        assert got == want
+        cells = [line for line in got.splitlines()
+                 if re.match(r"\[optimize\] \w+@b", line)]
+        assert len(cells) == 16
+        if not extra:
+            assert "[optimize] ssd@b1_s524288_f32_low: 3945 -> 3943 cycles" \
+                in got
+            assert "[optimize] shared memo: 7399 entries, 30017/37416 hits " \
+                "(80.2%), 0 cross-kernel" in got
+    assert "[optimize] ssd@b256_s4096_f32_full: cached config {'chunk': 64, " \
+        "'p': 64, 'n': 128} 3945 -> 3943 cycles" in got
+
+
 def test_launcher_fails_fast_on_unported_paths(tmp_path, monkeypatch):
     """The default strategy, ppo, needs a card and says so before any
-    search unless ``--device cpu`` asks for the CPU; an SSM fleet stops at
-    ``ssd``, whose spec comes with its kernel (ROADMAP A12); the cost-model
+    search unless ``--device cpu`` asks for the CPU; the cost-model
     strategies raise, naming A11."""
     base = ["--cache-dir", str(tmp_path)]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -541,10 +588,6 @@ def test_launcher_fails_fast_on_unported_paths(tmp_path, monkeypatch):
         toptimize.main()                             # --strategy ppo default
     assert not os.path.exists(os.path.join(str(tmp_path),
                                            toptimize.LEDGER_FILENAME))
-    monkeypatch.setattr(sys, "argv", ["optimize", "--arch", "mamba2-1.3b",
-                                      "--strategy", "greedy", *base])
-    with pytest.raises(KeyError, match="unknown kernel 'ssd'"):
-        toptimize.main()
     monkeypatch.setattr(sys, "argv", ["optimize", "bmm", "--strategy", "beam",
                                       *base])
     with pytest.raises(NotImplementedError, match="A11"):

@@ -375,3 +375,14 @@ def test_launcher(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             launch_train.main(["--steps", "1"])
+
+
+def test_launcher_trains_the_ssm_family(capsys):
+    """``--arch mamba2-1.3b`` trains the reduced config on the CPU; a
+    family whose forward is not ported (hybrid) raises naming its item."""
+    launch_train.main(["--arch", "mamba2-1.3b", "--device", "cpu", "--steps",
+                       "3", "--seq-len", "16", "--global-batch", "2"])
+    out = capsys.readouterr().out
+    assert out.count("[train] step=") == 3 and "[train] final loss" in out
+    with pytest.raises(NotImplementedError, match="A12"):
+        launch_train.main(["--arch", "zamba2-2.7b", "--device", "cpu"])
