@@ -26,7 +26,14 @@ Phases, each printed on lines of its own:
    model layout at the SSM training path's shape (mamba2-1.3b: (4, 2048,
    64, 64) x (4, 2048, 1, 128)), a ragged two-group shape, chunk 128,
    P 128 with N 64 and a strong decay; K1 also at that path's gated norm
-   (8192 x 4096); the gradients of the four model kernels'
+   (8192 x 4096); K6 in bf16 at each ``CONFIGS`` entry (bq, bk, d) on
+   a causal shape and a GQA shape with a window and a query offset, and
+   K3 and K4 at each of their ``CONFIGS`` entries, in f32 and bf16; the
+   bf16 path shapes (K6's training shape, K3's and K4's optimizer
+   shapes) and every bf16 ``CONFIGS`` case must launch the wgmma tiling
+   they name, read from the wrappers' per-tiling counts
+   (``launches_by_tiling``), and each record names its tiling; the
+   gradients of the four model kernels'
    ``autograd.Function``s against autograd through the plain versions at
    the training shapes (K7's under the strong decay); CUDA-event times of
    each kernel, its plain version and a library yardstick beside its
@@ -69,6 +76,11 @@ Phases, each printed on lines of its own:
    must print the reference's 16 cells and memo line, ``--deploy`` must
    read them back, and the deployed ``ssd`` is launched through the
    registry at the first bucket's config in bf16 and f32, once a call;
+   (d) the deployed config chooses the tiling: K3's and K4's deployed
+   configs (the pair's) and K6's (the fleet's first bucket's), each
+   beside another entry of its ``CONFIGS`` that names another instance,
+   launched through the registry in bf16 at the path's shapes, must
+   launch the instance each names and agree with ``ref_fn``;
 7. the ``{"kernels": [...]}`` line (K1-K7, with their launches by path),
    then the last line: ``{"ok": true, "device": {...}}``.
 
@@ -200,6 +212,31 @@ def check_close(name, got, want, atol, rtol):
     if not ok:
         fail(f"{name} disagrees with its plain version")
     return err
+
+
+def launched(mod, fn):
+    """``fn()`` and the tilings it launched, by ``mod``'s per-tiling count
+    (a Counter of the kernel instances' names)."""
+    import collections
+
+    import torch
+    before = collections.Counter(mod.launches_by_tiling)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, sorted(mod.launches_by_tiling - before)
+
+
+def expect_tiling(name, ran, want=None):
+    """The one wgmma tiling ``ran`` holds (``want``, where given); fails on
+    anything else: a path shape in bf16 must go through the tensor
+    cores."""
+    ok = len(ran) == 1 and ran[0].startswith("wgmma_") \
+        and (want is None or ran[0] == want)
+    print(f"  {name}: launched {ran}{'' if want is None else f' (want {want})'}"
+          f" {'ok' if ok else 'WRONG TILING'}", flush=True)
+    if not ok:
+        fail(f"{name} launched {ran}, not {want or 'a wgmma tiling'}")
+    return ran[0]
 
 
 def record(name, path, shape, err, ms, plain_ms, nbytes, ops, dtype,
@@ -339,12 +376,14 @@ def flash_attention_checks(gen, records):
                      f"{'causal' if causal else 'full'}{win}"
                      f"{f' q_offset {q_offset}' if q_offset else ''} "
                      f"{dname}")
-            err = check_close(f"flash_attention {shape}",
-                              fa_mod.flash_attention(q, k, v, **kw),
+            got, ran = launched(
+                fa_mod, lambda: fa_mod.flash_attention(q, k, v, **kw))
+            err = check_close(f"flash_attention {shape} {ran}", got,
                               ops.flash_attention(q, k, v, impl="ref", **kw),
                               *tol[dname])
             if (Sq, dname) != (SEQ, "bfloat16"):
                 continue
+            tiling = expect_tiling(f"flash_attention {shape}", ran)
             el = q.element_size()
             # the (query, key) pairs this run's mask keeps, two products each
             pairs = sum(min(q_offset + i + 1, Sk) for i in range(Sq))
@@ -356,7 +395,31 @@ def flash_attention_checks(gen, records):
                 (2 * B * H * Sq + 2 * B * KH * Sk) * D * el,
                 4 * B * H * D * pairs, dname,
                 event_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True), 20)))
+                    q, k, v, is_causal=True), 20), tiling=tiling))
+    # bf16 at each CONFIGS entry (bq, bk, d): a causal shape, and grouped
+    # KV heads with a window and a query offset; each must launch its own
+    # wgmma instance
+    for cfg in fa_mod.CONFIGS:
+        for B, H, KH, Sq, Sk, causal, window, q_offset in (
+                (2, 8, 8, 1024, 1024, True, NO_WINDOW, 0),
+                (2, 8, 2, 512, 1024, True, 300, 512)):
+            q = torch.randn(B, H, Sq, cfg["d"], device="cuda",
+                            generator=gen).to(torch.bfloat16)
+            k, v = (torch.randn(B, KH, Sk, cfg["d"], device="cuda",
+                                generator=gen).to(torch.bfloat16)
+                    for _ in range(2))
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            got, ran = launched(fa_mod, lambda: fa_mod.flash_attention(
+                q, k, v, **kw, **cfg))
+            shape = (f"({B},{H},{Sq},{cfg['d']}) kv ({KH},{Sk}) causal"
+                     f"{'' if window == NO_WINDOW else f' window {window}'}"
+                     f"{f' q_offset {q_offset}' if q_offset else ''} at {cfg}")
+            expect_tiling(f"flash_attention {shape}", ran,
+                          fa_mod.select_tiling(torch.bfloat16, q.shape,
+                                               **cfg))
+            check_close(f"flash_attention {shape} bfloat16", got,
+                        ops.flash_attention(q, k, v, impl="ref", **kw),
+                        *tol["bfloat16"])
 
 
 def _f64_tolerance(plain, exact, floor):
@@ -401,14 +464,33 @@ def gemm_checks(gen, records):
                                     (131, 77, 45, 1, 1, 1)):
             # the test's inputs: both operands N(0, 0.5^2)
             a, b = _gemm_inputs(gen, dt, (m, k), (k, n), 0.5)
-            check_close(f"matmul_leakyrelu {m}x{k}x{n} {dname}",
-                        mlr_mod.matmul_leakyrelu(a, b, bm=bm, bn=bn, bk=bk),
+            got, ran = launched(mlr_mod, lambda: mlr_mod.matmul_leakyrelu(
+                a, b, bm=bm, bn=bn, bk=bk))
+            check_close(f"matmul_leakyrelu {m}x{k}x{n} {dname} {ran}", got,
                         ops.matmul_leakyrelu(a, b, impl="ref"), atol, rtol)
         for B, m, k, n, blk in ((3, 128, 128, 128, 64), (2, 33, 17, 65, 1)):
             a, b = _gemm_inputs(gen, dt, (B, m, k), (B, k, n), 0.5)
-            check_close(f"bmm ({B},{m},{k})x({B},{k},{n}) {dname}",
-                        bmm_mod.bmm(a, b, bm=blk, bn=blk, bk=blk),
+            got, ran = launched(bmm_mod, lambda: bmm_mod.bmm(
+                a, b, bm=blk, bn=blk, bk=blk))
+            check_close(f"bmm ({B},{m},{k})x({B},{k},{n}) {dname} {ran}", got,
                         ops.bmm(a, b, impl="ref"), atol, rtol)
+        # each CONFIGS entry (bm, bn, bk), at the test's inputs; in bf16
+        # each launches its own wgmma instance
+        for mod, fn, plain, dims in (
+                (mlr_mod, mlr_mod.matmul_leakyrelu, ops.matmul_leakyrelu,
+                 ((512, 512), (512, 512))),
+                (bmm_mod, bmm_mod.bmm, ops.bmm,
+                 ((3, 512, 512), (3, 512, 512)))):
+            name = fn.__name__
+            for cfg in mod.CONFIGS:
+                a, b = _gemm_inputs(gen, dt, *dims, 0.5)
+                got, ran = launched(mod, lambda: fn(a, b, **cfg))
+                if dname == "bfloat16":
+                    expect_tiling(f"{name} {dims} {cfg}", ran,
+                                  mod.select_tiling(
+                                      dt, (*dims[0], dims[1][-1]), **cfg))
+                check_close(f"{name} {dims} {cfg} {dname} {ran}", got,
+                            plain(a, b, impl="ref"), atol, rtol)
 
         m, k, n = MLR_SHAPE
         a, b = _gemm_inputs(gen, dt, (m, k), (k, n))
@@ -416,8 +498,12 @@ def gemm_checks(gen, records):
         tol = _f64_tolerance(plain, ops.matmul_leakyrelu(
             a.double(), b.double(), impl="ref"), atol)
         shape = f"{m}x{k}x{n} {dname}"
-        err = check_close(f"matmul_leakyrelu {shape}",
-                          mlr_mod.matmul_leakyrelu(a, b), plain, tol, 0.0)
+        got, ran = launched(mlr_mod, lambda: mlr_mod.matmul_leakyrelu(a, b))
+        err = check_close(f"matmul_leakyrelu {shape} {ran}", got, plain, tol,
+                          0.0)
+        tiling = (expect_tiling(f"matmul_leakyrelu {shape}", ran)
+                  if dname == "bfloat16" else ran[0])
+        del got
         el = a.element_size()
         records.append(record(
             "matmul_leakyrelu", "optimize", shape, err,
@@ -426,7 +512,8 @@ def gemm_checks(gen, records):
             (m * k + k * n + m * n) * el, 2 * m * k * n, dname,
             # no single PyTorch call computes LeakyReLU(a @ b)
             None, library_composite_ms=event_ms(
-                lambda: F.leaky_relu(torch.matmul(a, b), 0.01), 10)))
+                lambda: F.leaky_relu(torch.matmul(a, b), 0.01), 10),
+            tiling=tiling))
         del a, b, plain
 
         B, m, k, n = BMM_SHAPE
@@ -435,14 +522,18 @@ def gemm_checks(gen, records):
         tol = _f64_tolerance(plain, ops.bmm(a.double(), b.double(),
                                             impl="ref"), atol)
         shape = f"({B},{m},{k})x({B},{k},{n}) {dname}"
-        err = check_close(f"bmm {shape}", bmm_mod.bmm(a, b), plain, tol, 0.0)
+        got, ran = launched(bmm_mod, lambda: bmm_mod.bmm(a, b))
+        err = check_close(f"bmm {shape} {ran}", got, plain, tol, 0.0)
+        tiling = (expect_tiling(f"bmm {shape}", ran)
+                  if dname == "bfloat16" else ran[0])
+        del got
         el = a.element_size()
         records.append(record(
             "bmm", "optimize", shape, err,
             event_ms(lambda: bmm_mod.bmm(a, b), 20),
             event_ms(lambda: ops.bmm(a, b, impl="ref"), 20),
             B * (m * k + k * n + m * n) * el, 2 * B * m * k * n, dname,
-            event_ms(lambda: torch.bmm(a, b), 20)))
+            event_ms(lambda: torch.bmm(a, b), 20), tiling=tiling))
         del a, b, plain
 
 
@@ -739,6 +830,8 @@ def _kernel_modules():
 def _reset_launches():
     for mod in _kernel_modules().values():
         mod.launches = 0
+        if hasattr(mod, "launches_by_tiling"):
+            mod.launches_by_tiling.clear()
 
 
 def _read_launches():
@@ -1080,7 +1173,7 @@ def optimize_phase():
                     tol, 0.0)
     del inputs, outs
     torch.cuda.empty_cache()
-    return launches
+    return launches, configs
 
 
 _CELL = re.compile(r"\[optimize\] (\w+)@(\w+): (\d+) -> (\d+) cycles "
@@ -1239,7 +1332,7 @@ def fleet_phase():
         del plain
     del inputs, outs
     torch.cuda.empty_cache()
-    return launches
+    return launches, configs
 
 
 _GREEDY_CELL = re.compile(r"\[optimize\] (\w+)@(\w+): (\d+ -> \d+) cycles "
@@ -1325,6 +1418,66 @@ def ssm_fleet_phase():
     return launches
 
 
+def tiling_gate(deployed):
+    """The deployed config chooses the tiling (ROADMAP C1), for K3, K4 and
+    K6 in bf16: each kernel's deployed config (``deployed``: the pair's
+    for K3 and K4, the fleet's first bucket's for K6) and the first other
+    entry of its ``CONFIGS`` (the space the optimizer deploys from) that
+    names another instance are launched through the registry at the
+    path's shapes; each must launch the instance its config names, and
+    both outputs must agree with ``ref_fn``."""
+    import importlib
+
+    import torch
+    from repro_torch.kernels import get_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def path_shape(name, cfg):   # what the kernel's select_tiling takes
+        return {"flash_attention": (BATCH, 20, SEQ, cfg.get("d")),
+                "matmul_leakyrelu": MLR_SHAPE, "bmm": BMM_SHAPE}[name]
+
+    def inputs(name, cfg):
+        if name == "flash_attention":
+            return tuple(torch.randn(*path_shape(name, cfg), device="cuda",
+                                     generator=gen).to(torch.bfloat16)
+                         for _ in range(3))
+        if name == "matmul_leakyrelu":
+            m, k, n = MLR_SHAPE
+            return _gemm_inputs(gen, torch.bfloat16, (m, k), (k, n))
+        B, m, k, n = BMM_SHAPE
+        return _gemm_inputs(gen, torch.bfloat16, (B, m, k), (B, k, n))
+
+    gate = {}
+    for name in ("matmul_leakyrelu", "bmm", "flash_attention"):
+        kdef = get_kernel(name)
+        mod = importlib.import_module(f"repro_torch.kernels.{name}")
+
+        def tiling(cfg):
+            return mod.select_tiling(torch.bfloat16, path_shape(name, cfg),
+                                     **cfg)
+
+        first = deployed[name]
+        second = next(c for c in kdef.configs if tiling(c) != tiling(first))
+        for cfg in (first, second):
+            xs = inputs(name, cfg)
+            got, ran = launched(mod, lambda: kdef.kernel_fn(*xs, **cfg))
+            expect_tiling(f"{name} at {cfg}", ran, tiling(cfg))
+            plain = kdef.ref_fn(*xs)
+            if got.shape != plain.shape or not torch.isfinite(got).all():
+                fail(f"{name} at {cfg}: misshapen or non-finite output")
+            atol = (3e-2 if name == "flash_attention" else _f64_tolerance(
+                plain, kdef.ref_fn(*(t.double() for t in xs)),
+                GEMM_TOL["bfloat16"][0]))
+            check_close(f"{name} at {cfg} {tuple(xs[0].shape)} bfloat16",
+                        got, plain, atol, 0.0)
+            del xs, got, plain
+        gate[name] = {tiling(first): first, tiling(second): second}
+    print("  the deployed config chooses the tiling (bf16): "
+          + json.dumps(gate), flush=True)
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -1378,9 +1531,11 @@ def main() -> int:
     launches["train_ssm"] = train_phase(SSM_ARCH, args.profile)
 
     phase("6 optimizer main paths")
-    launches["optimize"] = optimize_phase()
-    launches["fleet"] = fleet_phase()
+    launches["optimize"], pair_configs = optimize_phase()
+    launches["fleet"], fleet_configs = fleet_phase()
     launches["fleet_ssm"] = ssm_fleet_phase()
+    tiling_gate(dict(pair_configs,
+                     flash_attention=fleet_configs["flash_attention"]))
 
     phase("7 kernels")
     kernels = []

@@ -21,7 +21,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -42,14 +42,14 @@ _SIGNATURES = {
     # (x, wg, wu, out, M, K, N, dtype, stream)
     "repro_fused_ff": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (q, k, v, o, B, H, KH, Sq, Sk, D, scale, causal, window, q_offset,
-    #  dtype, stream)
+    #  tiling, dtype, stream)
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              ctypes.c_float, _I, _I, _I, _I, _P],
-    # (a, b, out, M, K, N, negative_slope, dtype, stream)
+                              ctypes.c_float, _I, _I, _I, _I, _I, _P],
+    # (a, b, out, M, K, N, negative_slope, tiling, dtype, stream)
     "repro_matmul_leakyrelu": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I,
-                               _P],
-    # (a, b, out, B, M, K, N, dtype, stream)
-    "repro_bmm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+                               _I, _P],
+    # (a, b, out, B, M, K, N, tiling, dtype, stream)
+    "repro_bmm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # (x, y, rows, cols, dtype, stream)
     "repro_softmax": [_P, _P, _I, _I, _I, _P],
     # (x, a, b, c, y, B, S, H, G, P, N, the strides of x, a, b and c
@@ -57,8 +57,12 @@ _SIGNATURES = {
     "repro_ssd": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_I, _P],
 }
 
+# the kernels' lists of tiling names, by id, comma-separated (no arguments)
+_TILING_LISTS = ("repro_flash_attention_tilings", "repro_gemm_tilings")
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_tiling_ids: Dict[str, Dict[str, int]] = {}
 build_seconds: Optional[float] = None   # wall time of this process's build
 
 
@@ -128,8 +132,26 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            for name in _TILING_LISTS:
+                fn = getattr(lib, name)
+                fn.argtypes = []
+                fn.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def tiling_ids(symbol: str, names: Sequence[str]) -> Dict[str, int]:
+    """{name: id} of the kernel instances ``names`` (a wrapper's
+    ``TILINGS``), after checking that the library's list ``symbol``
+    names the same instances in the same order."""
+    ids = _tiling_ids.get(symbol)
+    if ids is None:
+        built = tuple(getattr(library(), symbol)().decode().split(","))
+        if built != tuple(names):
+            raise RuntimeError(f"{symbol}: the library's tilings {built} "
+                               f"are not the wrapper's {tuple(names)}")
+        ids = _tiling_ids[symbol] = {n: i for i, n in enumerate(names)}
+    return ids
 
 
 def check(err: int, name: str) -> None:

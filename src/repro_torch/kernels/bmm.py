@@ -12,23 +12,42 @@ kernel or raises.
 
 from __future__ import annotations
 
-from typing import Dict
+import collections
+from typing import Dict, Sequence
 
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.matmul_leakyrelu import (aligned16, gemm_tiling,
+                                                  launch_gemm)
 from repro_torch.sched.spec import KernelSpec, TileIO
 
-# Kernel launches made by this process (the wrapper adds one per launch).
+# Kernel launches made by this process (the wrapper adds one per launch),
+# in all and by the tiling that ran (a name of
+# ``matmul_leakyrelu.TILINGS``, the instances of ``csrc/gemm.cu``, which K3
+# and K4 share).
 launches = 0
+launches_by_tiling: collections.Counter = collections.Counter()
+
+
+def select_tiling(dtype: torch.dtype, shape: Sequence[int], *, bm: int = 128,
+                  bn: int = 128, bk: int = 128, aligned: bool = True) -> str:
+    """The tiling that ``bmm`` launches for a product of ``shape`` (B, M,
+    K, N) in ``dtype`` at the deployed block sizes (see
+    :func:`repro_torch.kernels.matmul_leakyrelu.gemm_tiling`)."""
+    _, _, k, n = shape
+    return gemm_tiling(dtype, k, n, bm, bn, bk, aligned)
 
 
 def bmm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128,
         bk: int = 128) -> torch.Tensor:
     """a: (B, M, K), b: (B, K, N) -> a @ b (B, M, N) in a's type, with f32
     accumulation.  M, N and K must be multiples of the reference's block
-    sizes, as the reference asserts; the CUDA kernel's own tiling does not
-    depend on them (see ``csrc/gemm.cu``)."""
+    sizes, as the reference asserts.  On the card, bf16 launches the wgmma
+    instance of these block sizes (:func:`select_tiling`: the deployed
+    config chooses the tiling), f32 and rows TMA cannot take the SIMT
+    kernel; ``launches_by_tiling`` counts which ran (see
+    ``csrc/gemm.cu``)."""
     global launches
     if a.ndim != 3 or b.ndim != 3 or b.shape[0] != a.shape[0]:
         raise ValueError(f"bmm: need a (B, M, K) and b (B, K, N), got "
@@ -48,11 +67,11 @@ def bmm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128,
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("bmm: a and b must be contiguous")
     out = torch.empty((batch, m, n), dtype=a.dtype, device=a.device)
-    err = _build.library().repro_bmm(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), batch, m, k, n,
-        _build.DTYPE_CODES[a.dtype], _build.stream_handle(a.device))
-    _build.check(err, "bmm")
+    tiling = select_tiling(a.dtype, (batch, m, k, n), bm=bm, bn=bn, bk=bk,
+                           aligned=aligned16(a, b, out))
+    launch_gemm("repro_bmm", a, b, out, (batch, m, k, n), tiling)
     launches += 1
+    launches_by_tiling[tiling] += 1
     return out
 
 

@@ -25,15 +25,33 @@ reference; ``tile_fn`` and ``epilogue_fn`` are torch functions that
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import collections
+from typing import Dict, Optional, Sequence
 
 import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.sched.spec import KernelSpec, TileIO
 
-# Kernel launches made by this process (the wrapper adds one per launch).
+# Kernel launches made by this process (the wrapper adds one per launch),
+# in all and by the tiling that ran.
 launches = 0
+launches_by_tiling: collections.Counter = collections.Counter()
+
+# The kernel instances compiled in csrc/flash_attention.cu, by id (its
+# kTilings): the SIMT kernel (f32, and bf16 that TMA cannot take), then the
+# bf16 wgmma instances by (bq, bk, head-dim width): one per CONFIGS entry,
+# and the training path's default at stablelm-3b's D = 80.
+SIMT = "simt_64x64"
+WGMMA = ((128, 128, 64), (128, 256, 64), (256, 128, 64), (128, 128, 80),
+         (128, 128, 128))
+TILINGS = (SIMT,) + tuple(f"wgmma_bq{bq}_bk{bk}_d{w}" for bq, bk, w in WGMMA)
+# The tiling of a call that names no bq / bk (the model's call through
+# nn.attention.chunked_attention): 128 query rows, 128 keys a tile.
+DEFAULT_BQ = DEFAULT_BK = 128
+# head-dim widths of the wgmma instances: a head dim runs on the narrowest
+# width that holds it (the paper's 32 on 64, zero-filled by TMA)
+_WIDTHS = (64, 80, 128)
 
 MAX_HEAD_DIM = 128
 # (query heads x Sq x Sk) f32 entries per recompute in the backward: each
@@ -57,6 +75,35 @@ def _check_shapes(q, k, v, window, q_offset):
                          f">= 0, got {window} and {q_offset}")
 
 
+def select_tiling(dtype: torch.dtype, q_shape: Sequence[int], *,
+                  bq: Optional[int] = None, bk: Optional[int] = None,
+                  d: Optional[int] = None, aligned: bool = True) -> str:
+    """The kernel instance (a name of ``TILINGS``) that a call with q of
+    ``q_shape`` (B, H, Sq, D) in ``dtype`` and the deployed keywords
+    launches.  f32, a head dim that is not a multiple of 8, or tensors not
+    16-byte aligned (``aligned``) run the SIMT kernel; bf16 runs the wgmma
+    instance of (``bq``, ``bk``, the narrowest width >= D), with
+    ``DEFAULT_BQ`` / ``DEFAULT_BK`` for keywords that are None.  A bf16
+    config with no compiled instance raises, listing the instances."""
+    D = q_shape[-1]
+    if d is not None and d != D:
+        raise ValueError(f"flash_attention: the config's d={d} is not the "
+                         f"head dim {D}")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: the kernel takes D <= "
+                         f"{MAX_HEAD_DIM}, got D={D}")
+    if dtype != torch.bfloat16 or D % 8 or not aligned:
+        return SIMT
+    width = next(w for w in _WIDTHS if D <= w)
+    name = (f"wgmma_bq{DEFAULT_BQ if bq is None else bq}"
+            f"_bk{DEFAULT_BK if bk is None else bk}_d{width}")
+    if name not in TILINGS:
+        raise ValueError(f"flash_attention: no kernel instance {name} for "
+                         f"bq={bq}, bk={bk}, D={D} in bf16; compiled: "
+                         f"{', '.join(TILINGS)}")
+    return name
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = ref.NO_WINDOW,
                     q_offset: int = 0, scale: float = None,
@@ -68,8 +115,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``bq``/``bk`` are the reference's query and key block sizes: Sq and
     Sk must be multiples of those given, as the reference asserts.  ``d``
-    is the head dim a deployed config names; it must equal D.  The CUDA
-    kernel's own tiling does not depend on them (see
+    is the head dim a deployed config names; it must equal D.  On the
+    card, bf16 launches the wgmma instance that :func:`select_tiling`
+    names for them (so the deployed config chooses the tiling), f32 the
+    SIMT kernel; ``launches_by_tiling`` counts which ran (see
     ``csrc/flash_attention.cu``)."""
     global launches
     _check_shapes(q, k, v, window, q_offset)
@@ -102,16 +151,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: the kernel takes D <= "
                          f"{MAX_HEAD_DIM} and B*H <= 65535, got D={D}, "
                          f"B*H={B * H}")
+    tiling = select_tiling(q.dtype, q.shape, bq=bq, bk=bk, d=d,
+                           aligned=all(t.data_ptr() % 16 == 0
+                                       for t in tensors))
     out = torch.empty_like(q)
     lib = _build.library()
     err = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KH,
         Sq, Sk, D, float(scale), int(bool(causal)),
         int(min(window, 2 ** 31 - 1)), int(q_offset),
+        _build.tiling_ids("repro_flash_attention_tilings", TILINGS)[tiling],
         _build.DTYPE_CODES[q.dtype],
         _build.stream_handle(q.device))
-    _build.check(err, "flash_attention")
+    _build.check(err, f"flash_attention ({tiling})")
     launches += 1
+    launches_by_tiling[tiling] += 1
     return out
 
 

@@ -17,7 +17,8 @@ reference; ``tile_fn`` and ``epilogue_fn`` are torch functions that
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import collections
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -25,8 +26,65 @@ from repro_torch.kernels import _build, ref
 from repro_torch.sched.scenario import Scenario, scenario_steps
 from repro_torch.sched.spec import KernelSpec, TileIO
 
-# Kernel launches made by this process (the wrapper adds one per launch).
+# Kernel launches made by this process (the wrapper adds one per launch),
+# in all and by the tiling that ran.
 launches = 0
+launches_by_tiling: collections.Counter = collections.Counter()
+
+# The kernel instances compiled in csrc/gemm.cu (K3 and K4 share it), by id
+# (its kTilings): the SIMT kernel (f32, and bf16 that TMA cannot take),
+# then the bf16 wgmma instances by (bm, bn, bk): one per CONFIGS entry of
+# this module and of ``bmm``, and the two block shapes
+# ``tests/test_kernels.py``'s cases name, (64, 128, 64) and (64, 64, 64).
+SIMT = "simt_128x128x8"
+WGMMA = ((128, 128, 128), (128, 128, 64), (64, 128, 128), (128, 256, 64),
+         (256, 128, 64), (64, 64, 128), (256, 64, 64), (64, 128, 64),
+         (64, 64, 64))
+TILINGS = (SIMT,) + tuple(f"wgmma_bm{bm}_bn{bn}_bk{bk}"
+                          for bm, bn, bk in WGMMA)
+
+
+def gemm_tiling(dtype: torch.dtype, k: int, n: int, bm: int, bn: int,
+                bk: int, aligned: bool = True) -> str:
+    """The ``csrc/gemm.cu`` instance (a name of ``TILINGS``) of a product
+    with inner size ``k`` and ``n`` columns at the block sizes ``bm``,
+    ``bn``, ``bk``: the SIMT kernel for f32, and for bf16 rows TMA cannot
+    take (K or N not a multiple of 8, or tensors not 16-byte aligned:
+    ``aligned``); else the wgmma instance of (bm, bn, bk).  A bf16 block
+    shape with no compiled instance raises, listing the instances."""
+    if dtype != torch.bfloat16 or k == 0 or k % 8 or n % 8 or not aligned:
+        return SIMT
+    name = f"wgmma_bm{bm}_bn{bn}_bk{bk}"
+    if name not in TILINGS:
+        raise ValueError(f"gemm: no kernel instance {name} for bm={bm}, "
+                         f"bn={bn}, bk={bk} in bf16; compiled: "
+                         f"{', '.join(TILINGS)}")
+    return name
+
+
+def select_tiling(dtype: torch.dtype, shape: Sequence[int], *, bm: int = 128,
+                  bn: int = 128, bk: int = 128, aligned: bool = True) -> str:
+    """The tiling that ``matmul_leakyrelu`` launches for a product of
+    ``shape`` (M, K, N) in ``dtype`` at the deployed block sizes."""
+    _, k, n = shape
+    return gemm_tiling(dtype, k, n, bm, bn, bk, aligned)
+
+
+def launch_gemm(symbol: str, a: torch.Tensor, b: torch.Tensor,
+                out: torch.Tensor, dims: Sequence, tiling: str) -> None:
+    """Launch ``symbol`` of ``csrc/gemm.cu`` (``repro_matmul_leakyrelu`` or
+    ``repro_bmm``) with its size arguments ``dims`` and the kernel
+    instance ``tiling``."""
+    lib = _build.library()
+    err = getattr(lib, symbol)(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), *dims,
+        _build.tiling_ids("repro_gemm_tilings", TILINGS)[tiling],
+        _build.DTYPE_CODES[a.dtype], _build.stream_handle(a.device))
+    _build.check(err, f"{symbol} ({tiling})")
+
+
+def aligned16(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def matmul_leakyrelu(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
@@ -35,8 +93,11 @@ def matmul_leakyrelu(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     """a: (M, K), b: (K, N) -> LeakyReLU(a @ b) (M, N) in a's type.
 
     ``bm``/``bn``/``bk`` are the reference's block sizes: M, N and K must
-    be multiples of them, as the reference asserts.  The CUDA kernel's own
-    tiling does not depend on them (see ``csrc/gemm.cu``)."""
+    be multiples of them, as the reference asserts.  On the card, bf16
+    launches the wgmma instance of these block sizes
+    (:func:`select_tiling`: the deployed config chooses the tiling), f32
+    and rows TMA cannot take the SIMT kernel; ``launches_by_tiling``
+    counts which ran (see ``csrc/gemm.cu``)."""
     global launches
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError(f"matmul_leakyrelu: need a (M, K) and b (K, N), "
@@ -56,12 +117,12 @@ def matmul_leakyrelu(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("matmul_leakyrelu: a and b must be contiguous")
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    err = _build.library().repro_matmul_leakyrelu(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n,
-        float(negative_slope), _build.DTYPE_CODES[a.dtype],
-        _build.stream_handle(a.device))
-    _build.check(err, "matmul_leakyrelu")
+    tiling = select_tiling(a.dtype, (m, k, n), bm=bm, bn=bn, bk=bk,
+                           aligned=aligned16(a, b, out))
+    launch_gemm("repro_matmul_leakyrelu", a, b, out,
+                (m, k, n, float(negative_slope)), tiling)
     launches += 1
+    launches_by_tiling[tiling] += 1
     return out
 
 
