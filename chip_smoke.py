@@ -11,33 +11,41 @@ Phases, each printed on lines of its own:
 1. card — ``nvidia-smi`` name and power limit; build the kernel library
    from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a) and time it;
 2. kernels — each hand-written kernel against its plain PyTorch version
-   on the card: K1 ``rmsnorm`` and K2 ``fused_ff`` in bf16 and f32 at the
-   serving path's shapes and a ragged one, and in bf16 at the training
-   path's (8192 rows); K6 ``flash_attention`` in f32 and bf16 at the
-   training path's shape, a ragged GQA shape with a window, a non-causal
-   shape and a query offset; K3 ``matmul_leakyrelu`` and K4 ``bmm`` in f32
-   and bf16 at ``tests/test_kernels.py``'s shapes, a ragged shape and the
-   optimizer path's shapes; K5 ``softmax`` in f32 and bf16 at
-   ``tests/test_kernels.py``'s shape (512 x 4096, br 8), at 8192 columns
-   (the largest ``CONFIGS`` entry), at a ragged shape and at the PPO fleet
-   path's shape (40960 x 4096: qwen1.5-4b's 20 heads x 2048 query
-   positions); K7 ``ssd`` in f32 and bf16 in the registry's flat layout
-   at ``tests/test_kernels.py``'s shape (chunk 32 and 64) and in the
-   model layout at the SSM training path's shape (mamba2-1.3b: (4, 2048,
-   64, 64) x (4, 2048, 1, 128)), a ragged two-group shape, chunk 128,
-   P 128 with N 64 and a strong decay; K1 also at that path's gated norm
-   (8192 x 4096); K6 in bf16 at each ``CONFIGS`` entry (bq, bk, d) on
-   a causal shape and a GQA shape with a window and a query offset, and
-   K3 and K4 at each of their ``CONFIGS`` entries, in f32 and bf16; the
-   bf16 path shapes (K6's training shape, K3's and K4's optimizer
-   shapes) and every bf16 ``CONFIGS`` case must launch the wgmma tiling
-   they name, read from the wrappers' per-tiling counts
-   (``launches_by_tiling``), and each record names its tiling; the
-   gradients of the four model kernels'
-   ``autograd.Function``s against autograd through the plain versions at
-   the training shapes (K7's under the strong decay); CUDA-event times of
-   each kernel, its plain version and a library yardstick beside its
-   bound;
+   on the card: K1 ``rmsnorm`` in bf16 and f32 at the serving path's 8 x
+   2560, the training paths' 8192 x 2560 and 8192 x 4096 (stablelm-3b's
+   and mamba2-1.3b's gated norm) and a ragged shape; K2 ``fused_ff`` in
+   bf16 and f32 at the serving path's 8 x 2560 . 2560 x 6912, the decode
+   threshold's neighbours (M 1, 3, 9, 16, 32), ragged shapes and the
+   training path's 8192 rows; K6 ``flash_attention`` in f32 and bf16 at
+   the training path's shape, a ragged GQA shape with a window, a
+   non-causal shape and a query offset; K3 ``matmul_leakyrelu`` and K4
+   ``bmm`` in f32 and bf16 at ``tests/test_kernels.py``'s shapes, a ragged
+   shape and the optimizer path's shapes; K5 ``softmax`` in f32 and bf16
+   at ``tests/test_kernels.py``'s shape (512 x 4096, br 8), at 8192
+   columns (the largest ``CONFIGS`` entry), at a ragged shape and at the
+   PPO fleet path's shape (40960 x 4096: qwen1.5-4b's 20 heads x 2048
+   query positions); K7 ``ssd`` in f32 and bf16 in the registry's flat
+   layout at ``tests/test_kernels.py``'s shape (chunk 32 and 64) and in
+   the model layout at the SSM training path's shape (mamba2-1.3b: (4,
+   2048, 64, 64) x (4, 2048, 1, 128)), a ragged two-group shape, chunk
+   128, P 128 with N 64 and a strong decay; K6 in bf16 at each
+   ``CONFIGS`` entry (bq, bk, d) on a causal shape and a GQA shape with a
+   window and a query offset, and K3 and K4 at each of their ``CONFIGS``
+   entries, in f32 and bf16.  Every K1, K2 and K5 case, every bf16 path
+   shape of K3, K4 and K6 and every bf16 ``CONFIGS`` case must launch the
+   tiling its ``select_tiling`` names, read from the wrappers' per-tiling
+   counts (``launches_by_tiling``), and each record names its tiling; at
+   the path shapes the other instances (K1 each br that divides the rows,
+   K2 each ``CONFIGS`` entry at 8192 rows, K5 each br) are checked,
+   asserted and timed beside the default, and at decode K2's default
+   wgmma instance is launched through the library's C entry point and
+   timed beside the gemv route; the
+   gradients of the four model kernels' ``autograd.Function``s against
+   autograd through the plain versions at the training shapes (K7's under
+   the strong decay); each kernel's time, as CUDA events around one call
+   (host time included) and as device time (``device_ms``: its kernels'
+   own time from torch.profiler), its plain version's and a library
+   yardstick's beside its bound;
 3. device against host — full-width qwen1.5-4b cut to 2 layers, f32:
    decode logits agree; full-width stablelm-3b and mamba2-1.3b cut to 2
    layers, f32: one train step's loss and grad-norm agree (the grad-norm
@@ -77,11 +85,12 @@ Phases, each printed on lines of its own:
    read them back, and the deployed ``ssd`` is launched through the
    registry at the first bucket's config in bf16 and f32, once a call;
    (d) the deployed config chooses the tiling: K3's and K4's deployed
-   configs (the pair's) and K6's (the fleet's first bucket's), each
-   beside another entry of its ``CONFIGS`` that names another instance,
-   launched through the registry in bf16 at the path's shapes, must
-   launch the instance each names and agree with ``ref_fn``;
-7. the ``{"kernels": [...]}`` line (K1-K7, with their launches by path),
+   configs (the pair's) and K1's, K2's, K5's and K6's (the fleet's first
+   bucket's), each beside another entry of its ``CONFIGS`` that names
+   another instance, launched through the registry in bf16 at the path's
+   shapes, must launch the instance each names and agree with ``ref_fn``;
+7. the ``{"kernels": [...]}`` line (K1-K7, with their launches by path
+   and, for the kernels with instances, by path and tiling),
    then the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line.  No phase catches its
@@ -174,6 +183,35 @@ def event_ms(fn, iters: int = 30, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of ``fn`` (ms): the summed duration of the
+    kernels it launched, from torch.profiler's kernel events over
+    ``iters`` calls.  Beside ``event_ms``, which times one call on an idle
+    card and so includes the host's time to launch it, this splits a
+    call's time between host and device."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        fail("torch.profiler recorded no kernel on the card")
+    return sum(e.time_range.end - e.time_range.start
+               for e in kernels) / iters / 1e3
+
+
+def timed(fn, iters: int = 30):
+    """(``event_ms``, ``device_ms``) of ``fn``."""
+    return event_ms(fn, iters), device_ms(fn, max(5, iters // 2))
+
+
 def bound(nbytes: float, ops: float, dtype: str):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
@@ -227,11 +265,11 @@ def launched(mod, fn):
 
 
 def expect_tiling(name, ran, want=None):
-    """The one wgmma tiling ``ran`` holds (``want``, where given); fails on
-    anything else: a path shape in bf16 must go through the tensor
-    cores."""
-    ok = len(ran) == 1 and ran[0].startswith("wgmma_") \
-        and (want is None or ran[0] == want)
+    """The one tiling ``ran`` holds: ``want``, where given, else a wgmma
+    tiling (a path shape in bf16 must go through the tensor cores); fails
+    on anything else."""
+    ok = len(ran) == 1 and (ran[0] == want if want is not None
+                            else ran[0].startswith("wgmma_"))
     print(f"  {name}: launched {ran}{'' if want is None else f' (want {want})'}"
           f" {'ok' if ok else 'WRONG TILING'}", flush=True)
     if not ok:
@@ -239,24 +277,60 @@ def expect_tiling(name, ran, want=None):
     return ran[0]
 
 
-def record(name, path, shape, err, ms, plain_ms, nbytes, ops, dtype,
-           library_ms, **extra):
+def record(name, path, shape, err, times, plain_ms, nbytes, ops, dtype,
+           library_times, **extra):
+    """A phase-2 record: ``times`` and ``library_times`` are (call ms,
+    device ms) pairs (``timed``) of the kernel and of the one PyTorch call
+    that computes the same function (None where there is none; a
+    composite of several calls goes in ``extra`` as
+    ``library_composite_ms`` / ``library_composite_device_ms``)."""
     t_bound, by = bound(nbytes, ops, dtype)
     src, replaces, _ = KERNELS[name]
+    ms, dev_ms = times
+    library_ms, library_dev_ms = library_times or (None, None)
     rec = dict(name=name, route="cuda", source=src, replaces=replaces,
-               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=t_bound,
-               bound_by=by, library_ms=library_ms, shape=shape, path=path,
+               max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+               bound_ms=t_bound, bound_by=by, library_ms=library_ms,
+               library_device_ms=library_dev_ms, shape=shape, path=path,
                **extra)
-    lib = "" if library_ms is None else f"  library {library_ms:.4f} ms"
+    lib = ("" if library_ms is None else
+           f"  library {library_ms:.4f} ms (device {library_dev_ms:.4f})")
     comp = ("" if "library_composite_ms" not in extra else
-            f"  cuBLAS composite {extra['library_composite_ms']:.4f} ms")
-    print(f"  time {name} {shape} ({path}): kernel {ms:.4f} ms  plain "
-          f"{plain_ms:.4f} ms  bound {t_bound:.4g} ms ({by}){lib}{comp}",
-          flush=True)
+            f"  cuBLAS composite {extra['library_composite_ms']:.4f} ms "
+            f"(device {extra['library_composite_device_ms']:.4f})")
+    print(f"  time {name} {shape} ({path}): kernel {ms:.4f} ms (device "
+          f"{dev_ms:.4f})  plain {plain_ms:.4f} ms  bound {t_bound:.4g} ms "
+          f"({by}){lib}{comp}", flush=True)
     return rec
 
 
+def alternatives(mod, cases, check, iters=30):
+    """Other instances of a kernel at one shape, ``cases`` a list of
+    (tiling, call, timed call): each call is checked by ``check(out,
+    tiling)`` and asserted to launch its tiling, and its timed call (the
+    same call, or one that rotates its inputs) is timed; {tiling: {"ms",
+    "device_ms"}}."""
+    out = {}
+    for tiling, call, timed_call in cases:
+        got, ran = launched(mod, call)
+        expect_tiling(f"{mod.__name__.rsplit('.', 1)[1]} {tiling}", ran,
+                      tiling)
+        check(got, tiling)
+        del got
+        ms, dev = timed(timed_call, iters)
+        print(f"    {tiling}: {ms:.4f} ms (device {dev:.4f})", flush=True)
+        out[tiling] = {"ms": ms, "device_ms": dev}
+    return out
+
+
 def rmsnorm_checks(gen, records):
+    """K1 at the serving path's 8 x 2560, the training paths' 8192 x 2560
+    and 8192 x 4096 and a ragged 13 x 1001, in bf16 and f32, each
+    launching the instance ``select_tiling`` names; in bf16 at the path
+    shapes, timed beside ``F.rms_norm``, with the instance of every br of
+    ``CONFIGS`` that divides the rows (through ``br=``, as a deployed
+    config calls) timed beside the default (``block_row``, the
+    model's)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -271,27 +345,69 @@ def rmsnorm_checks(gen, records):
         for rows, cols, path in ((LANES, D_MODEL, "serve"), (13, 1001, None),
                                  (ROWS, D_MODEL, "train"),
                                  (ROWS, D_INNER, "train_ssm")):
-            if path in ("train", "train_ssm") and dname != "bfloat16":
-                continue
             x = (torch.randn(rows, cols, device="cuda", generator=gen)
                  * 0.5).to(dt)
             g = (torch.randn(cols, device="cuda", generator=gen) * 0.5
                  + 1.0).to(dt)
             shape = f"{rows}x{cols} {dname}"
-            err = check_close(f"rmsnorm {shape}", rms_mod.rmsnorm(x, g),
-                              ops.rmsnorm(x, g, impl="ref"), *tol[dname])
+            plain = ops.rmsnorm(x, g, impl="ref")
+            got, ran = launched(rms_mod, lambda: rms_mod.rmsnorm(x, g))
+            tiling = expect_tiling(f"rmsnorm {shape}", ran,
+                                   rms_mod.select_tiling(dt, x.shape))
+            err = check_close(f"rmsnorm {shape} {ran}", got, plain,
+                              *tol[dname])
+            del got
             if path is None or dname != "bfloat16":
                 continue
+            # each br's instance, through br= as a deployed config calls
+            cases = []
+            for br in rms_mod.BLOCK_BR:
+                if rows % br == 0:
+                    call = lambda br=br: rms_mod.rmsnorm(x, g, br=br)
+                    cases.append((rms_mod.select_tiling(dt, x.shape, br=br),
+                                  call, call))
+            alts = alternatives(rms_mod, cases, lambda out, t: check_close(
+                f"rmsnorm {shape} {t}", out, plain, *tol[dname]))
             el = x.element_size()
             records.append(record(
                 "rmsnorm", path, shape, err,
-                event_ms(lambda: rms_mod.rmsnorm(x, g)),
+                timed(lambda: rms_mod.rmsnorm(x, g)),
                 event_ms(lambda: ops.rmsnorm(x, g, impl="ref")),
                 (2 * rows * cols + cols) * el, 4 * rows * cols, dname,
-                event_ms(lambda: F.rms_norm(x, (cols,), g, eps=1e-6))))
+                timed(lambda: F.rms_norm(x, (cols,), g, eps=1e-6)),
+                tiling=tiling, alternatives=alts))
+            del x, g, plain
+
+
+def wgmma_at(tiling, x, w_gate, w_up):
+    """K2's ``tiling`` (a wgmma instance) on bf16 ``x`` of any rows, by the
+    library's C entry point: the wrapper sends M <= 8 to the gemv route,
+    so this is how the decode threshold's other side is measured.  It
+    bypasses the wrapper and its launch counts."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_ff as ff_mod
+
+    (m, k), n = x.shape, w_gate.shape[1]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    err = _build.library().repro_fused_ff(
+        x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), out.data_ptr(),
+        None, m, k, n, 1,
+        _build.tiling_ids("repro_fused_ff_tilings", ff_mod.TILINGS)[tiling],
+        _build.DTYPE_CODES[x.dtype], _build.stream_handle(x.device))
+    _build.check(err, f"fused_ff ({tiling})")
+    return out
 
 
 def fused_ff_checks(gen, records):
+    """K2 at the serving path's 8 x 2560 . 2560 x 6912, the decode
+    threshold's neighbours (M 1, 3, 9, 16, 32), ragged shapes (M not a
+    multiple of 128, N not a multiple of 8; K and N ragged at decode) and
+    the training path's 8192 rows, in bf16 and f32, each launching the
+    instance ``select_tiling`` names; in bf16 at the path shapes timed
+    beside the cuBLAS composite, the serving shape also on the default
+    wgmma instance (``wgmma_at``), the training shape at every ``CONFIGS``
+    entry."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import fused_ff as ff_mod
@@ -300,27 +416,34 @@ def fused_ff_checks(gen, records):
     # bf16: one bf16 rounding of the output (2^-7 relative); f32: dot
     # products of up to 2560 terms summed in another order.
     tol = {"bfloat16": (1e-4, 2 ** -7), "float32": (1e-5, 1e-4)}
+    default = "wgmma_bm{}_bn{}_bk{}".format(*ff_mod.DEFAULT_BLOCK)
+    cases = [  # M, K, N, path (None: checked, not timed)
+        (LANES, D_MODEL, D_FF, "serve"), (1, D_MODEL, D_FF, None),
+        (3, D_MODEL, D_FF, None), (LANES + 1, D_MODEL, D_FF, "threshold"),
+        (16, D_MODEL, D_FF, "threshold"), (32, D_MODEL, D_FF, "threshold"),
+        (3, 1001, 777, None), (300, D_MODEL, 777, None),
+        (300, D_MODEL, 776, None), (ROWS, D_MODEL, D_FF, "train")]
     for dname, dt in (("bfloat16", torch.bfloat16),
                       ("float32", torch.float32)):
-        for m, k, n, path in ((LANES, D_MODEL, D_FF, "serve"),
-                              (3, 1001, 777, None),
-                              (ROWS, D_MODEL, D_FF, "train")):
-            if path == "train" and dname != "bfloat16":
-                continue
+        for m, k, n, path in cases:
             x = (torch.randn(m, k, device="cuda", generator=gen)
                  * 0.5).to(dt)
-            # At decode, four weight pairs in rotation (283 MB in bf16):
-            # each call finds its weights out of the 50 MB L2, as a decode
-            # pass does.
+            # Below the training shape, four weight pairs in rotation (283
+            # MB in bf16): each call finds its weights out of the 50 MB
+            # L2, as a decode pass does.
             ws = [tuple((torch.randn(k, n, device="cuda", generator=gen)
                          * k ** -0.5).to(dt) for _ in range(2))
-                  for _ in range(4 if path == "serve" else 1)]
+                  for _ in range(4 if path in ("serve", "threshold") else 1)]
             shape = f"{m}x{k}x{n} {dname}"
-            err = check_close(f"fused_ff {shape}",
-                              ff_mod.fused_ff(x, *ws[0]),
-                              ops.fused_ff(x, *ws[0], impl="ref"),
+            plain = ops.fused_ff(x, *ws[0], impl="ref")
+            got, ran = launched(ff_mod, lambda: ff_mod.fused_ff(x, *ws[0]))
+            tiling = expect_tiling(f"fused_ff {shape}", ran,
+                                   ff_mod.select_tiling(dt, (m, k, n)))
+            err = check_close(f"fused_ff {shape} {ran}", got, plain,
                               *tol[dname])
+            del got
             if path is None or dname != "bfloat16":
+                del x, ws, plain
                 continue
             turn = [0]
 
@@ -330,22 +453,48 @@ def fused_ff_checks(gen, records):
                     return fn(*ws[turn[0]])
                 return call
 
-            iters = 30 if path == "serve" else 10
+            def check(out, t):
+                check_close(f"fused_ff {shape} {t}", out, plain,
+                            *tol[dname])
+
+            iters = 10 if path == "train" else 30
+            if path == "serve":
+                # the wgmma route below its threshold: what the threshold
+                # weighs the gemv route against
+                check(wgmma_at(default, x, *ws[0]), default)
+                ms, dev = timed(rotate(
+                    lambda a, b: wgmma_at(default, x, a, b)))
+                print(f"    {default}: {ms:.4f} ms (device {dev:.4f})",
+                      flush=True)
+                alts = {default: {"ms": ms, "device_ms": dev}}
+            elif path == "train":
+                seen, cases_cfg = {tiling}, []
+                for cfg in ff_mod.CONFIGS:
+                    t = ff_mod.select_tiling(dt, (m, k, n), **cfg)
+                    if t not in seen:
+                        seen.add(t)
+                        call = (lambda cfg=cfg: ff_mod.fused_ff(x, *ws[0],
+                                                                **cfg))
+                        cases_cfg.append((t, call, call))
+                alts = alternatives(ff_mod, cases_cfg, check, iters)
+            else:
+                alts = {}
             el = x.element_size()
+            comp = timed(rotate(lambda a, b: F.silu(x @ a) * (x @ b)), iters)
             records.append(record(
                 "fused_ff", path, shape, err,
-                event_ms(rotate(lambda a, b: ff_mod.fused_ff(x, a, b)),
-                         iters),
+                timed(rotate(lambda a, b: ff_mod.fused_ff(x, a, b)), iters),
                 event_ms(rotate(lambda a, b: ops.fused_ff(x, a, b,
                                                           impl="ref")),
                          iters),
                 (m * k + 2 * k * n + m * n) * el, 4 * m * k * n + 4 * m * n,
                 dname,
                 # no single PyTorch call computes silu(x@Wg)*(x@Wu)
-                None,
-                library_composite_ms=event_ms(rotate(
-                    lambda a, b: F.silu(x @ a) * (x @ b)), iters)))
-            del ws
+                None, library_composite_ms=comp[0],
+                library_composite_device_ms=comp[1], tiling=tiling,
+                alternatives=alts))
+            del x, ws, plain
+    torch.cuda.empty_cache()
 
 
 def flash_attention_checks(gen, records):
@@ -389,12 +538,12 @@ def flash_attention_checks(gen, records):
             pairs = sum(min(q_offset + i + 1, Sk) for i in range(Sq))
             records.append(record(
                 "flash_attention", "train", shape, err,
-                event_ms(lambda: fa_mod.flash_attention(q, k, v, **kw), 20),
+                timed(lambda: fa_mod.flash_attention(q, k, v, **kw), 20),
                 event_ms(lambda: ops.flash_attention(q, k, v, impl="ref",
                                                      **kw), 10),
                 (2 * B * H * Sq + 2 * B * KH * Sk) * D * el,
                 4 * B * H * D * pairs, dname,
-                event_ms(lambda: F.scaled_dot_product_attention(
+                timed(lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True), 20), tiling=tiling))
     # bf16 at each CONFIGS entry (bq, bk, d): a causal shape, and grouped
     # KV heads with a window and a query offset; each must launch its own
@@ -505,15 +654,15 @@ def gemm_checks(gen, records):
                   if dname == "bfloat16" else ran[0])
         del got
         el = a.element_size()
+        comp = timed(lambda: F.leaky_relu(torch.matmul(a, b), 0.01), 10)
         records.append(record(
             "matmul_leakyrelu", "optimize", shape, err,
-            event_ms(lambda: mlr_mod.matmul_leakyrelu(a, b), 10),
+            timed(lambda: mlr_mod.matmul_leakyrelu(a, b), 10),
             event_ms(lambda: ops.matmul_leakyrelu(a, b, impl="ref"), 10),
             (m * k + k * n + m * n) * el, 2 * m * k * n, dname,
             # no single PyTorch call computes LeakyReLU(a @ b)
-            None, library_composite_ms=event_ms(
-                lambda: F.leaky_relu(torch.matmul(a, b), 0.01), 10),
-            tiling=tiling))
+            None, library_composite_ms=comp[0],
+            library_composite_device_ms=comp[1], tiling=tiling))
         del a, b, plain
 
         B, m, k, n = BMM_SHAPE
@@ -530,10 +679,10 @@ def gemm_checks(gen, records):
         el = a.element_size()
         records.append(record(
             "bmm", "optimize", shape, err,
-            event_ms(lambda: bmm_mod.bmm(a, b), 20),
+            timed(lambda: bmm_mod.bmm(a, b), 20),
             event_ms(lambda: ops.bmm(a, b, impl="ref"), 20),
             B * (m * k + k * n + m * n) * el, 2 * B * m * k * n, dname,
-            event_ms(lambda: torch.bmm(a, b), 20), tiling=tiling))
+            timed(lambda: torch.bmm(a, b), 20), tiling=tiling))
         del a, b, plain
 
 
@@ -544,6 +693,12 @@ SOFTMAX_TOL = {"float32": (2e-6, 0.0), "bfloat16": (0.0, 2 ** -7)}
 
 
 def softmax_checks(gen, records):
+    """K5 at ``tests/test_kernels.py``'s 512 x 4096 (br 8), 8192 columns
+    (br 4), a ragged shape and the fleet path's 40960 x 4096 (br 8), in f32
+    and bf16, each launching the instance ``select_tiling`` names for its
+    br; at the fleet shape timed beside ``torch.softmax``, with every
+    other br instance (1, the calls that name none, and the other
+    ``CONFIGS`` values) timed beside it."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import softmax as sm_mod
@@ -558,20 +713,33 @@ def softmax_checks(gen, records):
             x = (torch.randn(rows, cols, device="cuda", generator=gen)
                  * 2.0).to(dt)
             shape = f"{rows}x{cols} {dname}"
-            err = check_close(f"softmax {shape} br {br}",
-                              sm_mod.softmax(x, br=br),
-                              ops.softmax(x, impl="ref"), *SOFTMAX_TOL[dname])
+            plain = ops.softmax(x, impl="ref")
+            got, ran = launched(sm_mod, lambda: sm_mod.softmax(x, br=br))
+            tiling = expect_tiling(f"softmax {shape} br {br}", ran,
+                                   sm_mod.select_tiling(dt, x.shape, br=br))
+            err = check_close(f"softmax {shape} br {br} {ran}", got, plain,
+                              *SOFTMAX_TOL[dname])
+            del got
             if path is None:
+                del x, plain
                 continue
+            calls = {f"block_br{b}": (lambda b=b: sm_mod.softmax(
+                x, br=None if b == 1 else b)) for b in sm_mod.BLOCK_BR}
+            alts = alternatives(
+                sm_mod, [(t, call, call) for t, call in calls.items()
+                         if t != tiling],
+                lambda out, t: check_close(f"softmax {shape} {t}", out,
+                                           plain, *SOFTMAX_TOL[dname]))
             # bytes: x read once, y written once; operations: max,
             # subtract, exp, add and divide per element, in f32
             records.append(record(
                 "softmax", path, shape, err,
-                event_ms(lambda: sm_mod.softmax(x, br=br)),
+                timed(lambda: sm_mod.softmax(x, br=br)),
                 event_ms(lambda: ops.softmax(x, impl="ref"), 10),
                 2 * rows * cols * x.element_size(), 5 * rows * cols,
-                "float32", event_ms(lambda: torch.softmax(x, -1))))
-            del x
+                "float32", timed(lambda: torch.softmax(x, -1)),
+                tiling=tiling, alternatives=alts))
+            del x, plain
 
 
 def ssd_tol(dname, scale):
@@ -645,7 +813,7 @@ def ssd_checks(gen, records):
             ops_n = 4 * N * P * B * S * H
             records.append(record(
                 "ssd", path, shape, err,
-                event_ms(lambda: fn(x, a, b, c, chunk=chunk), 20),
+                timed(lambda: fn(x, a, b, c, chunk=chunk), 20),
                 event_ms(lambda: ops.ssd_chunk(x, a, b, c, chunk=chunk,
                                                impl="ref"), 10),
                 (2 * B * S * H * P + 2 * B * S * G * N) * el + B * S * H * 4,
@@ -834,8 +1002,18 @@ def _reset_launches():
             mod.launches_by_tiling.clear()
 
 
+class _Launches(dict):
+    """{kernel: launches} of a phase's run, and in ``tilings`` {kernel:
+    {tiling: launches}} for the kernels that count their instances."""
+
+
 def _read_launches():
-    return {name: mod.launches for name, mod in _kernel_modules().items()}
+    mods = _kernel_modules()
+    out = _Launches((name, mod.launches) for name, mod in mods.items())
+    out.tilings = {name: dict(mod.launches_by_tiling)
+                   for name, mod in mods.items()
+                   if hasattr(mod, "launches_by_tiling")}
+    return out
 
 
 def _expected_launches(**counts):
@@ -882,8 +1060,8 @@ def serve_phase(profile_dir):
         fail(f"requests incomplete or out of vocab: {bad}")
     want = _expected_launches(rmsnorm=passes * (2 * cfg.n_layers + 1),
                               fused_ff=passes * cfg.n_layers)
-    print(f"  passes {passes}; launches {launches}; expected {want}",
-          flush=True)
+    print(f"  passes {passes}; launches {launches}; expected {want}; by "
+          f"tiling {launches.tilings}", flush=True)
     if launches != want or passes == 0:
         fail("the main path did not go through the kernels once per site")
     stats = {
@@ -1039,7 +1217,7 @@ def train_phase(arch, profile_dir):
         name: TRAIN_STEPS * per_step(cfg.n_layers)
         for name, per_step in TRAIN_SITES[arch].items()})
     print(f"  launches {launches}; expected {want} (forward and per-layer "
-          f"recompute)", flush=True)
+          f"recompute); by tiling {launches.tilings}", flush=True)
     if launches != want:
         fail("the training path did not go through the kernels once per "
              "site and pass")
@@ -1419,43 +1597,68 @@ def ssm_fleet_phase():
 
 
 def tiling_gate(deployed):
-    """The deployed config chooses the tiling (ROADMAP C1), for K3, K4 and
-    K6 in bf16: each kernel's deployed config (``deployed``: the pair's
-    for K3 and K4, the fleet's first bucket's for K6) and the first other
-    entry of its ``CONFIGS`` (the space the optimizer deploys from) that
-    names another instance are launched through the registry at the
-    path's shapes; each must launch the instance its config names, and
-    both outputs must agree with ``ref_fn``."""
+    """The deployed config chooses the tiling (ROADMAP C1): for K3, K4 and
+    K6 in bf16, and K1, K2 and K5: each kernel's deployed config
+    (``deployed``: the pair's for K3 and K4, the fleet's first bucket's
+    for the others) and the first other entry of its ``CONFIGS`` (the
+    space the optimizer deploys from) that names another instance are
+    launched through the registry at the path's shapes in bf16; each must
+    launch the instance its config names, and both outputs must agree with
+    ``ref_fn``."""
     import importlib
 
     import torch
     from repro_torch.kernels import get_kernel
 
     gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16 = torch.bfloat16
 
     def path_shape(name, cfg):   # what the kernel's select_tiling takes
         return {"flash_attention": (BATCH, 20, SEQ, cfg.get("d")),
-                "matmul_leakyrelu": MLR_SHAPE, "bmm": BMM_SHAPE}[name]
+                "matmul_leakyrelu": MLR_SHAPE, "bmm": BMM_SHAPE,
+                "fused_ff": MLR_SHAPE,
+                "rmsnorm": (ROWS, cfg.get("cols")),
+                "softmax": (SOFTMAX_ROWS, cfg.get("cols"))}[name]
 
     def inputs(name, cfg):
+        def rnd(*shape, scale=1.0, shift=0.0):
+            return (torch.randn(*shape, device="cuda", generator=gen)
+                    * scale + shift).to(bf16)
+        shape = path_shape(name, cfg)
         if name == "flash_attention":
-            return tuple(torch.randn(*path_shape(name, cfg), device="cuda",
-                                     generator=gen).to(torch.bfloat16)
-                         for _ in range(3))
-        if name == "matmul_leakyrelu":
-            m, k, n = MLR_SHAPE
-            return _gemm_inputs(gen, torch.bfloat16, (m, k), (k, n))
-        B, m, k, n = BMM_SHAPE
-        return _gemm_inputs(gen, torch.bfloat16, (B, m, k), (B, k, n))
+            return tuple(rnd(*shape) for _ in range(3))
+        if name == "rmsnorm":
+            return rnd(*shape, scale=0.5), rnd(shape[1], scale=0.5, shift=1.0)
+        if name == "softmax":
+            return (rnd(*shape, scale=2.0),)
+        if name in ("matmul_leakyrelu", "fused_ff"):
+            m, k, n = shape
+            a, b = _gemm_inputs(gen, bf16, (m, k), (k, n))
+            return (a, b) if name == "matmul_leakyrelu" else (
+                a, b, rnd(k, n, scale=k ** -0.5))
+        B, m, k, n = shape
+        return _gemm_inputs(gen, bf16, (B, m, k), (B, k, n))
+
+    def tolerance(name, plain, xs, kdef):   # each kernel's phase-2 bound
+        if name == "flash_attention":
+            return 3e-2, 0.0
+        if name == "rmsnorm":
+            return 1e-5, 2 ** -7
+        if name == "softmax":
+            return SOFTMAX_TOL["bfloat16"]
+        f64 = _f64_tolerance(plain, kdef.ref_fn(*(t.double() for t in xs)),
+                             1e-4 if name == "fused_ff"
+                             else GEMM_TOL["bfloat16"][0])
+        return f64, 2 ** -7 if name == "fused_ff" else 0.0
 
     gate = {}
-    for name in ("matmul_leakyrelu", "bmm", "flash_attention"):
+    for name in ("matmul_leakyrelu", "bmm", "flash_attention", "rmsnorm",
+                 "fused_ff", "softmax"):
         kdef = get_kernel(name)
         mod = importlib.import_module(f"repro_torch.kernels.{name}")
 
         def tiling(cfg):
-            return mod.select_tiling(torch.bfloat16, path_shape(name, cfg),
-                                     **cfg)
+            return mod.select_tiling(bf16, path_shape(name, cfg), **cfg)
 
         first = deployed[name]
         second = next(c for c in kdef.configs if tiling(c) != tiling(first))
@@ -1466,11 +1669,8 @@ def tiling_gate(deployed):
             plain = kdef.ref_fn(*xs)
             if got.shape != plain.shape or not torch.isfinite(got).all():
                 fail(f"{name} at {cfg}: misshapen or non-finite output")
-            atol = (3e-2 if name == "flash_attention" else _f64_tolerance(
-                plain, kdef.ref_fn(*(t.double() for t in xs)),
-                GEMM_TOL["bfloat16"][0]))
             check_close(f"{name} at {cfg} {tuple(xs[0].shape)} bfloat16",
-                        got, plain, atol, 0.0)
+                        got, plain, *tolerance(name, plain, xs, kdef))
             del xs, got, plain
         gate[name] = {tiling(first): first, tiling(second): second}
     print("  the deployed config chooses the tiling (bf16): "
@@ -1534,8 +1734,7 @@ def main() -> int:
     launches["optimize"], pair_configs = optimize_phase()
     launches["fleet"], fleet_configs = fleet_phase()
     launches["fleet_ssm"] = ssm_fleet_phase()
-    tiling_gate(dict(pair_configs,
-                     flash_attention=fleet_configs["flash_attention"]))
+    tiling_gate(dict(fleet_configs, **pair_configs))
 
     phase("7 kernels")
     kernels = []
@@ -1550,8 +1749,11 @@ def main() -> int:
         by_path = {p: launches[p][name] for p in launches}
         if not sum(by_path.values()):
             fail(f"{name} was launched no time on the main paths")
+        tilings = {p: launches[p].tilings[name] for p in launches
+                   if launches[p].tilings.get(name)}
         entry.update(launches=sum(by_path.values()),
                      launches_by_path=by_path,
+                     launches_by_tiling=tilings,
                      shapes=[{k: v for k, v in r.items()
                               if k not in ("name", "route", "source",
                                            "replaces")} for r in mine])

@@ -8,6 +8,11 @@ checkout, named by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is loaded as it is.  The build happens at
 the first launch, never at import: the CPU tests import this module on a
 host with no ``nvcc``.  A failed build raises with ``nvcc``'s stderr.
+
+    python -m repro_torch.kernels._build --ptxas
+
+prints what ``ptxas -v`` says of every kernel instance (registers,
+spills, shared memory), on a machine with ``nvcc``.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -37,10 +43,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # (x, gamma, y, rows, cols, eps, dtype, stream)
-    "repro_rmsnorm": [_P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
-    # (x, wg, wu, out, M, K, N, dtype, stream)
-    "repro_fused_ff": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (x, gamma, y, rows, cols, eps, tiling, dtype, stream)
+    "repro_rmsnorm": [_P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P],
+    # (x, wg, wu, out, work, M, K, N, splits, tiling, dtype, stream)
+    "repro_fused_ff": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # (q, k, v, o, B, H, KH, Sq, Sk, D, scale, causal, window, q_offset,
     #  tiling, dtype, stream)
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -50,15 +56,17 @@ _SIGNATURES = {
                                _I, _P],
     # (a, b, out, B, M, K, N, tiling, dtype, stream)
     "repro_bmm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # (x, y, rows, cols, dtype, stream)
-    "repro_softmax": [_P, _P, _I, _I, _I, _P],
+    # (x, y, rows, cols, tiling, dtype, stream)
+    "repro_softmax": [_P, _P, _I, _I, _I, _I, _P],
     # (x, a, b, c, y, B, S, H, G, P, N, the strides of x, a, b and c
     #  (batch, sequence, head or group), dtype, stream)
     "repro_ssd": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_I, _P],
 }
 
 # the kernels' lists of tiling names, by id, comma-separated (no arguments)
-_TILING_LISTS = ("repro_flash_attention_tilings", "repro_gemm_tilings")
+_TILING_LISTS = ("repro_flash_attention_tilings", "repro_gemm_tilings",
+                 "repro_rmsnorm_tilings", "repro_fused_ff_tilings",
+                 "repro_softmax_tilings")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -117,8 +125,12 @@ def _compile(target: Path) -> None:
 
 
 def library() -> ctypes.CDLL:
-    """The kernel library, built on first use and cached per process."""
+    """The kernel library, built on first use and cached per process.
+    Once loaded it is returned without taking the lock: every launch
+    comes through here."""
     global _lib, build_seconds
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -161,4 +173,56 @@ def check(err: int, name: str) -> None:
 
 
 def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``device`` (a device
+    with an index, as a CUDA tensor's is), without building a Stream
+    object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def ptxas_report() -> str:
+    """What ``ptxas -v`` says of every kernel the library holds: one line
+    per kernel instance with its registers, spills and shared memory,
+    from one ``nvcc`` process per source (all started together), compiled
+    with the library's flags into a scratch directory."""
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lines = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = [(src, subprocess.Popen(
+            [nvcc, *ARCH_FLAGS, *CFLAGS, "-Xptxas", "-v", "-c", str(src),
+             "-o", str(Path(tmp) / (src.stem + ".o"))],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for src in _sources()]
+        for src, proc in procs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{out}{err}")
+            name, spills = None, ""
+            for line in (out + err).splitlines():
+                m = re.search(r"Compiling entry function '(\w+)'", line)
+                if m:
+                    name = _demangle(m.group(1))
+                elif "spill stores" in line:
+                    spills = line.strip()
+                elif "Used" in line and "registers" in line and name:
+                    lines.append(f"{src.name}: {name}: "
+                                 f"{line.split(':', 1)[1].strip()}; {spills}")
+                    name = None
+    return "\n".join(lines)
+
+
+def _demangle(symbol: str) -> str:
+    tool = shutil.which("cu++filt") or shutil.which("c++filt")
+    if tool is None:
+        return symbol
+    out = subprocess.run([tool, symbol], capture_output=True, text=True)
+    name = out.stdout.strip() or symbol
+    return re.sub(r"repro::\(anonymous namespace\)::", "", name)
+
+
+if __name__ == "__main__":
+    import sys
+    if sys.argv[1:] != ["--ptxas"]:
+        raise SystemExit("usage: python -m repro_torch.kernels._build "
+                         "--ptxas")
+    print(ptxas_report())

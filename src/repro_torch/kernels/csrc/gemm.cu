@@ -25,31 +25,14 @@
 // config's bm/bn/bk to an id of kTilings below):
 //
 // wgmma_bm*_bn*_bk* — bf16 on the tensor cores, one instance per block
-// shape a deployed config names.  A persistent grid, one block per SM:
-// block i takes the bm x bn output tiles i, i + gridDim.x, ... (columns
-// fastest, then rows, then the batch).  One producer warpgroup (a single
-// thread of it issues) walks each tile's K in bk-deep stages, loading the
-// A tile (bm x bk, K-major) and the B tile (bk x bn, N-major) by TMA into
-// a ring of 2-4 shared-memory stages (as many as fit beside the C tile),
-// each guarded by a "full" mbarrier (TMA bytes landed) and an "empty" one
-// (every consumer thread is done with it).  The ring runs on from tile to
-// tile, so the next tile's loads overlap this tile's epilogue.  Tiles are
-// kept as 64-element-wide column blocks under the 128-byte swizzle, the
-// layout wgmma reads without bank conflicts.  The tensor maps are 3-D
-// over (batch, rows, columns), so a tile that runs past an edge is
-// zero-filled by TMA and never reads the next batch entry.  One or two
-// consumer warpgroups each own 64 or 128 rows of the tile and issue
-// m64 x bn x 16 wgmma from the stage's descriptors (B with the transpose
-// bit), keeping one group in flight while the previous stage is released.
-// The f32 accumulators stay in registers; the epilogue applies LeakyReLU
-// to the f32 sum (y >= 0 ? y : slope * y, the reference's where), rounds
-// once to bf16, writes the tile into its own shared-memory stage under
-// the same swizzle (conflict-free 4-byte stores) and stores it with TMA,
-// which clips the edges; that store drains while the next tile is
-// multiplied (the stage is written again only after it has been read).
-// K4 is bound by its stores, which the persistent grid overlaps with the
-// next tile's loads and products (PERF.md holds the times of both
-// grids).  With two consumer warpgroups the producer gives its registers to them
+// shape a deployed config names: the persistent TMA / wgmma GEMM of
+// wgmma_gemm.cuh (its note says how it works), with the plain epilogue and
+// its tiles walked columns fastest, then rows, then the batch (group 1).
+// The epilogue applies LeakyReLU to the f32 sum (y >= 0 ? y : slope * y,
+// the reference's where) and rounds once to bf16.  K4 is bound by its
+// stores, which the persistent grid overlaps with the next tile's loads
+// and products (PERF.md holds the times of both grids).  With two
+// consumer warpgroups the producer gives its registers to them
 // (setmaxnreg: 40 and 232 of the 168 a thread starts with).  TMA needs
 // 16-byte-aligned rows, so this route takes K and N multiples of 8 and
 // 16-byte-aligned pointers.
@@ -68,7 +51,7 @@
 // Its ceiling is the f32 FMA rate, 67 TFLOP/s.
 
 #include "common.cuh"
-#include "hopper.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace repro {
 namespace {
@@ -240,203 +223,15 @@ cudaError_t launch_simt(const void* a, const void* b, void* c, int batch,
 
 
 // ---------------------------------------------------------------------------
-// wgmma: bf16 on the tensor cores
+// wgmma: bf16 on the tensor cores (the persistent GEMM of wgmma_gemm.cuh)
 // ---------------------------------------------------------------------------
-
-constexpr int kSmemBudget = 227 * 1024 - 2048;  // ring + alignment + barriers
-
-template <int BM, int BN, int BK>
-struct WgTile {
-  static_assert(BM % 64 == 0 && BN % 64 == 0 && BK % 64 == 0, "64-multiples");
-  static_assert(BN <= 256 && BM <= 256, "a TMA box has at most 256 rows");
-  static constexpr int kWG = BM >= 128 ? 2 : 1;      // consumer warpgroups
-  static constexpr int kMI = BM / (64 * kWG);        // m64 slices each
-  static constexpr int kThreads = (kWG + 1) * 128;   // + the producer
-  static constexpr int kABytes = BM * BK * 2;
-  static constexpr int kStageBytes = kABytes + BK * BN * 2;
-  static constexpr int kCBytes = BM * BN * 2;        // the C tile's stage
-  static constexpr int kFit = (kSmemBudget - kCBytes) / kStageBytes;
-  static constexpr int kStages = kFit > 4 ? 4 : kFit;
-  static_assert(kStages >= 2, "two stages must fit");
-  static constexpr int kSmem =
-      kStages * kStageBytes + kCBytes + 1024 + 2 * 8 * kStages;
-};
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  const uint32_t a = sm90::smem_u32(p);
-  return p + ((1024 - (a & 1023)) & 1023);
-}
-
-// A persistent grid: block i takes the output tiles i, i + gridDim.x, ...
-// (column tiles fastest, then row tiles, then the batch), and the ring
-// runs on across tiles, so the producer loads the next tile while the
-// consumers finish this one, and a tile's TMA store drains while the next
-// tile is multiplied.
-template <int BM, int BN, int BK>
-__global__ void __launch_bounds__(WgTile<BM, BN, BK>::kThreads, 1)
-    gemm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
-                      const __grid_constant__ CUtensorMap bmap,
-                      const __grid_constant__ CUtensorMap cmap, int M, int N,
-                      int K, int batch, int leaky, float slope) {
-  using T = WgTile<BM, BN, BK>;
-  using namespace sm90;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* ring = align1024(smem_raw);
-  uint8_t* cs = ring + T::kStages * T::kStageBytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(cs + T::kCBytes);
-  uint64_t* empty = full + T::kStages;
-
-  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
-  const int tiles_n = (N + BN - 1) / BN, tiles_m = (M + BM - 1) / BM;
-  const int tiles = tiles_n * tiles_m * batch;
-  const int nk = (K + BK - 1) / BK;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < T::kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], T::kWG * 128);
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-
-  if (wg == T::kWG) {  // producer
-    if constexpr (T::kWG == 2) regs_dec<40>();
-    if (t == 0) {
-      int g = 0;   // stages filled so far, across tiles
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int n0 = (tile % tiles_n) * BN;
-        const int m0 = (tile / tiles_n % tiles_m) * BM;
-        const int bz = tile / (tiles_n * tiles_m);
-        for (int kt = 0; kt < nk; ++kt, ++g) {
-          const int s = g % T::kStages;
-          mbar_wait(&empty[s], ((g / T::kStages) & 1) ^ 1);
-          mbar_expect_tx(&full[s], T::kStageBytes);
-          uint8_t* sa = ring + s * T::kStageBytes;
-          uint8_t* sb = sa + T::kABytes;
-#pragma unroll
-          for (int cb = 0; cb < BK / 64; ++cb)
-            tma_load_3d(sa + cb * BM * 128, &amap, &full[s],
-                        kt * BK + 64 * cb, m0, bz);
-#pragma unroll
-          for (int cb = 0; cb < BN / 64; ++cb)
-            tma_load_3d(sb + cb * BK * 128, &bmap, &full[s], n0 + 64 * cb,
-                        kt * BK, bz);
-        }
-      }
-    }
-    return;
-  }
-
-  if constexpr (T::kWG == 2) regs_inc<232>();
-  const int warp = t / 32, lane = t % 32;
-  float acc[T::kMI][BN / 2];
-  int g = 0;   // stages consumed so far, across tiles
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int n0 = (tile % tiles_n) * BN;
-    const int m0 = (tile / tiles_n % tiles_m) * BM;
-    const int bz = tile / (tiles_n * tiles_m);
-#pragma unroll
-    for (int i = 0; i < T::kMI; ++i)
-#pragma unroll
-      for (int j = 0; j < BN / 2; ++j) acc[i][j] = 0.f;
-
-    int prev = -1;
-    for (int kt = 0; kt < nk; ++kt, ++g) {
-      const int s = g % T::kStages;
-      mbar_wait(&full[s], (g / T::kStages) & 1);
-      const uint32_t sa = smem_u32(ring + s * T::kStageBytes);
-      const uint32_t sb = sa + T::kABytes;
-#pragma unroll
-      for (int i = 0; i < T::kMI; ++i) fence_regs(acc[i]);
-      wgmma_fence();
-#pragma unroll
-      for (int i = 0; i < T::kMI; ++i) {
-        const uint32_t rows = sa + (wg * T::kMI + i) * 64 * 128;
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          const uint64_t da = make_desc(
-              rows + (kk / 4) * BM * 128 + (kk % 4) * 32, 16, 1024, kSw128);
-          const uint64_t db = make_desc(sb + kk * 16 * 128, BK * 128, 1024,
-                                        kSw128);
-          WgmmaSS<BN>::template mma<1>(acc[i], da, db, 1);
-        }
-      }
-      wgmma_commit();
-      wgmma_wait<1>();   // the previous stage's products are done
-#pragma unroll
-      for (int i = 0; i < T::kMI; ++i) fence_regs(acc[i]);
-      if (prev >= 0) mbar_arrive(&empty[prev]);
-      prev = s;
-    }
-    wgmma_wait<0>();
-#pragma unroll
-    for (int i = 0; i < T::kMI; ++i) fence_regs(acc[i]);
-    mbar_arrive(&empty[prev]);
-
-    // Epilogue: the C tile goes through its own stage, 64-column blocks
-    // of BM rows of 128 bytes under the 128-byte swizzle, as the store
-    // map reads; the previous tile's store must have read it first.
-    if (threadIdx.x == 0) tma_store_wait_read();
-    named_sync(1, T::kWG * 128);
-#pragma unroll
-    for (int i = 0; i < T::kMI; ++i) {
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = (wg * T::kMI + i) * 64 + warp * 16 + lane / 4 + 8 * h;
-          const int c = 8 * j + 2 * (lane % 4);
-          float y0 = acc[i][4 * j + 2 * h], y1 = acc[i][4 * j + 2 * h + 1];
-          if (leaky) {
-            y0 = y0 >= 0.f ? y0 : slope * y0;
-            y1 = y1 >= 0.f ? y1 : slope * y1;
-          }
-          const int chunk = ((c % 64) / 8) ^ (r % 8);
-          *reinterpret_cast<uint32_t*>(cs + (c / 64) * BM * 128 + r * 128 +
-                                       chunk * 16 + (c % 8) * 2) =
-              pack_bf16(y0, y1);
-        }
-      }
-    }
-    fence_async_smem();
-    named_sync(1, T::kWG * 128);
-    if (threadIdx.x == 0) {
-#pragma unroll
-      for (int cb = 0; cb < BN / 64; ++cb)
-        tma_store_3d(&cmap, cs + cb * BM * 128, n0 + 64 * cb, m0, bz);
-      tma_store_commit();
-    }
-  }
-  if (threadIdx.x == 0) tma_store_wait_all();
-}
 
 template <int BM, int BN, int BK>
 cudaError_t launch_wgmma(const void* a, const void* b, void* c, int batch,
                          int M, int K, int N, bool leaky, float slope,
                          cudaStream_t stream) {
-  using T = WgTile<BM, BN, BK>;
-  CUtensorMap amap, bmap, cmap;
-  if (!make_map_3d(&amap, a, K, M, batch, 64, BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map_3d(&bmap, b, N, K, batch, 64, BK, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map_3d(&cmap, c, N, M, batch, 64, BM, CU_TENSOR_MAP_SWIZZLE_128B))
-    return cudaErrorInvalidValue;
-  auto kernel = gemm_wgmma_kernel<BM, BN, BK>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
-  int dev = 0, sms = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  // one block per SM (each takes most of an SM's shared memory), at most
-  // one per tile
-  const long long tiles = static_cast<long long>((N + BN - 1) / BN) *
-                          ((M + BM - 1) / BM) * batch;
-  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  kernel<<<grid, T::kThreads, T::kSmem, stream>>>(amap, bmap, cmap, M, N, K,
-                                                  batch, leaky ? 1 : 0, slope);
-  return cudaGetLastError();
+  return launch_wgmma_gemm<BM, BN, BK, false>(a, b, nullptr, c, batch, M, K,
+                                              N, leaky, slope, 1, stream);
 }
 
 using Launcher = cudaError_t (*)(const void*, const void*, void*, int, int,

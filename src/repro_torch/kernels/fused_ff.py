@@ -22,7 +22,9 @@ reference; ``tile_fn`` and ``epilogue_fn`` are torch functions that
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import collections
+import functools
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -30,8 +32,77 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build, ref
 from repro_torch.sched.spec import KernelSpec, TileIO
 
-# Kernel launches made by this process (the wrapper adds one per launch).
+# Kernel launches made by this process (the wrapper adds one per launch),
+# in all and by the tiling that ran.
 launches = 0
+launches_by_tiling: collections.Counter = collections.Counter()
+
+# The kernel instances compiled in csrc/fused_ff.cu, by id (its kTilings):
+# the SIMT kernel (f32 above the decode threshold, and what the others
+# cannot take), the split-K decode kernels by the rows they hold, and the
+# bf16 wgmma instances by (bm, bn, bk): one per block shape of CONFIGS that
+# the register file holds.
+SIMT = "simt_8x64"
+GEMV_ROWS = (1, 2, 4, 8)
+DECODE_ROWS = GEMV_ROWS[-1]       # M at or below this takes a gemv instance
+WGMMA = ((128, 128, 128), (128, 128, 64), (64, 256, 64))
+TILINGS = ((SIMT,) + tuple(f"gemv_m{r}" for r in GEMV_ROWS)
+           + tuple(f"wgmma_bm{bm}_bn{bn}_bk{bk}" for bm, bn, bk in WGMMA))
+# (bm, bn, bk) for calls that name none (the model's)
+DEFAULT_BLOCK = (128, 128, 64)
+# block shapes that run another's instance: (256, 128, 64) would hold two
+# 256 x 128 f32 accumulators, the whole register file, so it runs as two
+# 128-row tiles one after another (csrc/fused_ff.cu)
+SHARED_BLOCKS = {(256, 128, 64): (128, 128, 64)}
+
+
+@functools.lru_cache(maxsize=1024)
+def select_tiling(dtype: torch.dtype, shape: Sequence[int], *,
+                  bm: Optional[int] = None, bn: Optional[int] = None,
+                  bk: Optional[int] = None, aligned: bool = True) -> str:
+    """The ``csrc/fused_ff.cu`` instance (a name of ``TILINGS``) that
+    ``fused_ff`` launches for a product of ``shape`` (M, K, N) in ``dtype``
+    at the deployed block sizes.
+
+    M <= ``DECODE_ROWS``: the gemv instance of the fewest rows that hold M,
+    in either dtype, if N is a multiple of the 16-byte vector and the
+    tensors are 16-byte aligned (``aligned``); else ``SIMT``.  Above it:
+    ``SIMT`` for f32 and for bf16 rows TMA cannot take (K or N not a
+    multiple of 8, or unaligned); else the wgmma instance of (bm, bn, bk),
+    each None taken from ``DEFAULT_BLOCK``, with (256, 128, 64) on the
+    (128, 128, 64) instance (``SHARED_BLOCKS``).  A bf16 block shape with
+    no compiled instance raises, listing the instances."""
+    m, k, n = shape
+    if m <= DECODE_ROWS:
+        if aligned and n % (16 // dtype.itemsize) == 0:
+            return f"gemv_m{next(r for r in GEMV_ROWS if m <= r)}"
+        return SIMT
+    if dtype != torch.bfloat16 or k == 0 or k % 8 or n % 8 or not aligned:
+        return SIMT
+    block = tuple(d if b is None else b
+                  for b, d in zip((bm, bn, bk), DEFAULT_BLOCK))
+    bm, bn, bk = SHARED_BLOCKS.get(block, block)
+    name = f"wgmma_bm{bm}_bn{bn}_bk{bk}"
+    if name not in TILINGS:
+        raise ValueError(f"fused_ff: no kernel instance {name} for "
+                         f"bm={block[0]}, bn={block[1]}, bk={block[2]} in "
+                         f"bf16; compiled: {', '.join(TILINGS)}")
+    return name
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def gemv_splits(k: int, n: int, dtype: torch.dtype, sms: int) -> int:
+    """The most slices of K a gemv call may take (its workspace holds
+    their partial sums): enough for a grid (a block per 16 vectors of each
+    weight's columns, by slice) of four blocks an SM on ``sms`` SMs, and
+    no slice shorter than 64 rows.  The kernel takes as many of them as
+    one wave of the card holds (``csrc/fused_ff.cu``)."""
+    blocks = -(-n // (16 * (16 // dtype.itemsize)))
+    return max(1, min(-(-4 * sms // blocks), -(-k // 64)))
 
 
 def fused_ff(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, *,
@@ -40,8 +111,9 @@ def fused_ff(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, *,
     """x: (M, K); w_gate, w_up: (K, N) -> (M, N) in x's type.
 
     ``bm``/``bn``/``bk`` are the reference's block sizes: M, N and K must
-    be multiples of those given, as the reference asserts.  The CUDA
-    kernel's own tiling does not depend on them (see ``csrc/fused_ff.cu``)."""
+    be multiples of those given, as the reference asserts.  On the card
+    the instance :func:`select_tiling` names runs, and
+    ``launches_by_tiling`` counts which ran (see ``csrc/fused_ff.cu``)."""
     global launches
     if x.ndim != 2 or w_gate.ndim != 2 or w_gate.shape != w_up.shape \
             or w_gate.shape[0] != x.shape[1]:
@@ -54,28 +126,39 @@ def fused_ff(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, *,
            for dim, b in ((M, bm), (N, bn), (K, bk))):
         raise AssertionError((tuple(x.shape), tuple(w_gate.shape), bm, bn,
                               bk))
-    tensors = (x, w_gate, w_up)
-    if all(t.device.type == "cpu" for t in tensors):
+    device = x.device
+    devices = (device, w_gate.device, w_up.device)
+    if all(d.type == "cpu" for d in devices):
         return ref.fused_ff(x, w_gate, w_up)
-    if not (x.is_cuda and all(t.device == x.device for t in tensors)):
+    if device.type != "cuda" or devices.count(device) != 3:
         raise ValueError("fused_ff: the kernel needs all three tensors on "
                          "one CUDA device, got "
-                         + ", ".join(str(t.device) for t in tensors))
-    if x.dtype not in _build.DTYPE_CODES \
-            or any(t.dtype != x.dtype for t in tensors):
-        raise TypeError("fused_ff: x and both weights must share f32 or "
-                        "bf16, got "
-                        + ", ".join(str(t.dtype) for t in tensors))
-    if not all(t.is_contiguous() for t in tensors):
+                         + ", ".join(map(str, devices)))
+    dtype = x.dtype
+    if dtype not in _build.DTYPE_CODES \
+            or w_gate.dtype != dtype or w_up.dtype != dtype:
+        raise TypeError(f"fused_ff: x and both weights must share f32 or "
+                        f"bf16, got {dtype}, {w_gate.dtype}, {w_up.dtype}")
+    if not (x.is_contiguous() and w_gate.is_contiguous()
+            and w_up.is_contiguous()):
         raise ValueError("fused_ff: x and both weights must be contiguous")
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    lib = _build.library()
-    err = lib.repro_fused_ff(x.data_ptr(), w_gate.data_ptr(),
-                             w_up.data_ptr(), out.data_ptr(), M, K, N,
-                             _build.DTYPE_CODES[x.dtype],
-                             _build.stream_handle(x.device))
-    _build.check(err, "fused_ff")
+    out = torch.empty((M, N), dtype=dtype, device=device)
+    ptrs = x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), out.data_ptr()
+    tiling = select_tiling(dtype, (M, K, N), bm=bm, bn=bn, bk=bk,
+                           aligned=(ptrs[0] | ptrs[1] | ptrs[2]
+                                    | ptrs[3]) % 16 == 0)
+    splits, work = 1, None
+    if tiling.startswith("gemv_"):
+        splits = gemv_splits(K, N, dtype, _sm_count(device.index))
+        work = torch.empty(2 * splits * M * N, dtype=torch.float32,
+                           device=device)
+    err = _build.library().repro_fused_ff(
+        *ptrs, None if work is None else work.data_ptr(), M, K, N, splits,
+        _build.tiling_ids("repro_fused_ff_tilings", TILINGS)[tiling],
+        _build.DTYPE_CODES[dtype], _build.stream_handle(device))
+    _build.check(err, f"fused_ff ({tiling})")
     launches += 1
+    launches_by_tiling[tiling] += 1
     return out
 
 

@@ -21,7 +21,9 @@ reference; ``tile_fn`` is a torch function that
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import collections
+import functools
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -29,8 +31,41 @@ from repro_torch.kernels import _build, ref
 from repro_torch.sched.scenario import Scenario, scenario_steps
 from repro_torch.sched.spec import KernelSpec, TileIO
 
-# Kernel launches made by this process (the wrapper adds one per launch).
+# Kernel launches made by this process (the wrapper adds one per launch),
+# in all and by the tiling that ran.
 launches = 0
+launches_by_tiling: collections.Counter = collections.Counter()
+
+# The kernel instances compiled in csrc/rmsnorm.cu, by id (its kTilings):
+# element loads a block a row (unaligned or ragged rows), then 16-byte
+# vectors a block a row (calls that name no br) and with br rows a block
+# (the br values of CONFIGS).
+SCALAR, BLOCK_ROW = "scalar", "block_row"
+BLOCK_BR = (8, 16, 32)
+TILINGS = (SCALAR, BLOCK_ROW) + tuple(f"block_br{br}" for br in BLOCK_BR)
+
+
+@functools.lru_cache(maxsize=1024)
+def select_tiling(dtype: torch.dtype, shape: Sequence[int], *,
+                  br: Optional[int] = None, cols: Optional[int] = None,
+                  aligned: bool = True) -> str:
+    """The ``csrc/rmsnorm.cu`` instance (a name of ``TILINGS``) that
+    ``rmsnorm`` launches for x of ``shape`` (rows, cols) in ``dtype`` at
+    the deployed ``br`` (``cols`` is the config's width, checked by the
+    wrapper): ``scalar`` for rows whose width is not a multiple of the
+    16-byte vector or tensors not 16-byte aligned (``aligned``); else
+    ``block_row`` when br is None or 1 (the model's calls), and the
+    instance of ``br`` rows a block otherwise.  A br with no compiled
+    instance raises, listing the instances."""
+    if not aligned or shape[1] % (16 // dtype.itemsize):
+        return SCALAR
+    if br is None or br == 1:
+        return BLOCK_ROW
+    name = f"block_br{br}"
+    if name not in TILINGS:
+        raise ValueError(f"rmsnorm: no kernel instance {name} for br={br}; "
+                         f"compiled: {', '.join(TILINGS)}")
+    return name
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6,
@@ -40,8 +75,9 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6,
 
     ``br`` is the reference's rows per program: rows must be a multiple
     of it when it is given, as the reference asserts.  ``cols`` is the
-    width a deployed config names; it must equal x's.  The CUDA kernel's
-    grid does not depend on either (see ``csrc/rmsnorm.cu``)."""
+    width a deployed config names; it must equal x's.  On the card the
+    instance :func:`select_tiling` names for ``br`` runs, and
+    ``launches_by_tiling`` counts which ran (see ``csrc/rmsnorm.cu``)."""
     global launches
     if x.ndim != 2 or gamma.shape != (x.shape[1],):
         raise ValueError(f"rmsnorm: need x (rows, cols) and gamma (cols,), "
@@ -51,24 +87,30 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6,
     if cols is not None and cols != x.shape[1]:
         raise ValueError(f"rmsnorm: the config's cols={cols} is not x's "
                          f"width {x.shape[1]}")
-    if x.device.type == "cpu" and gamma.device.type == "cpu":
+    device = x.device
+    if device.type == "cpu" and gamma.device.type == "cpu":
         return ref.rmsnorm(x, gamma, eps)
-    if not (x.is_cuda and gamma.device == x.device):
-        raise ValueError(f"rmsnorm: x on {x.device} and gamma on "
+    if device.type != "cuda" or gamma.device != device:
+        raise ValueError(f"rmsnorm: x on {device} and gamma on "
                          f"{gamma.device}; the kernel needs one CUDA device")
-    if x.dtype not in _build.DTYPE_CODES or gamma.dtype != x.dtype:
+    dtype = x.dtype
+    if dtype not in _build.DTYPE_CODES or gamma.dtype != dtype:
         raise TypeError(f"rmsnorm: x and gamma must share f32 or bf16, got "
-                        f"{x.dtype} and {gamma.dtype}")
+                        f"{dtype} and {gamma.dtype}")
     if not (x.is_contiguous() and gamma.is_contiguous()):
         raise ValueError("rmsnorm: x and gamma must be contiguous")
     y = torch.empty_like(x)
-    lib = _build.library()
-    err = lib.repro_rmsnorm(x.data_ptr(), gamma.data_ptr(), y.data_ptr(),
-                            x.shape[0], x.shape[1], float(eps),
-                            _build.DTYPE_CODES[x.dtype],
-                            _build.stream_handle(x.device))
-    _build.check(err, "rmsnorm")
+    ptrs = x.data_ptr(), gamma.data_ptr(), y.data_ptr()
+    tiling = select_tiling(dtype, x.shape, br=br,
+                           aligned=(ptrs[0] | ptrs[1] | ptrs[2]) % 16 == 0)
+    rows, cols = x.shape
+    err = _build.library().repro_rmsnorm(
+        *ptrs, rows, cols, float(eps),
+        _build.tiling_ids("repro_rmsnorm_tilings", TILINGS)[tiling],
+        _build.DTYPE_CODES[dtype], _build.stream_handle(device))
+    _build.check(err, f"rmsnorm ({tiling})")
     launches += 1
+    launches_by_tiling[tiling] += 1
     return y
 
 

@@ -17,7 +17,9 @@ reference; ``tile_fn`` is a torch function that
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import collections
+import functools
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -25,11 +27,41 @@ from repro_torch.kernels import _build, ref
 from repro_torch.sched.scenario import Scenario, scenario_steps
 from repro_torch.sched.spec import KernelSpec, TileIO
 
-# Kernel launches made by this process (the wrapper adds one per launch).
+# Kernel launches made by this process (the wrapper adds one per launch),
+# in all and by the tiling that ran.
 launches = 0
+launches_by_tiling: collections.Counter = collections.Counter()
 
 # The kernel holds a row in registers: 32 values of each of 256 threads.
 MAX_COLS = 8192
+
+# The kernel instances compiled in csrc/softmax.cu, by id (its kTilings):
+# element loads a block a row (unaligned or ragged rows), then 16-byte
+# vectors with br rows a block: 1 for calls that name no br, and the br
+# values of CONFIGS.
+SCALAR = "scalar"
+BLOCK_BR = (1, 4, 8, 16, 32)
+TILINGS = (SCALAR,) + tuple(f"block_br{br}" for br in BLOCK_BR)
+
+
+@functools.lru_cache(maxsize=1024)
+def select_tiling(dtype: torch.dtype, shape: Sequence[int], *,
+                  br: Optional[int] = None, cols: Optional[int] = None,
+                  aligned: bool = True) -> str:
+    """The ``csrc/softmax.cu`` instance (a name of ``TILINGS``) that
+    ``softmax`` launches for x of ``shape`` (rows, cols) in ``dtype`` at
+    the deployed ``br`` (``cols`` is the config's width, checked by the
+    wrapper): ``scalar`` for rows whose width is not a multiple of the
+    16-byte vector or tensors not 16-byte aligned (``aligned``); else the
+    instance of ``br`` rows a block (1 when None).  A br with no compiled
+    instance raises, listing the instances."""
+    if not aligned or shape[1] % (16 // dtype.itemsize):
+        return SCALAR
+    name = f"block_br{1 if br is None else br}"
+    if name not in TILINGS:
+        raise ValueError(f"softmax: no kernel instance {name} for br={br}; "
+                         f"compiled: {', '.join(TILINGS)}")
+    return name
 
 
 def softmax(x: torch.Tensor, *, br: Optional[int] = None,
@@ -38,8 +70,9 @@ def softmax(x: torch.Tensor, *, br: Optional[int] = None,
 
     ``br`` is the reference's rows per program: rows must be a multiple
     of it, as the reference asserts.  ``cols`` is the width a deployed
-    config names; it must equal x's.  The CUDA kernel's grid does not
-    depend on either (see ``csrc/softmax.cu``)."""
+    config names; it must equal x's.  On the card the instance
+    :func:`select_tiling` names for ``br`` runs, and
+    ``launches_by_tiling`` counts which ran (see ``csrc/softmax.cu``)."""
     global launches
     if x.ndim != 2:
         raise ValueError(f"softmax: need x (rows, cols), got "
@@ -62,11 +95,15 @@ def softmax(x: torch.Tensor, *, br: Optional[int] = None,
         raise ValueError(f"softmax: the kernel takes cols <= {MAX_COLS}, "
                          f"got {x.shape[1]}")
     y = torch.empty_like(x)
+    tiling = select_tiling(x.dtype, x.shape, br=br, aligned=(
+        x.data_ptr() | y.data_ptr()) % 16 == 0)
     err = _build.library().repro_softmax(
         x.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1],
+        _build.tiling_ids("repro_softmax_tilings", TILINGS)[tiling],
         _build.DTYPE_CODES[x.dtype], _build.stream_handle(x.device))
-    _build.check(err, "softmax")
+    _build.check(err, f"softmax ({tiling})")
     launches += 1
+    launches_by_tiling[tiling] += 1
     return y
 
 

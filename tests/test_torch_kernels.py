@@ -123,6 +123,79 @@ def test_fused_ff_ragged_matches_oracle(dtype, m, k, n):
                                atol=FF_ATOL[dtype], rtol=3e-2)
 
 
+# Each CONFIGS entry at a few of its blocks: the port's CPU call (the plain
+# version, under the wrapper's divisibility contract) against the Pallas
+# kernel at the same block sizes in interpret mode.  f32 at the present
+# atol; bf16 within one bf16 rounding of the output (f32 sums in another
+# order on either side of a rounding boundary), plus, for K2, 1e-4 where
+# a gate sum near zero loses its relative precision.
+_CFG_TOL = {"rmsnorm": {"float32": (2e-5, 0.0), "bfloat16": (0.0, 2 ** -7)},
+            "fused_ff": {"float32": (1e-4, 0.0),
+                         "bfloat16": (1e-4, 2 ** -7)}}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cfg", rms_mod.CONFIGS,
+                         ids=[f"br{c['br']}-cols{c['cols']}"
+                              for c in rms_mod.CONFIGS])
+def test_rmsnorm_matches_pallas_at_every_config(cfg, dtype):
+    rng = np.random.default_rng(cfg["br"] + cfg["cols"])
+    rows, cols = 3 * cfg["br"], cfg["cols"]
+    x = (rng.standard_normal((rows, cols)) * 0.5).astype(np.float32)
+    g = (rng.standard_normal(cols) * 0.5 + 1.0).astype(np.float32)
+    (jx, tx), (jg, tg) = _pair(x, dtype), _pair(g, dtype)
+    got = rms_mod.rmsnorm(tx, tg, **cfg)
+    want = pallas_rmsnorm(jx, jg, br=cfg["br"], interpret=True)
+    atol, rtol = _CFG_TOL["rmsnorm"][dtype]
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=atol, rtol=rtol)
+    with pytest.raises(AssertionError):     # rows % br != 0
+        rms_mod.rmsnorm(tx[:-1], tg, **cfg)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cfg", ff_mod.CONFIGS,
+                         ids=["-".join(map(str, c.values()))
+                              for c in ff_mod.CONFIGS])
+def test_fused_ff_matches_pallas_at_every_config(cfg, dtype):
+    rng = np.random.default_rng(sum(cfg.values()))
+    m, k, n = 2 * cfg["bm"], 2 * cfg["bk"], 2 * cfg["bn"]
+    x = (rng.standard_normal((m, k)) * 0.5).astype(np.float32)
+    wg, wu = ((rng.standard_normal((k, n)) * k ** -0.5).astype(np.float32)
+              for _ in range(2))
+    (jx, tx), (jg, tg), (ju, tu) = (_pair(a, dtype) for a in (x, wg, wu))
+    got = ff_mod.fused_ff(tx, tg, tu, **cfg)
+    assert got.dtype == tx.dtype and got.shape == (m, n)
+    want = pallas_fused_ff(jx, jg, ju, **cfg, interpret=True)
+    atol, rtol = _CFG_TOL["fused_ff"][dtype]
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=atol, rtol=rtol)
+    with pytest.raises(AssertionError):     # M % bm != 0
+        ff_mod.fused_ff(tx[:-1], tg, tu, **cfg)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_ff_either_side_of_the_decode_threshold(dtype):
+    """M = 8 (the card's split-K decode route) and M = 9 (the wgmma route
+    in bf16, SIMT in f32): the CPU wrapper against the plain version and
+    the JAX oracle, at the serving path's K and a narrow N."""
+    rng = np.random.default_rng(89)
+    k, n = 2560, 256
+    x = (rng.standard_normal((9, k)) * 0.5).astype(np.float32)
+    wg, wu = ((rng.standard_normal((k, n)) * k ** -0.5).astype(np.float32)
+              for _ in range(2))
+    (jx, tx), (jg, tg), (ju, tu) = (_pair(a, dtype) for a in (x, wg, wu))
+    atol, rtol = _CFG_TOL["fused_ff"][dtype]
+    routes = set()
+    for m in (ff_mod.DECODE_ROWS, ff_mod.DECODE_ROWS + 1):
+        got = ff_mod.fused_ff(tx[:m], tg, tu)
+        assert torch.equal(got, ref.fused_ff(tx[:m], tg, tu))
+        np.testing.assert_allclose(_f32(got),
+                                   _f32(jref.fused_ff(jx[:m], jg, ju)),
+                                   atol=atol, rtol=rtol)
+        routes.add(ff_mod.select_tiling(tx.dtype, (m, k, n))[:4])
+    assert routes == ({"gemv", "wgmm"} if dtype == "bfloat16"
+                      else {"gemv", "simt"})
+
+
 def test_one_row_product_equals_its_row_in_a_batch():
     """A lane computes the same bits alone as beside other lanes: the
     plain product pads a one-row operand on the CPU (PyTorch's CPU GEMM

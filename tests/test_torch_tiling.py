@@ -1,7 +1,8 @@
-"""The deployed config chooses the CUDA tiling (ROADMAP C1, bf16): each
-wrapper's pure ``select_tiling`` maps (dtype, shape, deployed keywords) to
-a kernel instance compiled in its ``.cu``.  The ``.cu`` files cannot be
-compiled here, so their tables of instances are read as text."""
+"""The deployed config chooses the CUDA tiling (ROADMAP C1; K3, K4 and K6
+in bf16, K1, K2 and K5 in both types): each wrapper's pure
+``select_tiling`` maps (dtype, shape, deployed keywords) to a kernel
+instance compiled in its ``.cu``.  The ``.cu`` files cannot be compiled
+here, so their tables of instances are read as text."""
 
 import re
 from pathlib import Path
@@ -11,7 +12,10 @@ import torch
 
 from repro_torch.kernels import bmm as bmm_mod
 from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import fused_ff as ff_mod
 from repro_torch.kernels import matmul_leakyrelu as mlr_mod
+from repro_torch.kernels import rmsnorm as rms_mod
+from repro_torch.kernels import softmax as sm_mod
 
 CSRC = Path(fa_mod.__file__).resolve().parent / "csrc"
 BF16, F32 = torch.bfloat16, torch.float32
@@ -121,12 +125,15 @@ def _table(source):
     text = (CSRC / source).read_text()
     body = text[text.index("const Tiling kTilings[] = {"):]
     body = body[:body.index("};")]
-    return re.findall(r'\{"(\w+)",\s*&([\w:]+)<([^>]*)>\}', body)
+    return re.findall(r'\{"(\w+)",\s*&([\w:]+)(?:<([^>]*)>)?\}', body)
 
 
 @pytest.mark.parametrize("source,names", [
     ("flash_attention.cu", fa_mod.TILINGS),
     ("gemm.cu", mlr_mod.TILINGS),
+    ("rmsnorm.cu", rms_mod.TILINGS),
+    ("fused_ff.cu", ff_mod.TILINGS),
+    ("softmax.cu", sm_mod.TILINGS),
 ])
 def test_the_cu_tables_list_the_wrappers_tilings_in_order(source, names):
     """The ids the wrappers pass through the C interface are positions in
@@ -151,6 +158,17 @@ def test_each_instance_is_explicitly_instantiated(source, name):
         assert fn.endswith("launch_simt") and args.strip() == "__nv_bfloat16"
 
 
+def test_cpu_calls_launch_nothing_and_count_no_tiling_k1_k2_k5():
+    x, g = torch.randn(16, 64), torch.ones(64)
+    w = torch.randn(64, 32)
+    rms_mod.rmsnorm(x, g, br=8)
+    ff_mod.fused_ff(x, w, w)
+    ff_mod.fused_ff(x[:8], w, w)
+    sm_mod.softmax(x, br=8)
+    for mod in (rms_mod, ff_mod, sm_mod):
+        assert mod.launches == 0 and not mod.launches_by_tiling
+
+
 def test_cpu_calls_launch_nothing_and_count_no_tiling():
     q = torch.randn(1, 4, 128, 64)
     a, b = torch.randn(128, 128), torch.randn(128, 128)
@@ -159,3 +177,202 @@ def test_cpu_calls_launch_nothing_and_count_no_tiling():
     bmm_mod.bmm(a[None], b[None])
     for mod in _MODS.values():
         assert mod.launches == 0 and not mod.launches_by_tiling
+
+
+# ---------------------------------------------------------------------------
+# K1 rmsnorm, K2 fused_ff, K5 softmax: the instance of every deployed config
+# ---------------------------------------------------------------------------
+
+def _rows_shape(cfg):
+    return (3 * cfg["br"], cfg["cols"])
+
+
+def _ff_shape(cfg):
+    return (2 * cfg["bm"], 2 * cfg["bk"], 2 * cfg["bn"])
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("cfg", rms_mod.CONFIGS,
+                         ids=[f"br{c['br']}-cols{c['cols']}"
+                              for c in rms_mod.CONFIGS])
+def test_every_rmsnorm_config_selects_its_br_instance(cfg, dtype):
+    tiling = rms_mod.select_tiling(dtype, _rows_shape(cfg), **cfg)
+    assert tiling == f"block_br{cfg['br']}" in rms_mod.TILINGS
+
+
+@pytest.mark.parametrize("cols", [2560, 8192, 16384])
+@pytest.mark.parametrize("br", rms_mod.BLOCK_BR)
+def test_rmsnorm_br_instances_take_any_vector_width(br, cols):
+    """A br instance sweeps its rows with the whole block, so it holds no
+    row in registers and takes any width of whole 16-byte vectors."""
+    for dtype in (BF16, F32):
+        assert rms_mod.select_tiling(dtype, (2 * br, cols), br=br) \
+            == f"block_br{br}"
+        assert rms_mod.select_tiling(dtype, (2 * br, cols + 1), br=br) \
+            == "scalar"
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("cfg", sm_mod.CONFIGS,
+                         ids=[f"br{c['br']}-cols{c['cols']}"
+                              for c in sm_mod.CONFIGS])
+def test_every_softmax_config_selects_its_br_instance(cfg, dtype):
+    assert sm_mod.select_tiling(dtype, _rows_shape(cfg), **cfg) \
+        == f"block_br{cfg['br']}"
+
+
+@pytest.mark.parametrize("cfg", ff_mod.CONFIGS,
+                         ids=["-".join(map(str, c.values()))
+                              for c in ff_mod.CONFIGS])
+def test_every_fused_ff_config_selects_a_wgmma_instance(cfg):
+    """No entry raises: the fleets may deploy any of them.  Each runs the
+    instance of its own block shape, but (256, 128, 64), which runs the
+    (128, 128, 64) instance (two 128-row tiles in turn)."""
+    tiling = ff_mod.select_tiling(BF16, _ff_shape(cfg), **cfg)
+    block = (cfg["bm"], cfg["bn"], cfg["bk"])
+    bm, bn, bk = ff_mod.SHARED_BLOCKS.get(block, block)
+    assert tiling == f"wgmma_bm{bm}_bn{bn}_bk{bk}" in ff_mod.TILINGS
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("name", ["rmsnorm", "softmax", "fused_ff"])
+def test_distinct_configs_select_distinct_instances_k1_k2_k5(name, dtype):
+    if name == "fused_ff":
+        if dtype == F32:     # one SIMT route above the decode threshold
+            return
+        tilings = {tuple(c.values()): ff_mod.select_tiling(
+            dtype, _ff_shape(c), **c) for c in ff_mod.CONFIGS}
+        # the documented exception: (256, 128, 64) shares (128, 128, 64)'s
+        assert tilings.pop((256, 128, 64)) == tilings[(128, 128, 64)]
+        assert len(set(tilings.values())) == len(tilings) == 3
+        return
+    mod = rms_mod if name == "rmsnorm" else sm_mod
+    tilings = {}
+    for c in mod.CONFIGS:
+        tilings.setdefault(c["br"], set()).add(
+            mod.select_tiling(dtype, _rows_shape(c), **c))
+    # the instance is the br's: configs that differ only in their width
+    # (K1's br 8 at 2048 and 4096 columns) share it, and distinct br
+    # values select distinct instances
+    assert all(len(t) == 1 for t in tilings.values())
+    assert len(set.union(*tilings.values())) == len(tilings)
+    assert len(tilings) == (3 if name == "rmsnorm" else 4)
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("rmsnorm", (8, 2560)), ("rmsnorm", (8192, 4096)),
+    ("softmax", (40960, 4096)),
+    ("fused_ff", (8192, 2560, 6912)), ("fused_ff", (8, 2560, 6912)),
+])
+def test_unaligned_tensors_take_the_explicit_simt_instance(name, shape):
+    mod = {"rmsnorm": rms_mod, "softmax": sm_mod, "fused_ff": ff_mod}[name]
+    want = ff_mod.SIMT if name == "fused_ff" else "scalar"
+    for dtype in (BF16, F32):
+        assert mod.select_tiling(dtype, shape, aligned=False) == want
+
+
+@pytest.mark.parametrize("name,shape,want", [
+    ("rmsnorm", (13, 1001), "scalar"),          # not a multiple of 8 / 4
+    ("rmsnorm", (3, 1004), "scalar"),           # f32: 1004 % 4 == 0 below
+    ("softmax", (1000, 1001), "scalar"),
+    ("fused_ff", (300, 2560, 777), ff_mod.SIMT),   # N % 8 != 0
+    ("fused_ff", (300, 77, 776), ff_mod.SIMT),     # K % 8 != 0
+    ("fused_ff", (8, 2560, 777), ff_mod.SIMT),     # a ragged decode row
+])
+def test_ragged_rows_take_the_explicit_simt_instance(name, shape, want):
+    mod = {"rmsnorm": rms_mod, "softmax": sm_mod, "fused_ff": ff_mod}[name]
+    assert mod.select_tiling(BF16, shape) == want
+    if shape == (3, 1004):     # 1004 f32 columns are 251 vectors
+        assert mod.select_tiling(F32, shape) == "block_row"
+        assert mod.select_tiling(F32, shape, br=8) == "block_br8"
+
+
+def test_fused_ff_f32_above_the_decode_threshold_runs_simt():
+    for cfg in ff_mod.CONFIGS:
+        assert ff_mod.select_tiling(F32, _ff_shape(cfg), **cfg) \
+            == ff_mod.SIMT
+    assert ff_mod.select_tiling(F32, (8192, 2560, 6912)) == ff_mod.SIMT
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("m,want", [(1, "gemv_m1"), (2, "gemv_m2"),
+                                    (3, "gemv_m4"), (4, "gemv_m4"),
+                                    (5, "gemv_m8"), (8, "gemv_m8")])
+def test_fused_ff_decode_threshold_picks_gemv(m, want, dtype):
+    """M at or below the threshold runs the split-K decode route in either
+    type, whatever block sizes a config names; M one above it does not."""
+    assert ff_mod.DECODE_ROWS == 8
+    for cfg in [{}] + ff_mod.CONFIGS:
+        assert ff_mod.select_tiling(dtype, (m, 2560, 6912), **cfg) == want
+    above = ff_mod.select_tiling(dtype, (ff_mod.DECODE_ROWS + 1, 2560, 6912))
+    assert above == (ff_mod.SIMT if dtype == F32
+                     else "wgmma_bm{}_bn{}_bk{}".format(*ff_mod.DEFAULT_BLOCK))
+
+
+def test_model_calls_take_the_documented_defaults():
+    """The model paths call with no config: K2 the default block, K1 and
+    K5 a block a row."""
+    assert ff_mod.select_tiling(BF16, (8192, 2560, 6912)) \
+        == "wgmma_bm{}_bn{}_bk{}".format(*ff_mod.DEFAULT_BLOCK)
+    for shape in ((8, 2560), (8192, 2560), (8192, 4096), (4, 8192)):
+        for dtype in (BF16, F32):
+            assert rms_mod.select_tiling(dtype, shape) == "block_row"
+    # a deployed br at those widths: the instance of br rows a block, at
+    # any width; br 1 is a block a row
+    assert rms_mod.select_tiling(BF16, (8192, 2560), br=8) == "block_br8"
+    assert rms_mod.select_tiling(F32, (8192, 2560), br=16) == "block_br16"
+    assert rms_mod.select_tiling(BF16, (32, 8192), br=32) == "block_br32"
+    assert rms_mod.select_tiling(F32, (32, 16384), br=32) == "block_br32"
+    assert rms_mod.select_tiling(BF16, (8, 2560), br=1) == "block_row"
+    assert sm_mod.select_tiling(BF16, (40960, 4096)) == "block_br1"
+
+
+@pytest.mark.parametrize("name,shape,cfg", [
+    ("rmsnorm", (64, 2048), {"br": 4}),
+    ("rmsnorm", (64, 2048), {"br": 64}),
+    ("softmax", (64, 2048), {"br": 2}),
+    ("fused_ff", (512, 512, 512), {"bm": 32, "bn": 128, "bk": 128}),
+    ("fused_ff", (512, 512, 512), {"bm": 128, "bn": 256, "bk": 64}),
+])
+def test_a_config_with_no_instance_raises_k1_k2_k5(name, shape, cfg):
+    mod = {"rmsnorm": rms_mod, "softmax": sm_mod, "fused_ff": ff_mod}[name]
+    with pytest.raises(ValueError, match="compiled: "):
+        mod.select_tiling(BF16, shape, **cfg)
+
+
+def test_gemv_splits_fill_the_card():
+    """The workspace's upper limit on the slices of K: 10 at the decode
+    shape on 132 SMs (540 blocks, about four an SM; the launcher takes
+    the smaller of this and one wave of the card, 9 slices there); a
+    short K is not cut below 64 rows a slice."""
+    splits = ff_mod.gemv_splits(2560, 6912, BF16, 132)
+    blocks = -(-6912 // 128) * splits
+    assert (splits, blocks) == (10, 540)
+    assert ff_mod.gemv_splits(2560, 6912, F32, 132) == 5
+    assert ff_mod.gemv_splits(100, 6912, BF16, 132) == 2
+    assert ff_mod.gemv_splits(0, 64, BF16, 132) == 1
+
+
+_NEW_INSTANCES = ([("rmsnorm.cu", n) for n in rms_mod.TILINGS]
+                  + [("fused_ff.cu", n) for n in ff_mod.TILINGS]
+                  + [("softmax.cu", n) for n in sm_mod.TILINGS])
+
+
+@pytest.mark.parametrize("source,name", _NEW_INSTANCES,
+                         ids=[f"{s[:-3]}-{n}" for s, n in _NEW_INSTANCES])
+def test_each_k1_k2_k5_instance_is_explicitly_instantiated(source, name):
+    fn, args = {n: (f, a) for n, f, a in _table(source)}[name]
+    nums = [int(x) for x in re.findall(r"\d+", name)]
+    args = [a.strip() for a in args.split(",")] if args else []
+    if name.startswith("wgmma_"):
+        assert (fn, [int(a) for a in args]) == ("launch_wgmma", nums)
+    elif name.startswith("gemv_m"):
+        assert (fn, [int(a) for a in args]) == ("launch_gemv", nums)
+    elif name.startswith("block_br"):
+        assert (fn, args) == ("launch", ["true", str(nums[0])])
+    elif name == "block_row":
+        assert (fn, args) == ("launch", ["true", "1"])
+    elif source in ("softmax.cu", "rmsnorm.cu"):
+        assert (name, fn, args) == ("scalar", "launch", ["false", "1"])
+    else:
+        assert (name, fn, args) == (ff_mod.SIMT, "launch_simt", [])
