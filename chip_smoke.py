@@ -28,16 +28,20 @@ Phases, each printed on lines of its own:
    layout at ``tests/test_kernels.py``'s shape (chunk 32 and 64) and in
    the model layout at the SSM training path's shape (mamba2-1.3b: (4,
    2048, 64, 64) x (4, 2048, 1, 128)), a ragged two-group shape, chunk
-   128, P 128 with N 64 and a strong decay; K6 in bf16 at each
-   ``CONFIGS`` entry (bq, bk, d) on a causal shape and a GQA shape with a
-   window and a query offset, and K3 and K4 at each of their ``CONFIGS``
-   entries, in f32 and bf16.  Every K1, K2 and K5 case, every bf16 path
-   shape of K3, K4 and K6 and every bf16 ``CONFIGS`` case must launch the
-   tiling its ``select_tiling`` names, read from the wrappers' per-tiling
-   counts (``launches_by_tiling``), and each record names its tiling; at
-   the path shapes the other instances (K1 each br that divides the rows,
-   K2 each ``CONFIGS`` entry at 8192 rows, K5 each br) are checked,
-   asserted and timed beside the default, and at decode K2's default
+   128, P 128 with N 64, a strong decay, widths only its SIMT instance
+   takes, a batch of one (timed with the segments the kernel picks and
+   with one) and chunk counts that those segments do not divide; K6 in bf16 at each ``CONFIGS`` entry (bq, bk, d) on a
+   causal shape and a GQA shape with a window and a query offset, and K3
+   and K4 at each of their ``CONFIGS`` entries, in f32 and bf16.  Every
+   K1, K2, K5 and K7 case, every bf16 path shape of K3, K4 and K6, every
+   f32 path shape of K3 and K4 and every ``CONFIGS`` case of K3 and K4
+   must launch the tiling its ``select_tiling`` names, read from the
+   wrappers' per-tiling counts (``launches_by_tiling``), and each record
+   names its tiling; at the path shapes the other instances (K1 each br
+   that divides the rows, K2 each ``CONFIGS`` entry at 8192 rows, K5 each
+   br, K7 chunk 128 beside the model's 64, K3 and K4 in f32 each SIMT
+   tile of their ``CONFIGS``) are checked, asserted and timed beside the
+   default, and at decode K2's default
    wgmma instance is launched through the library's C entry point and
    timed beside the gemv route; the
    gradients of the four model kernels' ``autograd.Function``s against
@@ -85,12 +89,14 @@ Phases, each printed on lines of its own:
    read them back, and the deployed ``ssd`` is launched through the
    registry at the first bucket's config in bf16 and f32, once a call;
    (d) the deployed config chooses the tiling: K3's and K4's deployed
-   configs (the pair's) and K1's, K2's, K5's and K6's (the fleet's first
-   bucket's), each beside another entry of its ``CONFIGS`` that names
-   another instance, launched through the registry in bf16 at the path's
-   shapes, must launch the instance each names and agree with ``ref_fn``;
+   configs (the pair's), K1's, K2's, K5's and K6's (the fleet's first
+   bucket's) and K7's (the SSM fleet's), each beside another entry of its
+   ``CONFIGS`` that names another instance (K7: the other chunk of 64
+   and 128), launched through the registry at the path's shapes, in bf16
+   for all seven and in f32 for K2, K3, K4 and K6, must launch the
+   instance each names and agree with ``ref_fn``;
 7. the ``{"kernels": [...]}`` line (K1-K7, with their launches by path
-   and, for the kernels with instances, by path and tiling),
+   and by path and tiling),
    then the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line.  No phase catches its
@@ -594,6 +600,19 @@ def _gemm_inputs(gen, dt, a_shape, b_shape, b_scale=None):
     return a, b
 
 
+def _f32_gemm_alternatives(mod, shape, default, call):
+    """(tiling, call, timed call) of each f32 SIMT instance that another
+    ``CONFIGS`` entry of ``mod`` names at ``shape``, once each."""
+    import torch
+    cases = {}
+    for cfg in mod.CONFIGS:
+        tiling = mod.select_tiling(torch.float32, shape, **cfg)
+        if tiling != default and tiling not in cases:
+            cases[tiling] = (tiling, lambda cfg=cfg: call(cfg),
+                             lambda cfg=cfg: call(cfg))
+    return list(cases.values())
+
+
 def gemm_checks(gen, records):
     """K3 and K4, called as the registry calls them (the wrappers, with the
     reference's block-size keywords): ``tests/test_kernels.py``'s cases, a
@@ -623,8 +642,9 @@ def gemm_checks(gen, records):
                 a, b, bm=blk, bn=blk, bk=blk))
             check_close(f"bmm ({B},{m},{k})x({B},{k},{n}) {dname} {ran}", got,
                         ops.bmm(a, b, impl="ref"), atol, rtol)
-        # each CONFIGS entry (bm, bn, bk), at the test's inputs; in bf16
-        # each launches its own wgmma instance
+        # each CONFIGS entry (bm, bn, bk), at the test's inputs, launching
+        # the instance its config names: in bf16 its own wgmma instance,
+        # in f32 the SIMT instance of its (bm, bn)
         for mod, fn, plain, dims in (
                 (mlr_mod, mlr_mod.matmul_leakyrelu, ops.matmul_leakyrelu,
                  ((512, 512), (512, 512))),
@@ -634,10 +654,9 @@ def gemm_checks(gen, records):
             for cfg in mod.CONFIGS:
                 a, b = _gemm_inputs(gen, dt, *dims, 0.5)
                 got, ran = launched(mod, lambda: fn(a, b, **cfg))
-                if dname == "bfloat16":
-                    expect_tiling(f"{name} {dims} {cfg}", ran,
-                                  mod.select_tiling(
-                                      dt, (*dims[0], dims[1][-1]), **cfg))
+                expect_tiling(f"{name} {dims} {cfg} {dname}", ran,
+                              mod.select_tiling(
+                                  dt, (*dims[0], dims[1][-1]), **cfg))
                 check_close(f"{name} {dims} {cfg} {dname} {ran}", got,
                             plain(a, b, impl="ref"), atol, rtol)
 
@@ -650,9 +669,18 @@ def gemm_checks(gen, records):
         got, ran = launched(mlr_mod, lambda: mlr_mod.matmul_leakyrelu(a, b))
         err = check_close(f"matmul_leakyrelu {shape} {ran}", got, plain, tol,
                           0.0)
-        tiling = (expect_tiling(f"matmul_leakyrelu {shape}", ran)
-                  if dname == "bfloat16" else ran[0])
+        tiling = expect_tiling(
+            f"matmul_leakyrelu {shape}", ran,
+            None if dname == "bfloat16"
+            else mlr_mod.select_tiling(dt, MLR_SHAPE))
         del got
+        # f32: the SIMT instance of each other (bm, bn) of CONFIGS (C1)
+        alts = {} if dname == "bfloat16" else alternatives(
+            mlr_mod, _f32_gemm_alternatives(
+                mlr_mod, MLR_SHAPE, tiling,
+                lambda cfg: mlr_mod.matmul_leakyrelu(a, b, **cfg)),
+            lambda out, t: check_close(f"matmul_leakyrelu {shape} {t}", out,
+                                       plain, tol, 0.0), 5)
         el = a.element_size()
         comp = timed(lambda: F.leaky_relu(torch.matmul(a, b), 0.01), 10)
         records.append(record(
@@ -662,7 +690,8 @@ def gemm_checks(gen, records):
             (m * k + k * n + m * n) * el, 2 * m * k * n, dname,
             # no single PyTorch call computes LeakyReLU(a @ b)
             None, library_composite_ms=comp[0],
-            library_composite_device_ms=comp[1], tiling=tiling))
+            library_composite_device_ms=comp[1], tiling=tiling,
+            alternatives=alts))
         del a, b, plain
 
         B, m, k, n = BMM_SHAPE
@@ -673,16 +702,25 @@ def gemm_checks(gen, records):
         shape = f"({B},{m},{k})x({B},{k},{n}) {dname}"
         got, ran = launched(bmm_mod, lambda: bmm_mod.bmm(a, b))
         err = check_close(f"bmm {shape} {ran}", got, plain, tol, 0.0)
-        tiling = (expect_tiling(f"bmm {shape}", ran)
-                  if dname == "bfloat16" else ran[0])
+        tiling = expect_tiling(
+            f"bmm {shape}", ran,
+            None if dname == "bfloat16"
+            else bmm_mod.select_tiling(dt, BMM_SHAPE))
         del got
+        alts = {} if dname == "bfloat16" else alternatives(
+            bmm_mod, _f32_gemm_alternatives(
+                bmm_mod, BMM_SHAPE, tiling,
+                lambda cfg: bmm_mod.bmm(a, b, **cfg)),
+            lambda out, t: check_close(f"bmm {shape} {t}", out, plain, tol,
+                                       0.0), 10)
         el = a.element_size()
         records.append(record(
             "bmm", "optimize", shape, err,
             timed(lambda: bmm_mod.bmm(a, b), 20),
             event_ms(lambda: ops.bmm(a, b, impl="ref"), 20),
             B * (m * k + k * n + m * n) * el, 2 * B * m * k * n, dname,
-            timed(lambda: torch.bmm(a, b), 20), tiling=tiling))
+            timed(lambda: torch.bmm(a, b), 20), tiling=tiling,
+            alternatives=alts))
         del a, b, plain
 
 
@@ -744,11 +782,10 @@ def softmax_checks(gen, records):
 
 def ssd_tol(dname, scale):
     """K7 against its plain version: f32 sums in another order (the
-    kernel stages chunks of 64 whatever the call's chunk), 1e-5 of the
-    largest output (the two lie under 1e-6 of it apart at the training
-    shape); bf16 one bf16 rounding of the output
-    (2^-7 relative), plus 2^-12 of the largest output where f32 sums of
-    opposite signs cancel."""
+    chunk-parallel scan carries the state across segments, and the SIMT
+    kernel runs chunks of 64), 1e-5 of the largest output; bf16 one bf16
+    rounding of the output (2^-7 relative), plus 2^-12 of the largest
+    output where f32 sums of opposite signs cancel."""
     return ((1e-5 * scale, 0.0) if dname == "float32"
             else (2 ** -12 * scale, 2 ** -7))
 
@@ -770,7 +807,10 @@ def ssd_inputs(gen, shape, dt, strong=False):
 
 def ssd_checks(gen, records):
     """K7 in the model layout, and in the registry's flat layout at
-    ``tests/test_kernels.py``'s shape, against its plain version."""
+    ``tests/test_kernels.py``'s shape, against its plain version, each
+    case launching the instance ``select_tiling`` names for its chunk; at
+    the training shape timed in f32 and bf16, with bf16's other chunk
+    (128 beside the model's 64) checked, asserted and timed beside it."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd as ssd_mod
@@ -783,7 +823,15 @@ def ssd_checks(gen, records):
         (SSM_SHAPE, 128, False, False, None),
         ((2, 1024, 16, 1, 128, 64), 64, False, False, None),
         (SSM_SHAPE, 64, True, False, None),
+        ((2, 1000, 8, 2, 60, 48), 64, False, False, None),
+        ((1, SEQ, 64, 1, 64, 128), 64, False, False, None),
+        # chunk counts that the wave's segments do not divide (6 chunks
+        # asked for 4 segments run 3 of 2)
+        ((1, 384, 64, 1, 64, 128), 64, False, False, None),
+        ((4, 384, 8, 1, 64, 128), 64, False, False, None),
+        ((1, 6 * 128 + 5, 64, 1, 64, 128), 128, False, False, None),
     ]
+    segments_batch1 = {}
     for dname, dt in (("float32", torch.float32),
                       ("bfloat16", torch.bfloat16)):
         for shp, chunk, strong, flat, path in cases:
@@ -792,7 +840,7 @@ def ssd_checks(gen, records):
             if flat:
                 x, a, b, c = x[:, :, 0], a[:, :, 0], b[:, :, 0], c[:, :, 0]
                 fn, plain = ssd_mod.ssd, ops.ssd
-            got = fn(x, a, b, c, chunk=chunk)
+            got, ran = launched(ssd_mod, lambda: fn(x, a, b, c, chunk=chunk))
             want = plain(x, a, b, c, chunk=chunk, impl="ref")
             if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
                 fail(f"ssd {shp} gave a non-finite output")
@@ -800,10 +848,26 @@ def ssd_checks(gen, records):
             shape = (f"{'flat ' if flat else ''}{tuple(x.shape)} x "
                      f"{tuple(b.shape)} chunk {chunk}"
                      f"{' strong decay' if strong else ''} {dname}")
+            tiling = expect_tiling(f"ssd {shape}", ran, ssd_mod.select_tiling(
+                dt, shp, chunk=chunk))
             err = check_close(f"ssd {shape}", got, want,
                               *ssd_tol(dname, scale))
+            del got
+            if shp == (1, SEQ, 64, 1, 64, 128) and dname == "bfloat16":
+                segments_batch1 = ssd_segments_times(ssd_mod, x, a, b, c)
             if path is None:
                 continue
+            alts = {}
+            if dname == "bfloat16":    # the other chunk's instance
+                alts = alternatives(
+                    ssd_mod,
+                    [(ssd_mod.select_tiling(dt, shp, chunk=128),
+                      lambda: fn(x, a, b, c, chunk=128),
+                      lambda: fn(x, a, b, c, chunk=128))],
+                    lambda out, t: check_close(
+                        f"ssd {shape} {t}", out,
+                        plain(x, a, b, c, chunk=128, impl="ref"),
+                        *ssd_tol(dname, scale)), 20)
             B, S, H, G, P, N = shp
             el = x.element_size()
             # bytes: x, a, b, c read once, y written once; operations:
@@ -819,9 +883,33 @@ def ssd_checks(gen, records):
                 (2 * B * S * H * P + 2 * B * S * G * N) * el + B * S * H * 4,
                 ops_n, dname,
                 # no single PyTorch call computes the SSD scan
-                None))
-            del x, a, b, c, got, want
+                None, tiling=tiling, alternatives=alts))
+            del x, a, b, c, want
+    next(r for r in records if r["name"] == "ssd"
+         and r["shape"].endswith("bfloat16"))["segments_batch1"] = \
+        segments_batch1
     torch.cuda.empty_cache()
+
+
+def ssd_segments_times(ssd_mod, x, a, b, c):
+    """K7 at a batch of one (64 heads fill a quarter of the card's
+    resident blocks): the call with the segments the kernel chooses,
+    timed beside the same call held to one segment (the heads alone, no
+    states pass), in turns."""
+    B, S, H, P = x.shape
+    tiling = ssd_mod.select_tiling(x.dtype, (B, S, H, *b.shape[2:3], P,
+                                             b.shape[3]))
+    chosen = ssd_mod.segments(x, b, tiling)
+    out = {"segments": chosen}
+    for label in ("chosen", "one", "one_again", "chosen_again"):
+        cap = 1 if label.startswith("one") else 0
+        out[label] = timed(lambda: ssd_mod.ssd_chunk(x, a, b, c,
+                                                     max_segments=cap), 20)
+    print(f"  ssd at a batch of one {tuple(x.shape)}: {chosen} segments "
+          f"{out['chosen']} and {out['chosen_again']} ms, one segment "
+          f"{out['one']} and {out['one_again']} ms ((call, device), in "
+          f"turns)", flush=True)
+    return out
 
 
 def gradient_checks(gen):
@@ -1593,37 +1681,41 @@ def ssm_fleet_phase():
                     *ssd_tol(dname, plain.float().abs().max().item()))
     del inputs, outs
     torch.cuda.empty_cache()
-    return launches
+    return launches, config
 
 
 def tiling_gate(deployed):
-    """The deployed config chooses the tiling (ROADMAP C1): for K3, K4 and
-    K6 in bf16, and K1, K2 and K5: each kernel's deployed config
-    (``deployed``: the pair's for K3 and K4, the fleet's first bucket's
-    for the others) and the first other entry of its ``CONFIGS`` (the
-    space the optimizer deploys from) that names another instance are
-    launched through the registry at the path's shapes in bf16; each must
-    launch the instance its config names, and both outputs must agree with
-    ``ref_fn``."""
+    """The deployed config chooses the tiling (ROADMAP C1), for every
+    kernel: each kernel's deployed config (``deployed``: the pair's for K3
+    and K4, the fleets' first bucket's for the others) and another entry
+    of its ``CONFIGS`` (the space the optimizer deploys from) that names
+    another instance are launched through the registry at the path's
+    shapes, in bf16 for all seven kernels (K7: the deployed chunk against
+    the other of 64 and 128) and in f32 for K2, K3, K4 and K6 (the
+    per-config SIMT instances); each must launch the instance its config
+    names, and both outputs must agree with ``ref_fn`` at the kernel's
+    phase-2 bound."""
     import importlib
 
     import torch
     from repro_torch.kernels import get_kernel
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    bf16 = torch.bfloat16
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S, H, _, _, _ = SSM_SHAPE
 
     def path_shape(name, cfg):   # what the kernel's select_tiling takes
         return {"flash_attention": (BATCH, 20, SEQ, cfg.get("d")),
                 "matmul_leakyrelu": MLR_SHAPE, "bmm": BMM_SHAPE,
                 "fused_ff": MLR_SHAPE,
                 "rmsnorm": (ROWS, cfg.get("cols")),
-                "softmax": (SOFTMAX_ROWS, cfg.get("cols"))}[name]
+                "softmax": (SOFTMAX_ROWS, cfg.get("cols")),
+                "ssd": (B * H, S, 1, 1, cfg.get("p"), cfg.get("n"))}[name]
 
-    def inputs(name, cfg):
+    def inputs(name, cfg, dt):
         def rnd(*shape, scale=1.0, shift=0.0):
             return (torch.randn(*shape, device="cuda", generator=gen)
-                    * scale + shift).to(bf16)
+                    * scale + shift).to(dt)
         shape = path_shape(name, cfg)
         if name == "flash_attention":
             return tuple(rnd(*shape) for _ in range(3))
@@ -1631,50 +1723,71 @@ def tiling_gate(deployed):
             return rnd(*shape, scale=0.5), rnd(shape[1], scale=0.5, shift=1.0)
         if name == "softmax":
             return (rnd(*shape, scale=2.0),)
+        if name == "ssd":
+            return tuple(t[:, :, 0] for t in ssd_inputs(gen, shape, dt))
         if name in ("matmul_leakyrelu", "fused_ff"):
             m, k, n = shape
-            a, b = _gemm_inputs(gen, bf16, (m, k), (k, n))
+            a, b = _gemm_inputs(gen, dt, (m, k), (k, n))
             return (a, b) if name == "matmul_leakyrelu" else (
                 a, b, rnd(k, n, scale=k ** -0.5))
-        B, m, k, n = shape
-        return _gemm_inputs(gen, bf16, (B, m, k), (B, k, n))
+        B_, m, k, n = shape
+        return _gemm_inputs(gen, dt, (B_, m, k), (B_, k, n))
 
-    def tolerance(name, plain, xs, kdef):   # each kernel's phase-2 bound
+    def tolerance(name, plain, xs, kdef, dname):   # the phase-2 bounds
         if name == "flash_attention":
-            return 3e-2, 0.0
+            return (3e-2 if dname == "bfloat16" else 2e-4), 0.0
         if name == "rmsnorm":
             return 1e-5, 2 ** -7
         if name == "softmax":
-            return SOFTMAX_TOL["bfloat16"]
+            return SOFTMAX_TOL[dname]
+        if name == "ssd":
+            return ssd_tol(dname, plain.float().abs().max().item())
+        floor = (1e-4 if dname == "bfloat16" else 1e-5) \
+            if name == "fused_ff" else GEMM_TOL[dname][0]
         f64 = _f64_tolerance(plain, kdef.ref_fn(*(t.double() for t in xs)),
-                             1e-4 if name == "fused_ff"
-                             else GEMM_TOL["bfloat16"][0])
-        return f64, 2 ** -7 if name == "fused_ff" else 0.0
+                             floor)
+        return f64, 2 ** -7 if (name, dname) == ("fused_ff", "bfloat16") \
+            else 0.0
+
+    def second_config(name, configs, first, tiling):
+        if name == "ssd":   # the same widths at the other chunk
+            same = [c for c in configs if c["chunk"] != first["chunk"]
+                    and (c["p"], c["n"]) == (first["p"], first["n"])]
+            if same:
+                return same[0]
+        return next(c for c in configs if tiling(c) != tiling(first))
 
     gate = {}
-    for name in ("matmul_leakyrelu", "bmm", "flash_attention", "rmsnorm",
-                 "fused_ff", "softmax"):
-        kdef = get_kernel(name)
-        mod = importlib.import_module(f"repro_torch.kernels.{name}")
+    for dname, dt, names in (
+            ("bfloat16", bf16, ("matmul_leakyrelu", "bmm", "flash_attention",
+                                "rmsnorm", "fused_ff", "softmax", "ssd")),
+            ("float32", f32, ("matmul_leakyrelu", "bmm", "flash_attention",
+                              "fused_ff"))):
+        for name in names:
+            kdef = get_kernel(name)
+            mod = importlib.import_module(f"repro_torch.kernels.{name}")
 
-        def tiling(cfg):
-            return mod.select_tiling(bf16, path_shape(name, cfg), **cfg)
+            def tiling(cfg):
+                return mod.select_tiling(dt, path_shape(name, cfg), **cfg)
 
-        first = deployed[name]
-        second = next(c for c in kdef.configs if tiling(c) != tiling(first))
-        for cfg in (first, second):
-            xs = inputs(name, cfg)
-            got, ran = launched(mod, lambda: kdef.kernel_fn(*xs, **cfg))
-            expect_tiling(f"{name} at {cfg}", ran, tiling(cfg))
-            plain = kdef.ref_fn(*xs)
-            if got.shape != plain.shape or not torch.isfinite(got).all():
-                fail(f"{name} at {cfg}: misshapen or non-finite output")
-            check_close(f"{name} at {cfg} {tuple(xs[0].shape)} bfloat16",
-                        got, plain, *tolerance(name, plain, xs, kdef))
-            del xs, got, plain
-        gate[name] = {tiling(first): first, tiling(second): second}
-    print("  the deployed config chooses the tiling (bf16): "
-          + json.dumps(gate), flush=True)
+            first = deployed[name]
+            second = second_config(name, kdef.configs, first, tiling)
+            for cfg in (first, second):
+                xs = inputs(name, cfg, dt)
+                got, ran = launched(mod, lambda: kdef.kernel_fn(*xs, **cfg))
+                expect_tiling(f"{name} at {cfg} {dname}", ran, tiling(cfg))
+                plain = kdef.ref_fn(*xs)
+                if got.shape != plain.shape or not torch.isfinite(got).all():
+                    fail(f"{name} at {cfg}: misshapen or non-finite output")
+                check_close(f"{name} at {cfg} {tuple(xs[0].shape)} {dname}",
+                            got, plain,
+                            *tolerance(name, plain, xs, kdef, dname))
+                del xs, got, plain
+            gate[f"{name} {dname}"] = {tiling(first): first,
+                                       tiling(second): second}
+            torch.cuda.empty_cache()
+    print("  the deployed config chooses the tiling: " + json.dumps(gate),
+          flush=True)
     torch.cuda.empty_cache()
 
 
@@ -1733,8 +1846,8 @@ def main() -> int:
     phase("6 optimizer main paths")
     launches["optimize"], pair_configs = optimize_phase()
     launches["fleet"], fleet_configs = fleet_phase()
-    launches["fleet_ssm"] = ssm_fleet_phase()
-    tiling_gate(dict(fleet_configs, **pair_configs))
+    launches["fleet_ssm"], ssd_config = ssm_fleet_phase()
+    tiling_gate(dict(fleet_configs, **pair_configs, ssd=ssd_config))
 
     phase("7 kernels")
     kernels = []

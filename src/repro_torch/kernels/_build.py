@@ -58,15 +58,17 @@ _SIGNATURES = {
     "repro_bmm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # (x, y, rows, cols, tiling, dtype, stream)
     "repro_softmax": [_P, _P, _I, _I, _I, _I, _P],
-    # (x, a, b, c, y, B, S, H, G, P, N, the strides of x, a, b and c
-    #  (batch, sequence, head or group), dtype, stream)
-    "repro_ssd": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_I, _P],
+    # (x, a, b, c, y, work, B, S, H, G, P, N, the strides of x, a, b and
+    #  c (batch, sequence, head or group), segments, tiling, dtype, stream)
+    "repro_ssd": [_P] * 6 + [_I] * 6 + [_L] * 12 + [_I, _I, _I, _P],
+    # (B, S, H, G, P, N, max_segments, tiling, dtype)
+    "repro_ssd_segments": [_I] * 9,
 }
 
 # the kernels' lists of tiling names, by id, comma-separated (no arguments)
 _TILING_LISTS = ("repro_flash_attention_tilings", "repro_gemm_tilings",
                  "repro_rmsnorm_tilings", "repro_fused_ff_tilings",
-                 "repro_softmax_tilings")
+                 "repro_softmax_tilings", "repro_ssd_tilings")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

@@ -43,11 +43,11 @@ def bmm(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bn: int = 128,
         bk: int = 128) -> torch.Tensor:
     """a: (B, M, K), b: (B, K, N) -> a @ b (B, M, N) in a's type, with f32
     accumulation.  M, N and K must be multiples of the reference's block
-    sizes, as the reference asserts.  On the card, bf16 launches the wgmma
-    instance of these block sizes (:func:`select_tiling`: the deployed
-    config chooses the tiling), f32 and rows TMA cannot take the SIMT
-    kernel; ``launches_by_tiling`` counts which ran (see
-    ``csrc/gemm.cu``)."""
+    sizes, as the reference asserts.  On the card the instance of these
+    block sizes runs (:func:`select_tiling`: the deployed config chooses
+    the tiling): bf16 on wgmma, f32 on the SIMT instance of (bm, bn); rows
+    neither takes run ``matmul_leakyrelu.SIMT``; ``launches_by_tiling``
+    counts which ran (see ``csrc/gemm.cu``)."""
     global launches
     if a.ndim != 3 or b.ndim != 3 or b.shape[0] != a.shape[0]:
         raise ValueError(f"bmm: need a (B, M, K) and b (B, K, N), got "

@@ -28,7 +28,8 @@
 //
 // Two kernels, chosen per call by the tiling id the wrapper passes
 // (kernels/flash_attention.py::select_tiling maps the dtype, the shape and
-// the deployed config's bq/bk/d to an id of kTilings below):
+// the deployed config's bq/bk/d to an id of kTilings below), the SIMT one
+// at several tiles:
 //
 // wgmma_bq*_bk*_d* — bf16 on the tensor cores, one instance per (bq, bk,
 // head-dim width) that a deployed config or the training path's default
@@ -69,19 +70,28 @@
 // D-64 instance (zero-filled columns, not stored).  TMA needs 16-byte rows,
 // so this route takes D a multiple of 8 and 16-byte-aligned tensors.
 //
-// simt_64x64 — f32, and bf16 shapes TMA cannot take (D not a multiple of
-// 8).  One block of 256 threads per (b*h, tile of 64 query rows).  The q
-// tile is staged once in shared memory as f32 (already scaled); each
-// 64-key tile of K (transposed) and V is staged as f32 in turn.  Thread
-// (ty, tx) of a 16 x 16 grid owns a 4 x 4 patch of the 64 x 64 logits
-// (rows 4ty..4ty+3, keys tx + 16j), reading q as float4 and K^T along
-// consecutive keys, so neither read conflicts on a bank.  The row max and
-// row sum are reduced over the 16 lanes that share a row with warp
-// shuffles; the probabilities go through shared memory to the P V
-// product, where the same thread owns rows 4ty..4ty+3 and head dims tx +
-// 16c, with (m, l, acc) in registers.  IEEE f32 FMAs, never TF32, and the
-// sums run in a fixed order, so a result is deterministic.  Its ceiling is
-// the f32 FMA rate, 67 TFLOP/s.
+// simt_* — the SIMT kernel, a template on its tile (BQ query rows, BK
+// keys, head dims padded to DP): simt_64x64 for f32 calls that name no
+// config (the model's) and bf16 shapes TMA cannot take (D not a multiple
+// of 8), at the narrowest DP that holds D; simt_bq*_bk*_d* for f32 calls
+// with a deployed config, one instance per config's tile.  A config whose
+// f32 q, K^T, V and P tiles exceed 227 KB of shared memory runs the tile
+// the wrapper's f32_block fits to it, named after it: bk halved, then bq
+// ((128, 256, 64) runs bq128_bk128_d64, (256, 128, 64) bq256_bk64_d64,
+// (128, 128, 128) bq128_bk64_d128).  One block of 256 threads per (b*h,
+// tile of BQ query rows).  The q tile is staged once in shared memory as
+// f32 (already scaled); each BK-key tile of K (transposed) and V is
+// staged as f32 in turn.  Thread (ty, tx) of a 16 x 16 grid owns a (BQ /
+// 16) x (BK / 16) patch of the logits (rows (BQ / 16) ty + i, keys tx +
+// 16j), reading q as float4 and K^T along consecutive keys, so neither
+// read conflicts on a bank.  The row max and row sum are reduced over the
+// 16 lanes that share a row with warp shuffles; the probabilities go
+// through shared memory to the P V product, where the same thread owns
+// its rows and head dims tx + 16c, with (m, l, acc) in registers.  IEEE
+// f32 FMAs, never TF32, and the sums run in a fixed order, so a result is
+// deterministic.  ptxas (sm_90a): 122-128 registers at 64 x 64, 249-255
+// at the deployed tiles, no spills.  Its ceiling is the f32 FMA rate, 67
+// TFLOP/s.
 
 #include <math.h>
 
@@ -92,46 +102,46 @@ namespace repro {
 namespace {
 namespace simt {
 
-
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 64;          // keys per tile
 constexpr int kThreads = 256;    // a 16 x 16 grid of threads
-constexpr int kKP = kBK + 1;     // pitch of K^T rows (conflict-free stores)
-constexpr int kPP = kBK + 4;     // pitch of the probability rows
 constexpr float kNeg = -1e30f;   // the logit of a masked key
 
-// floats of shared memory for head dims padded to DP
-constexpr int smem_floats(int DP) {
-  return kBQ * (DP + 4) + DP * kKP + kBK * DP + kBQ * kPP;
+// floats of shared memory for a BQ x BK tile at head dims padded to DP
+constexpr int smem_floats(int BQ, int BK, int DP) {
+  return BQ * (DP + 4) + DP * (BK + 1) + BK * DP + BQ * (BK + 4);
 }
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads, 2)
+template <typename T, int BQ, int BK, int DP>
+__global__ void __launch_bounds__(kThreads, BQ * BK <= 64 * 64 ? 2 : 1)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o, int H,
                            int KH, int Sq, int Sk, int D, float scale,
                            int causal, int window, int q_offset) {
+  static_assert(BQ % 16 == 0 && BK % 16 == 0 && DP % 16 == 0, "");
   constexpr int QP = DP + 4;     // pitch of q rows: 16-byte aligned, and
                                  // rows 4 apart fall in other banks
+  constexpr int KP = BK + 1;     // pitch of K^T rows (conflict-free stores)
+  constexpr int PP = BK + 4;     // pitch of the probability rows
+  constexpr int RQ = BQ / 16;    // query rows per thread
+  constexpr int RK = BK / 16;    // keys per thread
   constexpr int NC = DP / 16;    // head dims per thread in P V
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);   // [kBQ][QP]
-  float* kt = qs + kBQ * QP;                     // [DP][kKP]
-  float* vs = kt + DP * kKP;                     // [kBK][DP]
-  float* ps = vs + kBK * DP;                     // [kBQ][kPP]
+  float* qs = reinterpret_cast<float*>(smem4);   // [BQ][QP]
+  float* kt = qs + BQ * QP;                      // [DP][KP]
+  float* vs = kt + DP * KP;                      // [BK][DP]
+  float* ps = vs + BK * DP;                      // [BQ][PP]
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int n_qt = (Sq + kBQ - 1) / kBQ;
-  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * kBQ;
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x)) * BQ;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int kvh = b * KH + h / (H / KH);
-  const int rows = min(kBQ, Sq - q0);
+  const int rows = min(BQ, Sq - q0);
   const T* qp = q + (static_cast<size_t>(bh) * Sq + q0) * D;
   const T* kp = k + static_cast<size_t>(kvh) * Sk * D;
   const T* vp = v + static_cast<size_t>(kvh) * Sk * D;
   T* op = o + (static_cast<size_t>(bh) * Sq + q0) * D;
 
-  for (int i = tid; i < kBQ * DP; i += kThreads) {
+  for (int i = tid; i < BQ * DP; i += kThreads) {
     const int r = i / DP, d = i % DP;
     qs[r * QP + d] =
         (r < rows && d < D) ? to_f32(qp[static_cast<size_t>(r) * D + d]) * scale
@@ -145,62 +155,64 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int qlo = q_offset + q0, qhi = q_offset + q0 + rows - 1;
   int k_begin = 0, k_end = Sk;
   if (qhi - window + 1 <= Sk - 1) {
-    k_begin = max(0, qlo - window + 1) / kBK * kBK;
+    k_begin = max(0, qlo - window + 1) / BK * BK;
     if (causal) k_end = min(Sk, qhi + 1);
   }
 
-  float m[4], l[4], acc[4][NC];
+  float m[RQ], l[RQ], acc[RQ][NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RQ; ++i) {
     m[i] = kNeg;
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();   // the previous tile's K, V and P are read
-    for (int i = tid; i < kBK * DP; i += kThreads) {
+    for (int i = tid; i < BK * DP; i += kThreads) {
       const int c = i / DP, d = i % DP;
       const bool in = k0 + c < Sk && d < D;
       const size_t g = static_cast<size_t>(k0 + c) * D + d;
-      kt[d * kKP + c] = in ? to_f32(kp[g]) : 0.f;
+      kt[d * KP + c] = in ? to_f32(kp[g]) : 0.f;
       vs[c * DP + d] = in ? to_f32(vp[g]) : 0.f;
     }
     __syncthreads();
 
-    float s[4][4];
+    // logits of rows RQ ty + i and keys tx + 16 j, 4 head dims at a time
+    float s[RQ][RK];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RQ; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
+      for (int j = 0; j < RK; ++j) s[i][j] = 0.f;
+#pragma unroll 2
     for (int d = 0; d < DP; d += 4) {
-      float4 qv[4];
+      float kv[4][RK];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&qs[(4 * ty + i) * QP + d]);
+      for (int dd = 0; dd < 4; ++dd)
 #pragma unroll
-      for (int dd = 0; dd < 4; ++dd) {
-        float kv[4];
+        for (int j = 0; j < RK; ++j) kv[dd][j] = kt[(d + dd) * KP + tx + 16 * j];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) kv[j] = kt[(d + dd) * kKP + tx + 16 * j];
+      for (int i = 0; i < RQ; ++i) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(&qs[(RQ * ty + i) * QP + d]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float qd = dd == 0 ? qv[i].x : dd == 1 ? qv[i].y
-                         : dd == 2 ? qv[i].z : qv[i].w;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qd, kv[j], s[i][j]);
+        for (int j = 0; j < RK; ++j) {
+          float x = s[i][j];
+          x = fmaf(qv.x, kv[0][j], x);
+          x = fmaf(qv.y, kv[1][j], x);
+          x = fmaf(qv.z, kv[2][j], x);
+          s[i][j] = fmaf(qv.w, kv[3][j], x);
         }
       }
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q_pos = q_offset + q0 + 4 * ty + i;
+    for (int i = 0; i < RQ; ++i) {
+      const int q_pos = q_offset + q0 + RQ * ty + i;
       float mx = m[i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RK; ++j) {
         const int k_pos = k0 + tx + 16 * j;
         float x = s[i][j];
         if (k_pos >= Sk)
@@ -216,9 +228,9 @@ __global__ void __launch_bounds__(kThreads, 2)
       const float alpha = expf(m[i] - mx);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RK; ++j) {
         const float p = expf(s[i][j] - mx);
-        ps[(4 * ty + i) * kPP + tx + 16 * j] = p;
+        ps[(RQ * ty + i) * PP + tx + 16 * j] = p;
         rs += p;
       }
 #pragma unroll
@@ -232,22 +244,22 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
 
 #pragma unroll 4
-    for (int key = 0; key < kBK; ++key) {
-      float pv[4], vv[NC];
+    for (int key = 0; key < BK; ++key) {
+      float pv[RQ], vv[NC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(4 * ty + i) * kPP + key];
+      for (int i = 0; i < RQ; ++i) pv[i] = ps[(RQ * ty + i) * PP + key];
 #pragma unroll
       for (int c = 0; c < NC; ++c) vv[c] = vs[key * DP + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RQ; ++i)
 #pragma unroll
         for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
+  for (int i = 0; i < RQ; ++i) {
+    const int r = RQ * ty + i;
     if (r >= rows) continue;
     const float ell = fmaxf(l[i], 1e-30f);
 #pragma unroll
@@ -258,17 +270,19 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <typename T, int DP>
+template <typename T, int BQ, int BK, int DP>
 cudaError_t launch_dp(const void* q, const void* k, const void* v, void* o,
                       int B, int H, int KH, int Sq, int Sk, int D,
                       float scale, int causal, int window, int q_offset,
                       cudaStream_t stream) {
-  const size_t smem = smem_floats(DP) * sizeof(float);
-  auto kernel = flash_attention_kernel<T, DP>;
+  constexpr int smem = smem_floats(BQ, BK, DP) * static_cast<int>(sizeof(float));
+  static_assert(smem <= 227 * 1024, "the f32 tile must fit a block");
+  if (D > DP) return cudaErrorInvalidValue;
+  auto kernel = flash_attention_kernel<T, BQ, BK, DP>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
+  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), H, KH, Sq, Sk, D, scale,
@@ -276,23 +290,24 @@ cudaError_t launch_dp(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// simt_64x64: 64 x 64 tiles at the narrowest head-dim width that holds D
 template <typename T>
 cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o,
                         int B, int H, int KH, int Sq, int Sk, int D,
                         float scale, int causal, int window, int q_offset,
                         cudaStream_t stream) {
   if (D <= 32)
-    return launch_dp<T, 32>(q, k, v, o, B, H, KH, Sq, Sk, D, scale, causal,
-                            window, q_offset, stream);
+    return launch_dp<T, 64, 64, 32>(q, k, v, o, B, H, KH, Sq, Sk, D, scale,
+                                    causal, window, q_offset, stream);
   if (D <= 64)
-    return launch_dp<T, 64>(q, k, v, o, B, H, KH, Sq, Sk, D, scale, causal,
-                            window, q_offset, stream);
+    return launch_dp<T, 64, 64, 64>(q, k, v, o, B, H, KH, Sq, Sk, D, scale,
+                                    causal, window, q_offset, stream);
   if (D <= 80)
-    return launch_dp<T, 80>(q, k, v, o, B, H, KH, Sq, Sk, D, scale, causal,
-                            window, q_offset, stream);
+    return launch_dp<T, 64, 64, 80>(q, k, v, o, B, H, KH, Sq, Sk, D, scale,
+                                    causal, window, q_offset, stream);
   if (D <= 128)
-    return launch_dp<T, 128>(q, k, v, o, B, H, KH, Sq, Sk, D, scale, causal,
-                             window, q_offset, stream);
+    return launch_dp<T, 64, 64, 128>(q, k, v, o, B, H, KH, Sq, Sk, D, scale,
+                                     causal, window, q_offset, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -609,19 +624,25 @@ using Launcher = cudaError_t (*)(const void*, const void*, const void*, void*,
                                  int, cudaStream_t);
 
 // The tilings a call may name, by id (kernels/flash_attention.py::TILINGS
-// lists the same names in the same order).  Id 0 is the SIMT kernel, in
-// f32 or bf16; every other id a bf16 wgmma instance.
+// lists the same names in the same order), with the launcher of each type
+// that has one: id 0 the SIMT kernel at 64 x 64, in f32 and bf16; the
+// bf16 wgmma instances; the f32 SIMT instances of the deployed configs.
 struct Tiling {
   const char* name;
+  Launcher f32;
   Launcher bf16;
 };
 const Tiling kTilings[] = {
-    {"simt_64x64", &simt::launch_simt<__nv_bfloat16>},
-    {"wgmma_bq128_bk128_d64", &launch_wgmma<128, 128, 64>},
-    {"wgmma_bq128_bk256_d64", &launch_wgmma<128, 256, 64>},
-    {"wgmma_bq256_bk128_d64", &launch_wgmma<256, 128, 64>},
-    {"wgmma_bq128_bk128_d80", &launch_wgmma<128, 128, 80>},
-    {"wgmma_bq128_bk128_d128", &launch_wgmma<128, 128, 128>},
+    {"simt_64x64", &simt::launch_simt<float>,
+     &simt::launch_simt<__nv_bfloat16>},
+    {"wgmma_bq128_bk128_d64", nullptr, &launch_wgmma<128, 128, 64>},
+    {"wgmma_bq128_bk256_d64", nullptr, &launch_wgmma<128, 256, 64>},
+    {"wgmma_bq256_bk128_d64", nullptr, &launch_wgmma<256, 128, 64>},
+    {"wgmma_bq128_bk128_d80", nullptr, &launch_wgmma<128, 128, 80>},
+    {"wgmma_bq128_bk128_d128", nullptr, &launch_wgmma<128, 128, 128>},
+    {"simt_bq128_bk128_d64", &simt::launch_dp<float, 128, 128, 64>, nullptr},
+    {"simt_bq256_bk64_d64", &simt::launch_dp<float, 256, 64, 64>, nullptr},
+    {"simt_bq128_bk64_d128", &simt::launch_dp<float, 128, 64, 128>, nullptr},
 };
 constexpr int kNumTilings = sizeof(kTilings) / sizeof(kTilings[0]);
 
@@ -634,14 +655,11 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
   if (KH <= 0 || H % KH != 0 || Sk <= 0 || D <= 0 || window < 1 ||
       q_offset < 0 || B * H > 65535)
     return cudaErrorInvalidValue;
-  if (dtype == kF32) {
-    if (tiling != 0) return cudaErrorInvalidValue;   // f32 is SIMT only
-    return simt::launch_simt<float>(q, k, v, o, B, H, KH, Sq, Sk, D, scale,
-                                    causal, window, q_offset, stream);
-  }
-  if (dtype != kBF16) return cudaErrorInvalidValue;
-  return kTilings[tiling].bf16(q, k, v, o, B, H, KH, Sq, Sk, D, scale, causal,
-                               window, q_offset, stream);
+  const Launcher fn = dtype == kF32 ? kTilings[tiling].f32
+                    : dtype == kBF16 ? kTilings[tiling].bf16 : nullptr;
+  if (fn == nullptr) return cudaErrorInvalidValue;   // no such instance
+  return fn(q, k, v, o, B, H, KH, Sq, Sk, D, scale, causal, window, q_offset,
+            stream);
 }
 
 }  // namespace

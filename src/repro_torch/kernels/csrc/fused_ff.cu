@@ -18,7 +18,7 @@
 //     184 MB, 0.055 ms: operations.  The tensor cores, fed without
 //     re-reading the weights for every few rows.
 //
-// Three kernels, chosen per call by the tiling id the wrapper passes (its
+// Four routes, chosen per call by the tiling id the wrapper passes (its
 // select_tiling maps the dtype, the shape and the deployed bm/bn/bk to a
 // name of kTilings below):
 //
@@ -71,16 +71,28 @@
 // memory rate (PERF.md); tensor-core fragments fed through shared memory
 // are the next step.
 //
-// simt_8x64 — f32 with M above the threshold (IEEE FMAs, never TF32; its
-// redesign is open), and whatever the other two cannot take (bf16 with K
-// or N not a multiple of 8 above the threshold, a ragged or unaligned
-// weight row at decode).  Block (bx, by) owns 64 output columns for 8 rows
-// of X: each lane owns two adjacent columns, the 8 warps split K, X is
-// staged in shared memory as f32, and the warps' partial sums are added
-// in a fixed order.  Every 8-row block re-reads both weights, so it is
-// slow at large M (33.5 ms at the training shape in bf16, PERF.md).
+// simt_bm*_bn*_bk8 — f32 with M above the threshold (IEEE FMAs, never
+// TF32), one instance per block shape (bm, bn) a deployed config names:
+// the register-blocked SIMT product of simt_gemm.cuh in its dual form
+// (the gate's and the up weight's sums side by side, silu(g) * u on them
+// in registers), with the config's bm x bn tile of the output.  The K
+// slab stays 8 deep whatever bk names (as K3's, gemm.cu), and (256, 128,
+// 64) runs the (128, 128) instance: a 256 x 128 dual tile would hold 256
+// f32 accumulators a thread, past the register file.  This route takes K
+// and N multiples of 4 and 16-byte-aligned tensors.  ptxas (sm_90a): 220
+// and 224 registers, no spills.
+//
+// simt_8x64 — what the others cannot take (bf16 with K or N not a
+// multiple of 8 above the threshold, f32 with K or N not a multiple of 4
+// or unaligned tensors above it, a ragged or unaligned weight row at
+// decode).  Block (bx, by) owns 64 output columns for 8 rows of X: each
+// lane owns two adjacent columns, the 8 warps split K, X is staged in
+// shared memory as f32, and the warps' partial sums are added in a fixed
+// order.  Every 8-row block re-reads both weights, so it is slow at large
+// M (33.5 ms at the training shape in bf16, PERF.md).
 
 #include "common.cuh"
+#include "simt_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace repro {
@@ -365,6 +377,16 @@ cudaError_t launch_simt(const void* x, const void* wg, const void* wu,
   return launch_simt_t<__nv_bfloat16>(x, wg, wu, out, M, K, N, stream);
 }
 
+template <int BM, int BN>
+cudaError_t launch_simt_block(const void* x, const void* wg, const void* wu,
+                              void* out, float*, int M, int K, int N, int,
+                              int dtype, cudaStream_t stream) {
+  if (dtype != kF32 || !simt_gemm::vec_ok<float>(K, N, x, wg, wu, out))
+    return cudaErrorInvalidValue;   // f32 on 4-element loads only
+  return simt_gemm::launch<float, BM, BN, true>(x, wg, wu, out, 1, M, K, N,
+                                                false, 1.f, stream);
+}
+
 template <int R>
 cudaError_t launch_gemv(const void* x, const void* wg, const void* wu,
                         void* out, float* work, int M, int K, int N,
@@ -402,6 +424,8 @@ const Tiling kTilings[] = {
     {"wgmma_bm128_bn128_bk128", &launch_wgmma<128, 128, 128>},
     {"wgmma_bm128_bn128_bk64", &launch_wgmma<128, 128, 64>},
     {"wgmma_bm64_bn256_bk64", &launch_wgmma<64, 256, 64>},
+    {"simt_bm128_bn128_bk8", &launch_simt_block<128, 128>},
+    {"simt_bm64_bn256_bk8", &launch_simt_block<64, 256>},
 };
 constexpr int kNumTilings = sizeof(kTilings) / sizeof(kTilings[0]);
 

@@ -20,9 +20,9 @@
 //      189 MB, 0.056 ms: bytes (the 168 MB output dominates; K = 128 gives
 //      a tile only one or two K stages, so its time rides on the stores).
 //
-// Two kernels, chosen per call by the tiling id the wrapper passes (the
-// wrapper's select_tiling maps the dtype, the shape and the deployed
-// config's bm/bn/bk to an id of kTilings below):
+// Two kernels in three routes, chosen per call by the tiling id the
+// wrapper passes (the wrapper's select_tiling maps the dtype, the shape
+// and the deployed config's bm/bn/bk to an id of kTilings below):
 //
 // wgmma_bm*_bn*_bk* — bf16 on the tensor cores, one instance per block
 // shape a deployed config names: the persistent TMA / wgmma GEMM of
@@ -37,190 +37,51 @@
 // 16-byte-aligned rows, so this route takes K and N multiples of 8 and
 // 16-byte-aligned pointers.
 //
-// simt_128x128x8 — f32 (IEEE FMAs, never TF32: the reference's test holds
-// f32 results to 2e-5 at K = 256, which TF32's 10-bit mantissa cannot
-// meet), and bf16 shapes TMA cannot take (K or N not a multiple of 8).
-// The register-blocked SIMT product: a block of 256 threads owns a 128 x
-// 128 tile of C and walks K in slabs of 8, staged in shared memory as f32,
-// A transposed (k-major), so that both are read along the tile's M or N
-// edge as 16-byte words.  Thread (tx, ty) of the 16 x 16 grid keeps an 8 x
-// 8 sub-tile of C in registers: rows ty*4 + {0..3} and 64 + ty*4 +
-// {0..3}, columns likewise, so neighbouring threads read neighbouring
-// 16-byte words and every value read from shared memory feeds 8 FMAs.
-// Slabs are double-buffered through registers, with one barrier per slab.
-// Its ceiling is the f32 FMA rate, 67 TFLOP/s.
+// simt_bm*_bn*_bk8 — f32 (IEEE FMAs, never TF32: the reference's test
+// holds f32 results to 2e-5 at K = 256, which TF32's 10-bit mantissa
+// cannot meet), one instance per block shape (bm, bn) a deployed config
+// names: the register-blocked SIMT product of simt_gemm.cuh (its note
+// says how it works) with the config's bm x bn tile of C.  The K slab
+// stays 8 deep whatever bk the config names: a slab is double-buffered
+// through registers, so a bk-deep f32 slab would hold bk (bm + bn) / 256
+// staged values a thread beside the (bm / 16) (bn / 16) accumulators
+// (256 at bk 128 and 128 x 128, past the register file), and the name
+// says 8.  This route takes K and N multiples of 4 and 16-byte-aligned
+// pointers.  ptxas (sm_90a): 53 (64 x 64) to 255 (128 x 256) registers,
+// no spills.
+//
+// simt_128x128x8 — what the other routes cannot take: bf16 with K or N
+// not a multiple of 8 or unaligned tensors, and f32 with K or N not a
+// multiple of 4 or unaligned tensors; the same SIMT product at 128 x 128,
+// with 4-element or scalar loads as the operands allow.
 
 #include "common.cuh"
+#include "simt_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace repro {
 namespace {
 
-
-constexpr int kBM = 128;       // rows of C per block
-constexpr int kBN = 128;       // columns of C per block
-constexpr int kBK = 8;         // depth of one K slab
-constexpr int kThreads = 256;  // 16 x 16, an 8 x 8 sub-tile each
-constexpr int kPadA = 4;       // As row padding: stores hit distinct banks
-
-// Four consecutive elements p[i .. i + 3] of a row of length n, as f32
-// (0 past the end of the row, or for a row that does not exist).
-template <typename T, bool kVec>
-__device__ __forceinline__ void load4(const T* __restrict__ p, int i, int n,
-                                      bool row_ok, float v[4]) {
-  if constexpr (kVec) {  // n % 4 == 0 and p 4-element aligned
-    if (row_ok && i < n) {
-      if constexpr (sizeof(T) == 4) {
-        const float4 w = *reinterpret_cast<const float4*>(p + i);
-        v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
-      } else {
-        const uint2 w = *reinterpret_cast<const uint2*>(p + i);
-        const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&w.x);
-        const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&w.y);
-        v[0] = __low2float(lo); v[1] = __high2float(lo);
-        v[2] = __low2float(hi); v[3] = __high2float(hi);
-      }
-      return;
-    }
-    v[0] = v[1] = v[2] = v[3] = 0.f;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      v[j] = (row_ok && i + j < n) ? to_f32(p[i + j]) : 0.f;
-  }
-}
-
-// Four consecutive outputs q[i .. i + 3] of a row of length n.
-template <typename T, bool kVec>
-__device__ __forceinline__ void store4(T* __restrict__ q, int i, int n,
-                                       const float v[4]) {
-  if constexpr (kVec) {
-    if (i >= n) return;
-    if constexpr (sizeof(T) == 4) {
-      *reinterpret_cast<float4*>(q + i) = make_float4(v[0], v[1], v[2], v[3]);
-    } else {
-      __nv_bfloat162 lo, hi;
-      lo.x = from_f32<T>(v[0]); lo.y = from_f32<T>(v[1]);
-      hi.x = from_f32<T>(v[2]); hi.y = from_f32<T>(v[3]);
-      uint2 w;
-      w.x = *reinterpret_cast<const unsigned*>(&lo);
-      w.y = *reinterpret_cast<const unsigned*>(&hi);
-      *reinterpret_cast<uint2*>(q + i) = w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (i + j < n) q[i + j] = from_f32<T>(v[j]);
-  }
-}
-
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    gemm_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                T* __restrict__ c, int M, int K, int N, bool leaky,
-                float slope) {
-  __shared__ __align__(16) float As[2][kBK][kBM + kPadA];
-  __shared__ __align__(16) float Bs[2][kBK][kBN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const size_t batch = blockIdx.z;
-  a += batch * M * static_cast<size_t>(K);
-  b += batch * K * static_cast<size_t>(N);
-  c += batch * M * static_cast<size_t>(N);
-
-  // This thread's share of a slab: A row m0 + ar, k = ak .. ak + 3;
-  // B row k = bk_, columns n0 + bn .. bn + 3.
-  const int ar = tid / 2, ak = (tid % 2) * 4;
-  const int bk_ = tid / 32, bn = (tid % 32) * 4;
-  const bool a_row_ok = m0 + ar < M;
-  const T* a_row = a + static_cast<size_t>(m0 + ar) * K;
-  float va[4], vb[4];
-
-  auto fetch = [&](int k0) {
-    load4<T, kVec>(a_row, k0 + ak, K, a_row_ok, va);
-    load4<T, kVec>(b + static_cast<size_t>(k0 + bk_) * N, n0 + bn, N,
-                   k0 + bk_ < K, vb);
-  };
-  auto stage = [&](int buf) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) As[buf][ak + j][ar] = va[j];
-    *reinterpret_cast<float4*>(&Bs[buf][bk_][bn]) =
-        make_float4(vb[0], vb[1], vb[2], vb[3]);
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  const int slabs = (K + kBK - 1) / kBK;
-  if (slabs > 0) {
-    fetch(0);
-    stage(0);
-  }
-  __syncthreads();
-  for (int s = 0; s < slabs; ++s) {
-    const int cur = s % 2;
-    if (s + 1 < slabs) fetch((s + 1) * kBK);
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][k][64 + tx * 4]);
-      const float ra[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float rb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ra[i], rb[j], acc[i][j]);
-    }
-    if (s + 1 < slabs) stage(1 - cur);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (row >= M) continue;
-    T* c_row = c + static_cast<size_t>(row) * N;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float y = acc[i][half * 4 + j];
-        v[j] = (leaky && !(y >= 0.f)) ? slope * y : y;
-      }
-      store4<T, kVec>(c_row, n0 + half * 64 + tx * 4, N, v);
-    }
-  }
-}
-
-template <typename T>
+// The SIMT product at block shape BM x BN (any operands: 4-element loads
+// where they allow it, else scalar ones).
+template <typename T, int BM, int BN>
 cudaError_t launch_simt(const void* a, const void* b, void* c, int batch,
                         int M, int K, int N, bool leaky, float slope,
                         cudaStream_t stream) {
-  if (batch == 0 || M == 0 || N == 0) return cudaSuccess;
-  constexpr size_t kVecBytes = 4 * sizeof(T);
-  const bool vec = K % 4 == 0 && N % 4 == 0 && aligned(a, kVecBytes) &&
-                   aligned(b, kVecBytes) && aligned(c, kVecBytes);
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, batch);
-  const T* ap = static_cast<const T*>(a);
-  const T* bp = static_cast<const T*>(b);
-  T* cp = static_cast<T*>(c);
-  if (vec)
-    gemm_kernel<T, true><<<grid, kThreads, 0, stream>>>(ap, bp, cp, M, K, N,
-                                                        leaky, slope);
-  else
-    gemm_kernel<T, false><<<grid, kThreads, 0, stream>>>(ap, bp, cp, M, K, N,
-                                                         leaky, slope);
-  return cudaGetLastError();
+  return simt_gemm::launch<T, BM, BN, false>(a, b, nullptr, c, batch, M, K,
+                                             N, leaky, slope, stream);
 }
 
+// The f32 instance of a deployed block shape: the 4-element route only.
+template <int BM, int BN>
+cudaError_t launch_simt_f32(const void* a, const void* b, void* c, int batch,
+                            int M, int K, int N, bool leaky, float slope,
+                            cudaStream_t stream) {
+  if (!simt_gemm::vec_ok<float>(K, N, a, b, nullptr, c))
+    return cudaErrorInvalidValue;
+  return launch_simt<float, BM, BN>(a, b, c, batch, M, K, N, leaky, slope,
+                                    stream);
+}
 
 // ---------------------------------------------------------------------------
 // wgmma: bf16 on the tensor cores (the persistent GEMM of wgmma_gemm.cuh)
@@ -238,23 +99,33 @@ using Launcher = cudaError_t (*)(const void*, const void*, void*, int, int,
                                  int, int, bool, float, cudaStream_t);
 
 // The tilings a call may name, by id (kernels/matmul_leakyrelu.py::TILINGS
-// lists the same names in the same order).  Id 0 is the SIMT kernel, in
-// f32 or bf16; every other id a bf16 wgmma instance.
+// lists the same names in the same order), with the launcher of each type
+// that has one: id 0, the SIMT kernel for what the other routes cannot
+// take, in f32 and bf16; the wgmma instances in bf16; the per-config SIMT
+// instances in f32.
 struct Tiling {
   const char* name;
+  Launcher f32;
   Launcher bf16;
 };
 const Tiling kTilings[] = {
-    {"simt_128x128x8", &launch_simt<__nv_bfloat16>},
-    {"wgmma_bm128_bn128_bk128", &launch_wgmma<128, 128, 128>},
-    {"wgmma_bm128_bn128_bk64", &launch_wgmma<128, 128, 64>},
-    {"wgmma_bm64_bn128_bk128", &launch_wgmma<64, 128, 128>},
-    {"wgmma_bm128_bn256_bk64", &launch_wgmma<128, 256, 64>},
-    {"wgmma_bm256_bn128_bk64", &launch_wgmma<256, 128, 64>},
-    {"wgmma_bm64_bn64_bk128", &launch_wgmma<64, 64, 128>},
-    {"wgmma_bm256_bn64_bk64", &launch_wgmma<256, 64, 64>},
-    {"wgmma_bm64_bn128_bk64", &launch_wgmma<64, 128, 64>},
-    {"wgmma_bm64_bn64_bk64", &launch_wgmma<64, 64, 64>},
+    {"simt_128x128x8", &launch_simt<float, 128, 128>,
+     &launch_simt<__nv_bfloat16, 128, 128>},
+    {"wgmma_bm128_bn128_bk128", nullptr, &launch_wgmma<128, 128, 128>},
+    {"wgmma_bm128_bn128_bk64", nullptr, &launch_wgmma<128, 128, 64>},
+    {"wgmma_bm64_bn128_bk128", nullptr, &launch_wgmma<64, 128, 128>},
+    {"wgmma_bm128_bn256_bk64", nullptr, &launch_wgmma<128, 256, 64>},
+    {"wgmma_bm256_bn128_bk64", nullptr, &launch_wgmma<256, 128, 64>},
+    {"wgmma_bm64_bn64_bk128", nullptr, &launch_wgmma<64, 64, 128>},
+    {"wgmma_bm256_bn64_bk64", nullptr, &launch_wgmma<256, 64, 64>},
+    {"wgmma_bm64_bn128_bk64", nullptr, &launch_wgmma<64, 128, 64>},
+    {"wgmma_bm64_bn64_bk64", nullptr, &launch_wgmma<64, 64, 64>},
+    {"simt_bm128_bn128_bk8", &launch_simt_f32<128, 128>, nullptr},
+    {"simt_bm64_bn128_bk8", &launch_simt_f32<64, 128>, nullptr},
+    {"simt_bm128_bn256_bk8", &launch_simt_f32<128, 256>, nullptr},
+    {"simt_bm256_bn128_bk8", &launch_simt_f32<256, 128>, nullptr},
+    {"simt_bm64_bn64_bk8", &launch_simt_f32<64, 64>, nullptr},
+    {"simt_bm256_bn64_bk8", &launch_simt_f32<256, 64>, nullptr},
 };
 constexpr int kNumTilings = sizeof(kTilings) / sizeof(kTilings[0]);
 
@@ -264,15 +135,14 @@ cudaError_t dispatch(const void* a, const void* b, void* c, int batch, int M,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tiling < 0 || tiling >= kNumTilings) return cudaErrorInvalidValue;
   if (batch == 0 || M == 0 || N == 0) return cudaSuccess;
-  if (dtype == kF32) {
-    if (tiling != 0) return cudaErrorInvalidValue;   // f32 is SIMT only
-    return launch_simt<float>(a, b, c, batch, M, K, N, leaky, slope, s);
-  }
-  if (dtype != kBF16) return cudaErrorInvalidValue;
-  if (tiling != 0 && (K == 0 || K % 8 || N % 8 || !aligned(a, 16) ||
-                      !aligned(b, 16) || !aligned(c, 16)))
+  const Launcher fn = dtype == kF32 ? kTilings[tiling].f32
+                    : dtype == kBF16 ? kTilings[tiling].bf16 : nullptr;
+  if (fn == nullptr) return cudaErrorInvalidValue;   // no such instance
+  if (dtype == kBF16 && tiling != 0 &&
+      (K == 0 || K % 8 || N % 8 || !aligned(a, 16) || !aligned(b, 16) ||
+       !aligned(c, 16)))
     return cudaErrorInvalidValue;   // what TMA cannot take
-  return kTilings[tiling].bf16(a, b, c, batch, M, K, N, leaky, slope, s);
+  return fn(a, b, c, batch, M, K, N, leaky, slope, s);
 }
 
 }  // namespace

@@ -183,7 +183,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // D (64 x N, f32, in registers) += A (64 x 16, bf16) . B (16 x N, bf16):
 // WgmmaSS reads A and B from shared memory through descriptors, WgmmaRS
-// takes A from registers.  kTransB = 1 marks an MN-major B.  scale_d = 0
+// takes A from registers.  kTransB = 1 marks an MN-major B, kTransA = 1
+// (WgmmaSS only) an MN-major A; an MN-major descriptor has the same form
+// for A as for B (see make_desc).  scale_d = 0
 // overwrites D instead of adding to it.  Thread t of the warpgroup holds
 // d[4j + e] = D[16 (t / 32) + (t % 32) / 4 + 8 (e / 2)][8 j + 2 (t % 4)
 // + e % 2]; a[] holds A in the same layout, as bf16 pairs: a[0] = row r,
@@ -195,7 +197,7 @@ struct WgmmaRS;
 
 template <>
 struct WgmmaSS<64> {
-  template <int kTransB>
+  template <int kTransB, int kTransA = 0>
   static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a,
                                              uint64_t b, int scale_d) {
     asm volatile(
@@ -207,20 +209,20 @@ struct WgmmaSS<64> {
         "%8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB), "n"(kTransA));
   }
 };
 
 template <>
 struct WgmmaSS<128> {
-  template <int kTransB>
+  template <int kTransB, int kTransA = 0>
   static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a,
                                              uint64_t b, int scale_d) {
     asm volatile(
@@ -236,7 +238,7 @@ struct WgmmaSS<128> {
         "%40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, "
         "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -248,13 +250,13 @@ struct WgmmaSS<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB), "n"(kTransA));
   }
 };
 
 template <>
 struct WgmmaSS<256> {
-  template <int kTransB>
+  template <int kTransB, int kTransA = 0>
   static __device__ __forceinline__ void mma(float (&d)[128], uint64_t a,
                                              uint64_t b, int scale_d) {
     asm volatile(
@@ -278,7 +280,7 @@ struct WgmmaSS<256> {
         "%104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, "
         "%120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+        "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -301,7 +303,7 @@ struct WgmmaSS<256> {
           "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
           "+f"(d[126]), "+f"(d[127])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB), "n"(kTransA));
   }
 };
 

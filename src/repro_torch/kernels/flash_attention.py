@@ -39,19 +39,41 @@ launches = 0
 launches_by_tiling: collections.Counter = collections.Counter()
 
 # The kernel instances compiled in csrc/flash_attention.cu, by id (its
-# kTilings): the SIMT kernel (f32, and bf16 that TMA cannot take), then the
-# bf16 wgmma instances by (bq, bk, head-dim width): one per CONFIGS entry,
-# and the training path's default at stablelm-3b's D = 80.
+# kTilings): the SIMT kernel at 64 x 64 (f32 calls that name no config, and
+# bf16 that TMA cannot take), the bf16 wgmma instances by (bq, bk,
+# head-dim width): one per CONFIGS entry, and the training path's default
+# at stablelm-3b's D = 80; then the f32 SIMT instances by the tile they
+# run: one per CONFIGS entry, after fitting (``f32_block``).
 SIMT = "simt_64x64"
 WGMMA = ((128, 128, 64), (128, 256, 64), (256, 128, 64), (128, 128, 80),
          (128, 128, 128))
-TILINGS = (SIMT,) + tuple(f"wgmma_bq{bq}_bk{bk}_d{w}" for bq, bk, w in WGMMA)
+SIMT_F32 = ((128, 128, 64), (256, 64, 64), (128, 64, 128))
+TILINGS = ((SIMT,) + tuple(f"wgmma_bq{bq}_bk{bk}_d{w}" for bq, bk, w in WGMMA)
+           + tuple(f"simt_bq{bq}_bk{bk}_d{w}" for bq, bk, w in SIMT_F32))
 # The tiling of a call that names no bq / bk (the model's call through
 # nn.attention.chunked_attention): 128 query rows, 128 keys a tile.
 DEFAULT_BQ = DEFAULT_BK = 128
-# head-dim widths of the wgmma instances: a head dim runs on the narrowest
+# head-dim widths of the instances: a head dim runs on the narrowest
 # width that holds it (the paper's 32 on 64, zero-filled by TMA)
 _WIDTHS = (64, 80, 128)
+# shared memory a block may have (the f32 tile's q, K^T, V and P)
+_SMEM_BYTES = 227 * 1024
+
+
+def f32_block(bq: int, bk: int, width: int):
+    """The f32 SIMT tile that a deployed (bq, bk) runs at head-dim width
+    ``width``: the config's own where its q, K^T, V and P tiles in f32 fit
+    a block's shared memory, else bk halved, then bq, until they do:
+    (128, 256, 64) runs (128, 128), (256, 128, 64) runs (256, 64) and
+    (128, 128, 128) runs (128, 64)."""
+    def smem(q, k):
+        return 4 * (q * (width + 4) + width * (k + 1) + k * width
+                    + q * (k + 4))
+    while smem(bq, bk) > _SMEM_BYTES and bk > 16:
+        bk //= 2
+    while smem(bq, bk) > _SMEM_BYTES and bq > 16:
+        bq //= 2
+    return bq, bk
 
 MAX_HEAD_DIM = 128
 # (query heads x Sq x Sk) f32 entries per recompute in the backward: each
@@ -80,11 +102,13 @@ def select_tiling(dtype: torch.dtype, q_shape: Sequence[int], *,
                   d: Optional[int] = None, aligned: bool = True) -> str:
     """The kernel instance (a name of ``TILINGS``) that a call with q of
     ``q_shape`` (B, H, Sq, D) in ``dtype`` and the deployed keywords
-    launches.  f32, a head dim that is not a multiple of 8, or tensors not
-    16-byte aligned (``aligned``) run the SIMT kernel; bf16 runs the wgmma
-    instance of (``bq``, ``bk``, the narrowest width >= D), with
-    ``DEFAULT_BQ`` / ``DEFAULT_BK`` for keywords that are None.  A bf16
-    config with no compiled instance raises, listing the instances."""
+    launches.  bf16 runs the wgmma instance of (``bq``, ``bk``, the
+    narrowest width >= D), with ``DEFAULT_BQ`` / ``DEFAULT_BK`` for
+    keywords that are None; a head dim that is not a multiple of 8, or
+    tensors not 16-byte aligned (``aligned``), run ``SIMT``.  f32 runs
+    ``SIMT`` for a call that names neither bq nor bk (the model's), else
+    the SIMT instance of the tile :func:`f32_block` fits to the config.
+    A config with no compiled instance raises, listing the instances."""
     D = q_shape[-1]
     if d is not None and d != D:
         raise ValueError(f"flash_attention: the config's d={d} is not the "
@@ -92,14 +116,21 @@ def select_tiling(dtype: torch.dtype, q_shape: Sequence[int], *,
     if D > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: the kernel takes D <= "
                          f"{MAX_HEAD_DIM}, got D={D}")
-    if dtype != torch.bfloat16 or D % 8 or not aligned:
-        return SIMT
     width = next(w for w in _WIDTHS if D <= w)
-    name = (f"wgmma_bq{DEFAULT_BQ if bq is None else bq}"
-            f"_bk{DEFAULT_BK if bk is None else bk}_d{width}")
+    bq_, bk_ = (DEFAULT_BQ if bq is None else bq,
+                DEFAULT_BK if bk is None else bk)
+    if dtype == torch.bfloat16:
+        if D % 8 or not aligned:
+            return SIMT
+        name = f"wgmma_bq{bq_}_bk{bk_}_d{width}"
+    elif bq is None and bk is None:
+        return SIMT
+    else:
+        fq, fk = f32_block(bq_, bk_, width)
+        name = f"simt_bq{fq}_bk{fk}_d{width}"
     if name not in TILINGS:
         raise ValueError(f"flash_attention: no kernel instance {name} for "
-                         f"bq={bq}, bk={bk}, D={D} in bf16; compiled: "
+                         f"bq={bq}, bk={bk}, D={D} in {dtype}; compiled: "
                          f"{', '.join(TILINGS)}")
     return name
 
@@ -116,9 +147,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``bq``/``bk`` are the reference's query and key block sizes: Sq and
     Sk must be multiples of those given, as the reference asserts.  ``d``
     is the head dim a deployed config names; it must equal D.  On the
-    card, bf16 launches the wgmma instance that :func:`select_tiling`
-    names for them (so the deployed config chooses the tiling), f32 the
-    SIMT kernel; ``launches_by_tiling`` counts which ran (see
+    card the instance that :func:`select_tiling` names for them runs (so
+    the deployed config chooses the tiling): bf16 on wgmma, f32 on the
+    SIMT instance of the config's fitted tile, or ``SIMT`` for a call that
+    names none; ``launches_by_tiling`` counts which ran (see
     ``csrc/flash_attention.cu``)."""
     global launches
     _check_shapes(q, k, v, window, q_offset)

@@ -38,21 +38,25 @@ launches = 0
 launches_by_tiling: collections.Counter = collections.Counter()
 
 # The kernel instances compiled in csrc/fused_ff.cu, by id (its kTilings):
-# the SIMT kernel (f32 above the decode threshold, and what the others
-# cannot take), the split-K decode kernels by the rows they hold, and the
-# bf16 wgmma instances by (bm, bn, bk): one per block shape of CONFIGS that
-# the register file holds.
+# the SIMT kernel (what the others cannot take), the split-K decode
+# kernels by the rows they hold, the bf16 wgmma instances by (bm, bn, bk):
+# one per block shape of CONFIGS that the register file holds, and the f32
+# SIMT instances by (bm, bn), likewise, with their K slab of 8.
 SIMT = "simt_8x64"
 GEMV_ROWS = (1, 2, 4, 8)
 DECODE_ROWS = GEMV_ROWS[-1]       # M at or below this takes a gemv instance
 WGMMA = ((128, 128, 128), (128, 128, 64), (64, 256, 64))
+SIMT_F32 = ((128, 128), (64, 256))
+SIMT_SLAB = 8
 TILINGS = ((SIMT,) + tuple(f"gemv_m{r}" for r in GEMV_ROWS)
-           + tuple(f"wgmma_bm{bm}_bn{bn}_bk{bk}" for bm, bn, bk in WGMMA))
+           + tuple(f"wgmma_bm{bm}_bn{bn}_bk{bk}" for bm, bn, bk in WGMMA)
+           + tuple(f"simt_bm{bm}_bn{bn}_bk{SIMT_SLAB}" for bm, bn in SIMT_F32))
 # (bm, bn, bk) for calls that name none (the model's)
 DEFAULT_BLOCK = (128, 128, 64)
 # block shapes that run another's instance: (256, 128, 64) would hold two
-# 256 x 128 f32 accumulators, the whole register file, so it runs as two
-# 128-row tiles one after another (csrc/fused_ff.cu)
+# 256 x 128 f32 accumulators, the whole register file (in f32 on the CUDA
+# cores, 256 a thread), so it runs as two 128-row tiles one after another
+# (csrc/fused_ff.cu)
 SHARED_BLOCKS = {(256, 128, 64): (128, 128, 64)}
 
 
@@ -66,27 +70,32 @@ def select_tiling(dtype: torch.dtype, shape: Sequence[int], *,
 
     M <= ``DECODE_ROWS``: the gemv instance of the fewest rows that hold M,
     in either dtype, if N is a multiple of the 16-byte vector and the
-    tensors are 16-byte aligned (``aligned``); else ``SIMT``.  Above it:
-    ``SIMT`` for f32 and for bf16 rows TMA cannot take (K or N not a
-    multiple of 8, or unaligned); else the wgmma instance of (bm, bn, bk),
-    each None taken from ``DEFAULT_BLOCK``, with (256, 128, 64) on the
-    (128, 128, 64) instance (``SHARED_BLOCKS``).  A bf16 block shape with
-    no compiled instance raises, listing the instances."""
+    tensors are 16-byte aligned (``aligned``); else ``SIMT``.  Above it,
+    the block (bm, bn, bk), each None taken from ``DEFAULT_BLOCK``, with
+    (256, 128, 64) on the (128, 128, 64) instance (``SHARED_BLOCKS``):
+    bf16 runs its wgmma instance, f32 the SIMT instance of (bm, bn) with a
+    K slab of 8 (bk does not change it); bf16 rows TMA cannot take (K or N
+    not a multiple of 8) and f32 rows the 4-element loads cannot take (K
+    or N not a multiple of 4), or unaligned tensors, run ``SIMT``.  A
+    block shape with no compiled instance raises, listing the
+    instances."""
     m, k, n = shape
     if m <= DECODE_ROWS:
         if aligned and n % (16 // dtype.itemsize) == 0:
             return f"gemv_m{next(r for r in GEMV_ROWS if m <= r)}"
         return SIMT
-    if dtype != torch.bfloat16 or k == 0 or k % 8 or n % 8 or not aligned:
+    vec = 8 if dtype == torch.bfloat16 else 4
+    if k == 0 or k % vec or n % vec or not aligned:
         return SIMT
     block = tuple(d if b is None else b
                   for b, d in zip((bm, bn, bk), DEFAULT_BLOCK))
     bm, bn, bk = SHARED_BLOCKS.get(block, block)
-    name = f"wgmma_bm{bm}_bn{bn}_bk{bk}"
+    name = (f"wgmma_bm{bm}_bn{bn}_bk{bk}" if dtype == torch.bfloat16
+            else f"simt_bm{bm}_bn{bn}_bk{SIMT_SLAB}")
     if name not in TILINGS:
         raise ValueError(f"fused_ff: no kernel instance {name} for "
                          f"bm={block[0]}, bn={block[1]}, bk={block[2]} in "
-                         f"bf16; compiled: {', '.join(TILINGS)}")
+                         f"{dtype}; compiled: {', '.join(TILINGS)}")
     return name
 
 

@@ -32,32 +32,47 @@ launches = 0
 launches_by_tiling: collections.Counter = collections.Counter()
 
 # The kernel instances compiled in csrc/gemm.cu (K3 and K4 share it), by id
-# (its kTilings): the SIMT kernel (f32, and bf16 that TMA cannot take),
-# then the bf16 wgmma instances by (bm, bn, bk): one per CONFIGS entry of
-# this module and of ``bmm``, and the two block shapes
-# ``tests/test_kernels.py``'s cases name, (64, 128, 64) and (64, 64, 64).
+# (its kTilings): the SIMT kernel for what the other routes cannot take
+# (f32 or bf16 rows that the 4-element loads or TMA cannot take), the bf16
+# wgmma instances by (bm, bn, bk): one per CONFIGS entry of this module and
+# of ``bmm``, and the two block shapes ``tests/test_kernels.py``'s cases
+# name, (64, 128, 64) and (64, 64, 64); then the f32 SIMT instances by
+# (bm, bn): one per block shape of those configs, each with the K slab of
+# 8 whatever bk names (csrc/gemm.cu).
 SIMT = "simt_128x128x8"
 WGMMA = ((128, 128, 128), (128, 128, 64), (64, 128, 128), (128, 256, 64),
          (256, 128, 64), (64, 64, 128), (256, 64, 64), (64, 128, 64),
          (64, 64, 64))
-TILINGS = (SIMT,) + tuple(f"wgmma_bm{bm}_bn{bn}_bk{bk}"
-                          for bm, bn, bk in WGMMA)
+SIMT_F32 = ((128, 128), (64, 128), (128, 256), (256, 128), (64, 64),
+            (256, 64))
+SIMT_SLAB = 8
+TILINGS = ((SIMT,) + tuple(f"wgmma_bm{bm}_bn{bn}_bk{bk}"
+                           for bm, bn, bk in WGMMA)
+           + tuple(f"simt_bm{bm}_bn{bn}_bk{SIMT_SLAB}" for bm, bn in SIMT_F32))
 
 
 def gemm_tiling(dtype: torch.dtype, k: int, n: int, bm: int, bn: int,
                 bk: int, aligned: bool = True) -> str:
     """The ``csrc/gemm.cu`` instance (a name of ``TILINGS``) of a product
     with inner size ``k`` and ``n`` columns at the block sizes ``bm``,
-    ``bn``, ``bk``: the SIMT kernel for f32, and for bf16 rows TMA cannot
-    take (K or N not a multiple of 8, or tensors not 16-byte aligned:
-    ``aligned``); else the wgmma instance of (bm, bn, bk).  A bf16 block
-    shape with no compiled instance raises, listing the instances."""
-    if dtype != torch.bfloat16 or k == 0 or k % 8 or n % 8 or not aligned:
-        return SIMT
-    name = f"wgmma_bm{bm}_bn{bn}_bk{bk}"
+    ``bn``, ``bk``.  bf16: the wgmma instance of (bm, bn, bk), or ``SIMT``
+    for rows TMA cannot take (K or N not a multiple of 8, or tensors not
+    16-byte aligned: ``aligned``).  f32: the SIMT instance of (bm, bn) with
+    its K slab of 8 (bk does not change it), or ``SIMT`` for rows the
+    4-element loads cannot take (K or N not a multiple of 4, or
+    unaligned).  A block shape with no compiled instance raises, listing
+    the instances."""
+    if dtype == torch.bfloat16:
+        if k == 0 or k % 8 or n % 8 or not aligned:
+            return SIMT
+        name = f"wgmma_bm{bm}_bn{bn}_bk{bk}"
+    else:
+        if k == 0 or k % 4 or n % 4 or not aligned:
+            return SIMT
+        name = f"simt_bm{bm}_bn{bn}_bk{SIMT_SLAB}"
     if name not in TILINGS:
         raise ValueError(f"gemm: no kernel instance {name} for bm={bm}, "
-                         f"bn={bn}, bk={bk} in bf16; compiled: "
+                         f"bn={bn}, bk={bk} in {dtype}; compiled: "
                          f"{', '.join(TILINGS)}")
     return name
 
@@ -93,11 +108,11 @@ def matmul_leakyrelu(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     """a: (M, K), b: (K, N) -> LeakyReLU(a @ b) (M, N) in a's type.
 
     ``bm``/``bn``/``bk`` are the reference's block sizes: M, N and K must
-    be multiples of them, as the reference asserts.  On the card, bf16
-    launches the wgmma instance of these block sizes
-    (:func:`select_tiling`: the deployed config chooses the tiling), f32
-    and rows TMA cannot take the SIMT kernel; ``launches_by_tiling``
-    counts which ran (see ``csrc/gemm.cu``)."""
+    be multiples of them, as the reference asserts.  On the card the
+    instance of these block sizes runs (:func:`select_tiling`: the
+    deployed config chooses the tiling): bf16 on wgmma, f32 on the SIMT
+    instance of (bm, bn); rows neither takes run ``SIMT``;
+    ``launches_by_tiling`` counts which ran (see ``csrc/gemm.cu``)."""
     global launches
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError(f"matmul_leakyrelu: need a (M, K) and b (K, N), "

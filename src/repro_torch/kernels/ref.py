@@ -139,6 +139,34 @@ def ssd_chunk(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     (X e^{seg_end - seg})^T B`` in a loop over the chunks.  The exponent
     of L is masked before ``exp`` (never after), so a steep decay gives
     no inf and its gradient no NaN."""
+    xf, xc, bc, cc, seg, expo = _ssd_chunks(x, a, b, c, chunk)
+    scores = torch.matmul(cc, bc.transpose(-1, -2))        # (B,G,1,nc,L,L)
+    y = torch.matmul(scores * torch.exp(expo), xc)         # (B,G,R,nc,L,P)
+    # e^{seg_end - seg_s}: the last row of expo
+    local = torch.matmul((xc * torch.exp(expo[..., -1, :])[..., None])
+                         .transpose(-1, -2), bc)           # (B,G,R,nc,P,N)
+    decay = torch.exp(seg[..., -1])                        # (B,G,R,nc)
+    B, G, R, nc, L, P = xc.shape
+    state = xf.new_zeros(B, G, R, P, bc.shape[-1])
+    before = []
+    # one unbind per tensor: its backward stacks the chunks' gradients
+    # once, where indexing chunk by chunk would add a zero-filled
+    # full-size gradient per chunk
+    for d, loc in zip(decay.unbind(-1), local.unbind(3)):
+        before.append(state)
+        state = d[..., None, None] * state + loc
+    state_in = torch.stack(before, dim=3)                  # (B,G,R,nc,P,N)
+    y = y + torch.exp(seg)[..., None] * torch.matmul(
+        cc, state_in.transpose(-1, -2))
+    return _ssd_unchunk(y, x)
+
+
+def _ssd_chunks(x, a, b, c, chunk):
+    """:func:`ssd_chunk`'s operands in f32 cut into chunks (the tail
+    padded with a = 0 and x = b = c = 0): xf, and x, b, c as (B, G, R,
+    nc, L, .) (b and c shared by a group: R = 1), the chunks' running sums
+    seg of a (B, G, R, nc, L), and expo[t, s] = a_{s+1} + ... + a_t for
+    t >= s, -inf above the diagonal."""
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     R, L = H // G, chunk
@@ -162,25 +190,61 @@ def ssd_chunk(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     after = keep.tril(-1)                                  # k > s
     expo = torch.cumsum(ac[..., :, None].expand(*ac.shape, L).masked_fill(
         ~after, 0), -2).masked_fill(~keep, float("-inf"))
-    scores = torch.matmul(cc, bc.transpose(-1, -2))        # (B,G,1,nc,L,L)
-    y = torch.matmul(scores * torch.exp(expo), xc)         # (B,G,R,nc,L,P)
-    # e^{seg_end - seg_s}: the last row of expo
-    local = torch.matmul((xc * torch.exp(expo[..., -1, :])[..., None])
-                         .transpose(-1, -2), bc)           # (B,G,R,nc,P,N)
+    return xf, xc, bc, cc, seg, expo
+
+
+def _ssd_unchunk(y, x):
+    """(B, G, R, nc, L, P) chunked outputs -> (B, S, H, P) in x's type."""
+    B, S, H, P = x.shape
+    nc, L = y.shape[3], y.shape[4]
+    return y.permute(0, 3, 4, 1, 2, 5).reshape(B, nc * L, H, P)[:, :S] \
+        .to(x.dtype)
+
+
+def _bf16_pair(v: torch.Tensor) -> torch.Tensor:
+    """v as the sum of a bf16 pair, hi = bf16(v) and lo = bf16(v - hi), in
+    f32 (the sum is exact there)."""
+    hi = v.to(torch.bfloat16).float()
+    return hi + (v - hi).to(torch.bfloat16).float()
+
+
+def ssd_chunk_parallel(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, chunk: int = 64,
+                       segments: int = 1) -> torch.Tensor:
+    """:func:`ssd_chunk` computed as ``csrc/ssd.cu`` computes it, for the
+    tests: the chunks cut into ``segments`` segments; (A) each segment's
+    end state from 0 and its decay, (B) the pass across segments giving
+    each segment's incoming state, (C) each segment's outputs from its
+    incoming state, chunk by chunk.  With bf16 operands it rounds where
+    the wgmma route rounds: M = (C B^T) * L, the incoming state of every
+    chunk and (X e^{seg_end - seg}) each enter their products as a bf16
+    pair (:func:`_bf16_pair`); f32 operands are taken in f32, as the SIMT
+    route takes them."""
+    pair = _bf16_pair if x.dtype == torch.bfloat16 else (lambda v: v)
+    xf, xc, bc, cc, seg, expo = _ssd_chunks(x, a, b, c, chunk)
+    B, G, R, nc, L, P = xc.shape
+    m = pair(torch.matmul(cc, bc.transpose(-1, -2)) * torch.exp(expo))
+    y = torch.matmul(m, xc)
+    wx = pair(xc * torch.exp(expo[..., -1, :])[..., None])
+    local = torch.matmul(wx.transpose(-1, -2), bc)         # (B,G,R,nc,P,N)
     decay = torch.exp(seg[..., -1])                        # (B,G,R,nc)
-    state = xf.new_zeros(B, G, R, P, N)
-    before = []
-    # one unbind per tensor: its backward stacks the chunks' gradients
-    # once, where indexing chunk by chunk would add a zero-filled
-    # full-size gradient per chunk
-    for d, loc in zip(decay.unbind(-1), local.unbind(3)):
-        before.append(state)
-        state = d[..., None, None] * state + loc
-    state_in = torch.stack(before, dim=3)                  # (B,G,R,nc,P,N)
+    per = -(-nc // segments)
+    zero = xf.new_zeros(B, G, R, P, bc.shape[-1])
+    run, before = zero, []
+    for k0 in range(0, nc, per):
+        chunks = range(k0, min(nc, k0 + per))
+        state, end, total = run, zero, 1.0
+        for j in chunks:                                   # (C)
+            before.append(state)
+            state = decay[..., j, None, None] * state + local[:, :, :, j]
+        for j in chunks:                                   # (A)
+            end = decay[..., j, None, None] * end + local[:, :, :, j]
+            total = total * decay[..., j, None, None]
+        run = total * run + end                            # (B)
+    state_in = pair(torch.stack(before, dim=3))            # (B,G,R,nc,P,N)
     y = y + torch.exp(seg)[..., None] * torch.matmul(
         cc, state_in.transpose(-1, -2))
-    y = y.permute(0, 3, 4, 1, 2, 5).reshape(B, nc * L, H, P)[:, :S]
-    return y.to(x.dtype)
+    return _ssd_unchunk(y, x)
 
 
 def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,

@@ -166,6 +166,71 @@ def test_ssd_wrappers_keep_the_reference_contract():
     assert ssd_mod.launches == 0
 
 
+def _bf16_ssd_tol(want):
+    """``chip_smoke.py::ssd_tol``'s bf16 bound: 2^-12 of the largest
+    output, plus one bf16 rounding of the output (2^-7 relative)."""
+    return 2 ** -12 * want.float().abs().max().item(), 2 ** -7
+
+
+@pytest.mark.parametrize("chunk,segments,decay", [
+    (64, 1, 0.5), (64, 3, 0.5), (128, 2, 0.5), (64, 3, None),
+    (128, 2, None)])
+def test_chunk_parallel_bf16_holds_the_kernels_bound(chunk, segments, decay):
+    """``csrc/ssd.cu``'s decomposition with the wgmma route's rounding
+    points (bf16 operands; M, the incoming states and the weighted X as
+    bf16 pairs), rendered by ``ref.ssd_chunk_parallel``, against the
+    plain version at the card's bf16 bound, at mamba2-1.3b's widths (P
+    64, N 128, one group) cut to 2 heads and 512 positions, under
+    mamba2's decay and a strong one."""
+    rng = np.random.default_rng(chunk + segments)
+    x, a, b, c = _ssd_inputs(rng, 1, 512, 2, 1, 64, 128, decay)
+    x, b, c = (torch.from_numpy(t).to(torch.bfloat16) for t in (x, b, c))
+    a = torch.from_numpy(a)
+    got = ref.ssd_chunk_parallel(x, a, b, c, chunk, segments)
+    want = ref.ssd_chunk(x, a, b, c, chunk)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    atol, rtol = _bf16_ssd_tol(want)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_chunk_parallel_bf16_needs_the_pairs(monkeypatch):
+    """Why the wgmma route splits its f32 intermediates: rounding M, the
+    states and the weighted X to one bf16 each misses the bound that the
+    pairs hold (same inputs as the case above, chunk 64, 3 segments)."""
+    rng = np.random.default_rng(67)
+    x, a, b, c = _ssd_inputs(rng, 1, 512, 2, 1, 64, 128, 0.5)
+    x, b, c = (torch.from_numpy(t).to(torch.bfloat16) for t in (x, b, c))
+    a = torch.from_numpy(a)
+    want = ref.ssd_chunk(x, a, b, c, 64)
+    atol, rtol = _bf16_ssd_tol(want)
+    assert torch.allclose(ref.ssd_chunk_parallel(x, a, b, c, 64, 3).float(),
+                          want.float(), atol=atol, rtol=rtol)
+    monkeypatch.setattr(ref, "_bf16_pair",
+                        lambda v: v.to(torch.bfloat16).float())
+    single = ref.ssd_chunk_parallel(x, a, b, c, 64, 3)
+    assert not torch.allclose(single.float(), want.float(), atol=atol,
+                              rtol=rtol)
+
+
+@pytest.mark.parametrize("S,chunk,segments,decay", [
+    (512, 64, 3, 0.5), (512, 128, 2, 0.5), (300, 64, 4, None)])
+def test_chunk_parallel_f32_matches_oracle(S, chunk, segments, decay):
+    """The decomposition in f32 (the SIMT route's arithmetic) against the
+    JAX package's scan oracle at the reference test's atol = rtol = 1e-3,
+    and against the plain version at the card's f32 bound (1e-5 of the
+    largest output), at mamba2's widths cut to 2 heads."""
+    rng = np.random.default_rng(S + chunk)
+    arrays = _ssd_inputs(rng, 1, S, 2, 1, 64, 128, decay)
+    got = ref.ssd_chunk_parallel(*_torch(*arrays), chunk, segments)
+    want = np.asarray(jref.ssd_chunk(*_jax(*arrays)))
+    assert got.shape == (1, S, 2, 64) and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-3, rtol=1e-3)
+    plain = ref.ssd_chunk(*_torch(*arrays), chunk)
+    torch.testing.assert_close(got, plain, rtol=0,
+                               atol=1e-5 * plain.abs().max().item())
+
+
 # ---------------------------------------------------------------------------
 # nn/ssm.py
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
-"""The deployed config chooses the CUDA tiling (ROADMAP C1; K3, K4 and K6
-in bf16, K1, K2 and K5 in both types): each wrapper's pure
-``select_tiling`` maps (dtype, shape, deployed keywords) to a kernel
-instance compiled in its ``.cu``.  The ``.cu`` files cannot be compiled
-here, so their tables of instances are read as text."""
+"""The deployed config chooses the CUDA tiling (ROADMAP C1; every kernel
+in both types): each wrapper's pure ``select_tiling`` maps (dtype, shape,
+deployed keywords) to a kernel instance compiled in its ``.cu``.  The
+``.cu`` files cannot be compiled here, so their tables of instances are
+read as text."""
 
 import re
 from pathlib import Path
@@ -16,6 +16,7 @@ from repro_torch.kernels import fused_ff as ff_mod
 from repro_torch.kernels import matmul_leakyrelu as mlr_mod
 from repro_torch.kernels import rmsnorm as rms_mod
 from repro_torch.kernels import softmax as sm_mod
+from repro_torch.kernels import ssd as ssd_mod
 
 CSRC = Path(fa_mod.__file__).resolve().parent / "csrc"
 BF16, F32 = torch.bfloat16, torch.float32
@@ -64,13 +65,74 @@ def test_distinct_configs_select_distinct_instances(name):
     assert len(set(tilings)) == len(tilings)
 
 
+def _f32_instance(name, cfg):
+    """The f32 SIMT instance a config names: K3/K4 the config's (bm, bn)
+    with the K slab of 8, K6 the tile ``f32_block`` fits to it."""
+    if name == "flash_attention":
+        bq, bk = fa_mod.f32_block(cfg["bq"], cfg["bk"], cfg["d"])
+        return f"simt_bq{bq}_bk{bk}_d{cfg['d']}"
+    return f"simt_bm{cfg['bm']}_bn{cfg['bn']}_bk8"
+
+
 @pytest.mark.parametrize("name,cfg", _CASES,
                          ids=[f"{n}-{'-'.join(map(str, c.values()))}"
                               for n, c in _CASES])
 def test_f32_and_unaligned_take_the_simt_instance(name, cfg):
+    """f32 takes the SIMT instance that the config names (C1 for the f32
+    routes: one per block shape, compiled), bf16 with unaligned tensors
+    the explicit SIMT instance of what TMA cannot take."""
     simt = fa_mod.SIMT if name == "flash_attention" else mlr_mod.SIMT
-    assert _select(name, F32, cfg) == simt
+    compiled = fa_mod.TILINGS if name == "flash_attention" \
+        else mlr_mod.TILINGS
+    assert _select(name, F32, cfg) == _f32_instance(name, cfg) in compiled
     assert _select(name, BF16, cfg, aligned=False) == simt
+
+
+@pytest.mark.parametrize("name", sorted(_MODS))
+def test_two_f32_configs_select_distinct_simt_instances(name):
+    """The C1 gate's f32 pairs: each kernel's CONFIGS hold entries that run
+    different SIMT tiles in f32."""
+    tilings = {_select(name, F32, cfg) for cfg in _MODS[name].CONFIGS}
+    assert len(tilings) >= 2 and all(t.startswith("simt_") for t in tilings)
+
+
+@pytest.mark.parametrize("cfg,want", [
+    ({"bq": 128, "bk": 128, "d": 64}, (128, 128)),
+    ({"bq": 128, "bk": 256, "d": 64}, (128, 128)),
+    ({"bq": 256, "bk": 128, "d": 64}, (256, 64)),
+    ({"bq": 128, "bk": 128, "d": 128}, (128, 64)),
+])
+def test_flash_attention_f32_tile_fits_a_block(cfg, want):
+    """Configs whose f32 q, K^T, V and P tiles exceed 227 KB run a smaller
+    tile named after it: bk halved first, then bq."""
+    assert fa_mod.f32_block(cfg["bq"], cfg["bk"], cfg["d"]) == want
+    bq, bk = want
+    d = cfg["d"]
+    assert 4 * (bq * (d + 4) + d * (bk + 1) + bk * d + bq * (bk + 4)) \
+        <= 227 * 1024
+
+
+def test_flash_attention_f32_model_calls_and_unknown_tiles():
+    """The model's f32 calls name no bq / bk: the 64 x 64 SIMT kernel at
+    any head dim; an f32 config with no compiled tile raises."""
+    assert fa_mod.select_tiling(F32, (4, 32, 2048, 80)) == fa_mod.SIMT
+    assert fa_mod.select_tiling(F32, (4, 32, 2048, 20)) == fa_mod.SIMT
+    with pytest.raises(ValueError, match="compiled: simt"):
+        fa_mod.select_tiling(F32, (1, 4, 512, 80), bq=128, bk=128)
+    with pytest.raises(ValueError, match="compiled: simt"):
+        mlr_mod.select_tiling(F32, (512, 512, 512), bm=32, bn=128, bk=128)
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("matmul_leakyrelu", (131, 77, 45)),         # K, N % 4 != 0
+    ("matmul_leakyrelu", (128, 128, 46)),        # N % 4 != 0
+    ("bmm", (2, 33, 18, 65)),
+])
+def test_f32_rows_the_vector_loads_cannot_take_go_to_simt(name, shape):
+    """f32 rows the 4-element loads cannot take keep the explicit SIMT
+    instance they have, whatever the config."""
+    assert _MODS[name].select_tiling(F32, shape, bm=1, bn=1, bk=1) \
+        == mlr_mod.SIMT
 
 
 @pytest.mark.parametrize("name,shape", [
@@ -120,12 +182,19 @@ def test_flash_attention_config_head_dim_must_match():
 
 
 def _table(source):
-    """The names of a .cu's kTilings table, in id order, and the template
-    arguments each wgmma entry instantiates."""
+    """The entries of a .cu's kTilings table, in id order: (name, [the
+    launchers]), each launcher (function, its template arguments) or None
+    (``nullptr``: the instance has no launcher of that type)."""
     text = (CSRC / source).read_text()
     body = text[text.index("const Tiling kTilings[] = {"):]
     body = body[:body.index("};")]
-    return re.findall(r'\{"(\w+)",\s*&([\w:]+)(?:<([^>]*)>)?\}', body)
+    out = []
+    for name, rest in re.findall(r'\{"(\w+)",([^}]*)\}', body):
+        fns = re.findall(r"(nullptr|&[\w:]+(?:<[^>]*>)?)", rest)
+        out.append((name, [None if f == "nullptr" else
+                           re.match(r"&([\w:]+)(?:<([^>]*)>)?", f).groups()
+                           for f in fns]))
+    return out
 
 
 @pytest.mark.parametrize("source,names", [
@@ -134,11 +203,16 @@ def _table(source):
     ("rmsnorm.cu", rms_mod.TILINGS),
     ("fused_ff.cu", ff_mod.TILINGS),
     ("softmax.cu", sm_mod.TILINGS),
+    ("ssd.cu", ssd_mod.TILINGS),
 ])
 def test_the_cu_tables_list_the_wrappers_tilings_in_order(source, names):
     """The ids the wrappers pass through the C interface are positions in
     the .cu's table (the library's list is checked again at load)."""
-    assert tuple(name for name, _, _ in _table(source)) == tuple(names)
+    assert tuple(name for name, _ in _table(source)) == tuple(names)
+
+
+def _args(args):
+    return [a.strip() for a in args.split(",")] if args else []
 
 
 _INSTANCES = ([("flash_attention.cu", n) for n in fa_mod.TILINGS]
@@ -148,14 +222,30 @@ _INSTANCES = ([("flash_attention.cu", n) for n in fa_mod.TILINGS]
 @pytest.mark.parametrize("source,name", _INSTANCES,
                          ids=[n for _, n in _INSTANCES])
 def test_each_instance_is_explicitly_instantiated(source, name):
-    entry = {n: (fn, args) for n, fn, args in _table(source)}[name]
-    fn, args = entry
+    """Each name's launchers instantiate the tile the name says: wgmma
+    instances in bf16 only, the per-config SIMT instances in f32 only,
+    the explicit SIMT instance in both types."""
+    f32, bf16 = dict(_table(source))[name]
     nums = [int(x) for x in re.findall(r"\d+", name)]
     if name.startswith("wgmma_"):
-        assert fn == "launch_wgmma"
-        assert [int(a) for a in args.split(",")] == nums
-    else:
-        assert fn.endswith("launch_simt") and args.strip() == "__nv_bfloat16"
+        assert f32 is None and bf16[0] == "launch_wgmma"
+        assert [int(a) for a in _args(bf16[1])] == nums
+    elif name in (fa_mod.SIMT, mlr_mod.SIMT):
+        assert f32[0].endswith("launch_simt") \
+            and bf16[0].endswith("launch_simt")
+        assert _args(f32[1])[0] == "float" \
+            and _args(bf16[1])[0] == "__nv_bfloat16"
+        if source == "gemm.cu":     # the 128 x 128 tile of its name
+            assert _args(f32[1])[1:] == _args(bf16[1])[1:] == ["128", "128"]
+    else:                           # simt_bq*_bk*_d* / simt_bm*_bn*_bk8
+        assert bf16 is None
+        args = _args(f32[1])
+        if source == "gemm.cu":
+            assert f32[0] == "launch_simt_f32"
+            assert [int(a) for a in args] + [8] == nums
+        else:
+            assert f32[0] == "simt::launch_dp" and args[0] == "float"
+            assert [int(a) for a in args[1:]] == nums
 
 
 def test_cpu_calls_launch_nothing_and_count_no_tiling_k1_k2_k5():
@@ -238,12 +328,14 @@ def test_every_fused_ff_config_selects_a_wgmma_instance(cfg):
 @pytest.mark.parametrize("name", ["rmsnorm", "softmax", "fused_ff"])
 def test_distinct_configs_select_distinct_instances_k1_k2_k5(name, dtype):
     if name == "fused_ff":
-        if dtype == F32:     # one SIMT route above the decode threshold
-            return
         tilings = {tuple(c.values()): ff_mod.select_tiling(
             dtype, _ff_shape(c), **c) for c in ff_mod.CONFIGS}
         # the documented exception: (256, 128, 64) shares (128, 128, 64)'s
         assert tilings.pop((256, 128, 64)) == tilings[(128, 128, 64)]
+        if dtype == F32:     # the SIMT instance is (bm, bn)'s: bk shares it
+            assert tilings[(128, 128, 128)] == tilings[(128, 128, 64)] \
+                != tilings[(64, 256, 64)]
+            return
         assert len(set(tilings.values())) == len(tilings) == 3
         return
     mod = rms_mod if name == "rmsnorm" else sm_mod
@@ -288,10 +380,18 @@ def test_ragged_rows_take_the_explicit_simt_instance(name, shape, want):
 
 
 def test_fused_ff_f32_above_the_decode_threshold_runs_simt():
+    """f32 above the threshold runs the SIMT instance of the config's
+    (bm, bn) (C1), (256, 128, 64) that of (128, 128) as in bf16, and the
+    model's call the default block's."""
     for cfg in ff_mod.CONFIGS:
+        block = (cfg["bm"], cfg["bn"], cfg["bk"])
+        bm, bn, _ = ff_mod.SHARED_BLOCKS.get(block, block)
         assert ff_mod.select_tiling(F32, _ff_shape(cfg), **cfg) \
-            == ff_mod.SIMT
-    assert ff_mod.select_tiling(F32, (8192, 2560, 6912)) == ff_mod.SIMT
+            == f"simt_bm{bm}_bn{bn}_bk8" in ff_mod.TILINGS
+    assert ff_mod.select_tiling(F32, (8192, 2560, 6912)) \
+        == "simt_bm{}_bn{}_bk8".format(*ff_mod.DEFAULT_BLOCK[:2])
+    # rows the 4-element loads cannot take keep the explicit instance
+    assert ff_mod.select_tiling(F32, (300, 2560, 778)) == ff_mod.SIMT
 
 
 @pytest.mark.parametrize("dtype", [BF16, F32])
@@ -305,8 +405,9 @@ def test_fused_ff_decode_threshold_picks_gemv(m, want, dtype):
     for cfg in [{}] + ff_mod.CONFIGS:
         assert ff_mod.select_tiling(dtype, (m, 2560, 6912), **cfg) == want
     above = ff_mod.select_tiling(dtype, (ff_mod.DECODE_ROWS + 1, 2560, 6912))
-    assert above == (ff_mod.SIMT if dtype == F32
-                     else "wgmma_bm{}_bn{}_bk{}".format(*ff_mod.DEFAULT_BLOCK))
+    assert above == (
+        "simt_bm{}_bn{}_bk8".format(*ff_mod.DEFAULT_BLOCK[:2]) if dtype == F32
+        else "wgmma_bm{}_bn{}_bk{}".format(*ff_mod.DEFAULT_BLOCK))
 
 
 def test_model_calls_take_the_documented_defaults():
@@ -361,9 +462,9 @@ _NEW_INSTANCES = ([("rmsnorm.cu", n) for n in rms_mod.TILINGS]
 @pytest.mark.parametrize("source,name", _NEW_INSTANCES,
                          ids=[f"{s[:-3]}-{n}" for s, n in _NEW_INSTANCES])
 def test_each_k1_k2_k5_instance_is_explicitly_instantiated(source, name):
-    fn, args = {n: (f, a) for n, f, a in _table(source)}[name]
+    (fn, args), = dict(_table(source))[name]
     nums = [int(x) for x in re.findall(r"\d+", name)]
-    args = [a.strip() for a in args.split(",")] if args else []
+    args = _args(args)
     if name.startswith("wgmma_"):
         assert (fn, [int(a) for a in args]) == ("launch_wgmma", nums)
     elif name.startswith("gemv_m"):
@@ -374,5 +475,119 @@ def test_each_k1_k2_k5_instance_is_explicitly_instantiated(source, name):
         assert (fn, args) == ("launch", ["true", "1"])
     elif source in ("softmax.cu", "rmsnorm.cu"):
         assert (name, fn, args) == ("scalar", "launch", ["false", "1"])
+    elif name.startswith("simt_bm"):
+        assert fn == "launch_simt_block"
+        assert [int(a) for a in args] + [8] == nums
     else:
         assert (name, fn, args) == (ff_mod.SIMT, "launch_simt", [])
+
+
+# ---------------------------------------------------------------------------
+# K7 ssd: the deployed chunk chooses the instance
+# ---------------------------------------------------------------------------
+
+_SSM = (4, 2048, 64, 1, 64, 128)     # mamba2-1.3b's training shape
+
+
+def _ssd_shape(cfg):
+    return (2, 4 * cfg["chunk"], 4, 1, cfg["p"], cfg["n"])
+
+
+@pytest.mark.parametrize("cfg", ssd_mod.CONFIGS,
+                         ids=["-".join(map(str, c.values()))
+                              for c in ssd_mod.CONFIGS])
+def test_every_ssd_config_selects_its_own_wgmma_instance(cfg):
+    tiling = ssd_mod.select_tiling(BF16, _ssd_shape(cfg), **cfg)
+    assert tiling == "wgmma_l{chunk}_p{p}_n{n}".format(**cfg) \
+        in ssd_mod.TILINGS
+
+
+def test_ssd_chunk_64_and_128_select_distinct_instances():
+    tilings = {c: ssd_mod.select_tiling(BF16, _SSM, chunk=c)
+               for c in (64, 128)}
+    assert tilings == {64: "wgmma_l64_p64_n128", 128: "wgmma_l128_p64_n128"}
+    assert len({ssd_mod.select_tiling(BF16, _ssd_shape(c), **c)
+                for c in ssd_mod.CONFIGS}) == len(ssd_mod.CONFIGS)
+
+
+@pytest.mark.parametrize("shape,cfg", [
+    (_SSM, {"chunk": 256}),
+    (_SSM, {"chunk": 96}),
+    (_SSM, {"chunk": 48}),
+    ((2, 512, 4, 1, 128, 64), {"chunk": 128, "p": 128, "n": 64}),
+    ((2, 512, 4, 1, 128, 128), {"chunk": 64}),
+])
+def test_an_ssd_config_with_no_instance_raises(shape, cfg):
+    with pytest.raises(ValueError, match="compiled: simt_l64"):
+        ssd_mod.select_tiling(BF16, shape, **cfg)
+
+
+def test_ssd_model_calls_take_the_documented_default():
+    """The model's calls (nn/ssm.py through ops.ssd_chunk) name no chunk
+    but the default, 64: the (64, 64, 128) instance at mamba2's widths."""
+    assert ssd_mod.DEFAULT_CHUNK == 64
+    assert ssd_mod.select_tiling(BF16, _SSM) == "wgmma_l64_p64_n128"
+    assert ssd_mod.select_tiling(BF16, _SSM, chunk=ssd_mod.DEFAULT_CHUNK) \
+        == "wgmma_l64_p64_n128"
+
+
+@pytest.mark.parametrize("shape,kw,want", [
+    ((2, 1000, 8, 2, 64, 64), {}, "wgmma_l64_p64_n128"),    # N 64 padded
+    ((2, 128, 1, 1, 32, 16), {"chunk": 32}, "wgmma_l64_p64_n128"),
+    ((2, 1024, 16, 1, 128, 64), {}, "wgmma_l64_p128_n64"),
+    ((2, 1000, 8, 2, 60, 50), {}, "simt_l64"),              # P, N % 8
+    ((2, 1000, 8, 2, 64, 50), {"chunk": 128}, "simt_l64"),
+    (_SSM, {"aligned": False}, "simt_l64"),
+    (_SSM, {"chunk": 128, "aligned": False}, "simt_l64"),
+    (_SSM, {"chunk": 256, "aligned": False}, "simt_l64"),
+])
+def test_ssd_shapes_wgmma_cannot_take_go_to_the_simt_instance(shape, kw,
+                                                              want):
+    """Widths the wgmma instances zero-pad run the first instance that
+    holds them; rows the 16-byte copies cannot take run the named SIMT
+    instance, chunk 64, whatever chunk the call names; a chunk that
+    divides 64 runs the 64-position instance."""
+    assert ssd_mod.select_tiling(BF16, shape, **kw) == want
+
+
+@pytest.mark.parametrize("cfg", [{}] + ssd_mod.CONFIGS
+                         + [{"chunk": 256}, {"chunk": 96}, {"chunk": 7}])
+def test_ssd_f32_runs_the_simt_instance_in_chunks_of_64(cfg):
+    """f32 runs the SIMT kernel in chunks of 64 whatever chunk the call
+    names, also chunks (mamba2's upstream 256) that have no bf16
+    instance."""
+    shape = _ssd_shape(cfg) if "p" in cfg else _SSM
+    assert ssd_mod.select_tiling(F32, shape, **cfg) == ssd_mod.SIMT \
+        == "simt_l64"
+
+
+def test_ssd_config_widths_must_be_the_operands():
+    with pytest.raises(ValueError):
+        ssd_mod.select_tiling(BF16, _SSM, chunk=64, p=128, n=64)
+    with pytest.raises(ValueError):
+        ssd_mod.select_tiling(BF16, (1, 64, 1, 1, 160, 64))
+
+
+def test_ssd_cu_instances_are_explicitly_instantiated():
+    """Each K7 tiling names its launcher and the query of its outputs
+    kernel's resident blocks (which sizes the segments), both of the
+    instance its name describes."""
+    for name, launchers in _table("ssd.cu"):
+        (fn, args), (slots_fn, slots_args) = launchers
+        if name == ssd_mod.SIMT:
+            assert (fn, args) == ("launch_simt", None)
+            assert (slots_fn, slots_args) == ("simt_slots", None)
+        else:
+            assert (fn, slots_fn) == ("launch_wgmma", "wgmma_slots")
+            assert [int(a) for a in _args(args)] \
+                == [int(a) for a in _args(slots_args)] \
+                == [int(x) for x in re.findall(r"\d+", name)]
+
+
+def test_cpu_ssd_calls_launch_nothing_and_count_no_tiling():
+    x, a = torch.randn(2, 128, 32), -torch.rand(2, 128)
+    b = torch.randn(2, 128, 16)
+    ssd_mod.ssd(x, a, b, b, chunk=64, p=32, n=16)
+    ssd_mod.ssd_chunk(x[:, :, None], a[:, :, None], b[:, :, None],
+                      b[:, :, None], chunk=128)
+    assert ssd_mod.launches == 0 and not ssd_mod.launches_by_tiling
