@@ -94,7 +94,29 @@ Phases, each printed on lines of its own:
    ``CONFIGS`` that names another instance (K7: the other chunk of 64
    and 128), launched through the registry at the path's shapes, in bf16
    for all seven and in f32 for K2, K3, K4 and K6, must launch the
-   instance each names and agree with ``ref_fn``;
+   instance each names and agree with ``ref_fn``; (e) the guided
+   searches: ``launch.optimize matmul_leakyrelu bmm --strategy beam``,
+   then ``--strategy lookahead`` (oracle-ranked), each into a fresh cache,
+   must print the reference's cycles (8294 -> 8286 and 8275 -> 8268;
+   8294 -> 8288 and 8275 -> 8270) and shared-memo lines, ``--deploy``
+   must read them back, and K3 and K4 at the beam artifacts' configs are
+   launched through the registry in bf16 and f32, each in the instance
+   ``select_tiling`` names, against ``ref_fn``; (f) the cost model on the
+   card: ``launch.evaluate --budget 512 --train-cost-model`` runs the
+   default roster of seven strategies with the PPO warm phase's agent and
+   the model on the card, with beam-cost within a quarter of greedy's
+   measurements on each kernel and a held-out Spearman of at least 0.5
+   (the Spearman against the reference test's 0.8, and beam-cost's
+   cycles against greedy's, printed, not held: ROADMAP §C);
+   two fits on the card from the saved dataset must be bit-equal and the
+   saved model must predict what the live fit predicts; (g) tuned
+   schedules served: ``launch.serve --arch qwen1.5-4b --full --qps 4
+   --requests 8 --schedule-cache DIR --strict-schedules`` over the cache
+   (b) wrote prints the 18-line plan with no fallback, completes every
+   request with in-vocab tokens, and launches K1 and K2 passes x 81 and
+   x 40 times; over an empty cache it exits non-zero before serving, and
+   without ``--strict-schedules`` serves with 18 ``-O3 baseline`` lines,
+   the warning and 18 ``schedule_fallbacks``;
 7. the ``{"kernels": [...]}`` line (K1-K7, with their launches by path
    and by path and tiling),
    then the last line: ``{"ok": true, "device": {...}}``.
@@ -111,9 +133,11 @@ import argparse
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -159,6 +183,28 @@ SSM_FLEET_CYCLES = {"matmul_leakyrelu": ("35519 -> 35504", "10458 -> 10455"),
                     "ssd": ("3945 -> 3943", "3945 -> 3943")}
 SSM_BUCKETS = ("b256_s4096_f32_full", "b32_s32768_f32_full",
                "b128_s32768_f32_half", "b1_s524288_f32_low")
+# The guided searches on the pair, oracle-ranked (--strategy beam,
+# lookahead): the reference's cycles and shared-memo lines
+GUIDED_LINES = {"beam": {"matmul_leakyrelu": "8294 -> 8286 cycles",
+                         "bmm": "8275 -> 8268 cycles"},
+                "lookahead": {"matmul_leakyrelu": "8294 -> 8288 cycles",
+                              "bmm": "8275 -> 8270 cycles"}}
+GUIDED_MEMO = {"beam": "[optimize] shared memo: 14126 entries, 2/14128 hits "
+                       "(0.0%), 0 cross-kernel",
+               "lookahead": "[optimize] shared memo: 16393 entries, "
+                            "5268/21661 hits (24.3%), 0 cross-kernel"}
+# launch.evaluate's per-cell measurement budget (its default, the
+# reference acceptance test's)
+EVAL_BUDGET = 512
+# The held-out Spearman below which the cost model does not rank: far
+# below every run of either package (0.685-0.872 over seeds 0-11, with
+# each package's own PRNG or one numpy noise stream for both,
+# tools/costmodel_seeds.py), far above a model that does not rank (about
+# 0).  The reference test's 0.8 sits inside that spread, a coin at one
+# seed for the reference itself (ROADMAP §C).
+SPEARMAN_FLOOR = 0.5
+# requests served over the PPO fleet's tuned schedules
+TUNED_REQUESTS = 8
 SSM_FLEET_TAIL = ("[optimize] campaign: 16 succeeded (0 degraded), 0 failed",
                   "[optimize] shared memo: 7399 entries, 30017/37416 hits "
                   "(80.2%), 0 cross-kernel")
@@ -1356,21 +1402,35 @@ def profile_train_step(trainer, out_dir: str):
 # phase 6: the optimizer main path — launch.optimize, deploy, the registry
 # ---------------------------------------------------------------------------
 
-def _optimize_cli(*args, timeout=600):
-    """``python -m repro_torch.launch.optimize ARGS``, as a user runs it;
-    returns its output lines and its wall time (s)."""
+def _run_cli(module, *args, timeout=600):
+    """``python -m MODULE ARGS``, as a user runs it: (the process, its
+    output lines, its wall time (s)), the output printed."""
     env = dict(os.environ, PYTHONPATH=SRC)
-    cmd = [sys.executable, "-m", "repro_torch.launch.optimize", *args]
+    cmd = [sys.executable, "-m", module, *args]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
                           timeout=timeout)
     wall = time.perf_counter() - t0
-    print(f"  $ python {' '.join(cmd[1:])}  ({wall:.1f} s)\n"
+    print(f"  $ python {' '.join(cmd[1:])}  ({wall:.1f} s, exit "
+          f"{proc.returncode})\n"
           + "\n".join("    " + line for line in proc.stdout.splitlines()),
           flush=True)
+    return proc, proc.stdout.splitlines(), wall
+
+
+def _cli(module, *args, timeout=600):
+    """``_run_cli``, failing unless the process exits 0: (its output
+    lines, its wall time)."""
+    proc, lines, wall = _run_cli(module, *args, timeout=timeout)
     if proc.returncode != 0:
-        fail(f"launch.optimize exited {proc.returncode}:\n{proc.stderr[-3000:]}")
-    return proc.stdout.splitlines(), wall
+        fail(f"{module} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    return lines, wall
+
+
+def _optimize_cli(*args, timeout=600):
+    """``python -m repro_torch.launch.optimize ARGS``: (its output lines,
+    its wall time)."""
+    return _cli("repro_torch.launch.optimize", *args, timeout=timeout)
 
 
 def optimize_phase():
@@ -1380,8 +1440,6 @@ def optimize_phase():
     import shutil
     import tempfile
 
-    import torch
-    from repro_torch.kernels import get_kernel
     from repro_torch.sched import OptimizationSession
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -1405,21 +1463,40 @@ def optimize_phase():
                    for name in OPTIMIZE_LINES}
     finally:
         shutil.rmtree(cache_dir)
+    return _deployed_pair(configs, seed=1), configs
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
+
+def _deployed_pair(configs, seed):
+    """K3 and K4 launched through the registry, ``get_kernel(name).
+    kernel_fn(a, b, **configs[name])``, on the card at the optimizer
+    path's shapes in bf16 and f32: each call launches the instance
+    ``select_tiling`` names, once, and agrees with ``ref_fn``; returns the
+    launches."""
+    import importlib
+
+    import torch
+    from repro_torch.kernels import get_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     m, k, n = MLR_SHAPE
     B, bm, bk, bn = BMM_SHAPE
     shapes = {"matmul_leakyrelu": ((m, k), (k, n)),
               "bmm": ((B, bm, bk), (B, bk, bn))}
-    inputs = {(name, dname): _gemm_inputs(gen, dt, *shapes[name])
+    path_shapes = {"matmul_leakyrelu": MLR_SHAPE, "bmm": BMM_SHAPE}
+    inputs = {(name, dname, dt): _gemm_inputs(gen, dt, *shapes[name])
               for dname, dt in (("bfloat16", torch.bfloat16),
                                 ("float32", torch.float32))
               for name in OPTIMIZE_LINES}
     torch.cuda.synchronize()
     _reset_launches()
-    outs = {key: get_kernel(key[0]).kernel_fn(a, b, **configs[key[0]])
-            for key, (a, b) in inputs.items()}
-    torch.cuda.synchronize()
+    outs, tilings = {}, {}
+    for (name, dname, dt), (a, b) in inputs.items():
+        mod = importlib.import_module(f"repro_torch.kernels.{name}")
+        outs[name, dname], ran = launched(
+            mod, lambda: get_kernel(name).kernel_fn(a, b, **configs[name]))
+        tilings[name, dname] = expect_tiling(
+            f"deployed {name} {configs[name]} {dname}", ran,
+            mod.select_tiling(dt, path_shapes[name], **configs[name]))
     launches = _read_launches()
     want = _expected_launches(matmul_leakyrelu=2, bmm=2)
     print(f"  deployed configs {configs}; launches {launches}; expected "
@@ -1427,19 +1504,19 @@ def optimize_phase():
     if launches != want:
         fail("the optimizer path did not launch each deployed kernel once "
              "per call")
-    for (name, dname), got in outs.items():
-        a, b = inputs[name, dname]
+    for (name, dname, _), (a, b) in inputs.items():
+        got = outs[name, dname]
         ref_fn = get_kernel(name).ref_fn
         plain = ref_fn(a, b)
         if got.shape != plain.shape or not torch.isfinite(got).all():
             fail(f"deployed {name} {dname}: misshapen or non-finite output")
         tol = _f64_tolerance(plain, ref_fn(a.double(), b.double()),
                              GEMM_TOL[dname][0])
-        check_close(f"deployed {name} {configs[name]} {dname}", got, plain,
-                    tol, 0.0)
+        check_close(f"deployed {name} {configs[name]} "
+                    f"{tilings[name, dname]} {dname}", got, plain, tol, 0.0)
     del inputs, outs
     torch.cuda.empty_cache()
-    return launches, configs
+    return launches
 
 
 _CELL = re.compile(r"\[optimize\] (\w+)@(\w+): (\d+) -> (\d+) cycles "
@@ -1468,10 +1545,11 @@ def _fleet_cells(lines):
     return cells
 
 
-def fleet_phase():
+def fleet_phase(cache_dir):
     """(b) The paper's PPO agent, on the card, over qwen1.5-4b's kernel
-    fleet through ``launch.optimize --arch``; then the six deployed
-    kernels on the card through the registry."""
+    fleet through ``launch.optimize --arch`` into ``cache_dir`` (a fresh
+    cache, kept for 6(g)); then the six deployed kernels on the card
+    through the registry."""
     import shutil
     import tempfile
 
@@ -1483,8 +1561,6 @@ def fleet_phase():
           f"default 8192 so that the {FLEET_CELLS} cells fit the run; one "
           f"cell at the default below", flush=True)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_fleet_",
-                                 dir=os.path.join(ROOT, "build"))
     one_dir = tempfile.mkdtemp(prefix="chip_smoke_cell_",
                                dir=os.path.join(ROOT, "build"))
     try:
@@ -1516,7 +1592,6 @@ def fleet_phase():
             name, scenario=Scenario.parse(FLEET_BUCKET)).config
             for name in FLEET_O3}
     finally:
-        shutil.rmtree(cache_dir)
         shutil.rmtree(one_dir)
     summary = {
         "cells": {f"{n}@{b}": c for (n, b), c in cells.items()},
@@ -1792,6 +1867,260 @@ def tiling_gate(deployed):
 
 
 # ---------------------------------------------------------------------------
+# phase 6 (e)-(g): guided searches, the cost model, tuned schedules served
+# ---------------------------------------------------------------------------
+
+def guided_phase():
+    """(e) The oracle-ranked guided searches on the pair: ``launch.optimize
+    matmul_leakyrelu bmm --strategy beam``, then ``lookahead``, each into a
+    fresh cache, print the reference's cycles and memo line, and
+    ``--deploy`` reads the artifacts back; then K3 and K4 at the beam
+    artifacts' configs through the registry (``_deployed_pair``)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.sched import OptimizationSession
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    walls, configs = {}, None
+    for strategy, cycles in GUIDED_LINES.items():
+        cache_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{strategy}_",
+                                     dir=os.path.join(ROOT, "build"))
+        try:
+            pair = [*cycles, "--strategy", strategy, "--cache-dir",
+                    cache_dir]
+            searched, walls[strategy] = _optimize_cli(*pair)
+            deployed, _ = _optimize_cli(*pair, "--deploy")
+            for name, want in cycles.items():
+                if not any(line.startswith(f"[optimize] {name}: {want} ")
+                           and f", {strategy}-oracle, " in line
+                           for line in searched):
+                    fail(f"--strategy {strategy} did not print {name}: "
+                         f"{want}")
+                if not any(line.startswith(f"[optimize] {name}: cached "
+                                           f"config ") and f" {want} " in line
+                           for line in deployed):
+                    fail(f"--strategy {strategy} --deploy did not read back "
+                         f"{name}: {want}")
+            if not any(line.startswith(GUIDED_MEMO[strategy])
+                       for line in searched):
+                fail(f"--strategy {strategy} did not print "
+                     f"{GUIDED_MEMO[strategy]!r}")
+            if strategy == "beam":
+                session = OptimizationSession(strategy="greedy",
+                                              cache_dir=cache_dir)
+                configs = {name: session.deploy(name).config
+                           for name in cycles}
+        finally:
+            shutil.rmtree(cache_dir)
+    print("  guided searches as the reference's: " + json.dumps(
+        {"wall_s": walls, "beam_configs": configs}), flush=True)
+    return _deployed_pair(configs, seed=5)
+
+
+def costmodel_phase():
+    """(f) The cost model on the card: ``launch.evaluate --budget 512
+    --memo-dir D --train-cost-model --out J`` runs the default roster with
+    the PPO warm phase's agent and the model on the card.  Held: the
+    reference acceptance test's budget clause (on each kernel beam-cost
+    spends more than nothing and at most a quarter of greedy's
+    measurements), and a held-out Spearman of at least ``SPEARMAN_FLOOR``
+    (the model ranks at all).  Printed, not held: the Spearman against
+    the reference test's 0.8, and beam-cost's best against greedy's — at
+    one seed both are coins in the reference itself (ROADMAP §C).  Then
+    two fits on the card from the saved dataset, same seed, must give
+    equal parameters, and the saved ``cost_model.npz`` loaded back must
+    hold those parameters and predict what the live fit predicts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.costmodel import (DEFAULT_STRATEGIES, CostDataset,
+                                       CostModel)
+    from repro_torch.launch.evaluate import DATASET_FILENAME, MODEL_FILENAME
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    memo_dir = tempfile.mkdtemp(prefix="chip_smoke_costmodel_",
+                                dir=os.path.join(ROOT, "build"))
+    out = os.path.join(memo_dir, "evaluator.json")
+    try:
+        _, wall = _cli("repro_torch.launch.evaluate", "--budget",
+                       str(EVAL_BUDGET), "--memo-dir", memo_dir,
+                       "--train-cost-model", "--out", out, timeout=900)
+        with open(out) as f:
+            result = json.load(f)
+        dataset = CostDataset.load(os.path.join(memo_dir, DATASET_FILENAME))
+        saved = CostModel.load(os.path.join(memo_dir, MODEL_FILENAME),
+                               device="cuda")
+    finally:
+        shutil.rmtree(memo_dir)
+    rows = {(r["strategy"], r["kernel"]): r for r in result["rows"]}
+    rc = result["rank_correlation"]
+    print(f"  held-out Spearman {rc} over {result['dataset_rows']} corpus "
+          f"rows (held >= {SPEARMAN_FLOOR}; the reference test's 0.8 "
+          f"printed, not held: ROADMAP §C); launch.evaluate {wall:.1f} s",
+          flush=True)
+    for r in result["rows"]:
+        print(f"  {r['strategy']} {r['kernel']}: {r['best_cycles']:.0f} "
+              f"cycles, {r['measurements']} measurements, {r['seconds']} s",
+              flush=True)
+    if {st for st, _ in rows} != set(DEFAULT_STRATEGIES) \
+            or len(rows) != len(DEFAULT_STRATEGIES) * 2:
+        fail(f"launch.evaluate ran {sorted(rows)}, not the default roster")
+    if rc is None or rc < SPEARMAN_FLOOR:
+        fail(f"held-out Spearman {rc} below {SPEARMAN_FLOOR}: the cost "
+             f"model does not rank")
+    for kernel in OPTIMIZE_LINES:
+        greedy, beam = rows["greedy", kernel], rows["beam-cost", kernel]
+        print(f"  beam-cost {kernel}: {beam['best_cycles']:.0f} cycles in "
+              f"{beam['measurements']} measurements; greedy "
+              f"{greedy['best_cycles']:.0f} in {greedy['measurements']} "
+              f"(best not held: ROADMAP §C)", flush=True)
+        if not 0 < beam["measurements"] <= greedy["measurements"] / 4:
+            fail(f"beam-cost on {kernel} spent {beam['measurements']} "
+                 f"measurements, not within a quarter of greedy's "
+                 f"{greedy['measurements']}")
+    fits = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, _ = CostModel.fit(dataset, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        fits.append((model, time.perf_counter() - t0))
+    (live, fit_s), (again, fit2_s) = fits
+    for k, v in live.params.items():
+        if v.device.type != "cuda" or not torch.equal(v, again.params[k]) \
+                or not torch.equal(v, saved.params[k]):
+            fail(f"cost model parameter {k}: two fits on the card, or the "
+                 f"fit and the saved model, differ")
+    pred = live.predict_log(dataset.X)
+    if pred.shape != (len(dataset),) or not np.isfinite(pred).all() \
+            or not np.array_equal(pred, saved.predict_log(dataset.X)):
+        fail("the saved cost model does not predict what the live fit "
+             "predicts")
+    summary = {"spearman": rc, "corpus_rows": result["dataset_rows"],
+               "evaluate_wall_s": wall, "fit_s": [fit_s, fit2_s],
+               "rows": result["rows"]}
+    print("  cost model on the card: two fits bit-equal, the saved model "
+          "predicts as the live one; " + json.dumps(summary), flush=True)
+    return summary
+
+
+_PLAN_LINE = re.compile(r"\[serve\]   (\w+)@(\w+)(?: \[\S+\])?: (.*)$")
+_TUNED = re.compile(r"[0-9.]+x \(\d+ cycles\)$")
+
+
+def tuned_serve_phase(cache_dir):
+    """(g) Tuned schedules served: ``launch.serve --arch qwen1.5-4b --full
+    --qps 4 --requests 8 --schedule-cache DIR --strict-schedules`` over the
+    cache the PPO fleet (b) wrote prints an 18-line plan and no fallback
+    warning, completes every request with in-vocab tokens, and launches K1
+    and K2 passes x 81 and x 40 times; against an empty cache the same
+    command exits non-zero before serving, and without
+    ``--strict-schedules`` it serves with 18 ``not optimized (-O3
+    baseline)`` lines, the warning and 18 ``schedule_fallbacks``.  The
+    two serving runs call the launcher's ``main`` in this process, so
+    that its engine and the kernels' counts can be read."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.launch import serve as launch_serve
+
+    base = ["--arch", FLEET_ARCH, "--full", "--qps", "4", "--requests",
+            str(TUNED_REQUESTS)]
+    empty = tempfile.mkdtemp(prefix="chip_smoke_empty_",
+                             dir=os.path.join(ROOT, "build"))
+
+    def serve(cache, *extra):
+        engines = []
+
+        class Recorded(launch_serve.ServeEngine):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                engines.append(self)
+
+        real, launch_serve.ServeEngine = launch_serve.ServeEngine, Recorded
+        buf = io.StringIO()
+        argv = [*base, "--schedule-cache", cache, *extra]
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                launch_serve.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            launch_serve.ServeEngine = real
+            print(f"  launch.serve {' '.join(argv)}  "
+                  f"({time.perf_counter() - t0:.1f} s)\n"
+                  + "\n".join("    " + line
+                              for line in buf.getvalue().splitlines()),
+                  flush=True)
+        launches = _read_launches()
+        engine, = engines
+        cfg, passes = engine.cfg, engine.counters["passes"]
+        reqs = engine.finished
+        bad = [r.id for r in reqs if r.truncated or len(r.output)
+               != r.max_new_tokens or not all(0 <= t < cfg.vocab
+                                              for t in r.output)]
+        if len(reqs) != TUNED_REQUESTS or bad:
+            fail(f"tuned serving: requests incomplete or out of vocab: "
+                 f"{len(reqs)} finished, bad {bad}")
+        want = _expected_launches(rmsnorm=passes * (2 * cfg.n_layers + 1),
+                                  fused_ff=passes * cfg.n_layers)
+        print(f"  passes {passes}; launches {launches}; expected {want}",
+              flush=True)
+        if launches != want or passes == 0:
+            fail("the tuned serving path did not go through the kernels "
+                 "once per site")
+        lines = buf.getvalue().splitlines()
+        plan = [m.group(3) for m in map(_PLAN_LINE.match, lines) if m]
+        warned = [line for line in lines if line.startswith(
+            "[serve] WARNING: ")]
+        stats = {"passes": passes, "plan_lines": len(plan),
+                 "schedule_fallbacks": engine.counters["schedule_fallbacks"],
+                 "warnings": warned}
+        del engines, engine
+        torch.cuda.empty_cache()
+        return launches, plan, stats
+
+    try:
+        proc, lines, wall = _run_cli(
+            "repro_torch.launch.serve", *base, "--schedule-cache", empty,
+            "--strict-schedules", timeout=600)
+        if proc.returncode == 0 or "FileNotFoundError" not in proc.stderr \
+                or any(line.startswith("[serve] tokens/s") for line in lines):
+            fail(f"--strict-schedules over an empty cache did not refuse "
+                 f"before serving (exit {proc.returncode}):\n"
+                 f"{proc.stderr[-2000:]}")
+        print(f"  an empty cache under --strict-schedules: exit "
+              f"{proc.returncode}, {proc.stderr.strip().splitlines()[-1]}",
+              flush=True)
+        tuned, plan, stats = serve(cache_dir, "--strict-schedules")
+        if len(plan) != FLEET_CELLS or not all(map(_TUNED.search, plan)) \
+                or stats["warnings"] or stats["schedule_fallbacks"] != 0:
+            fail(f"the PPO fleet's cache did not give an {FLEET_CELLS}-line "
+                 f"tuned plan without fallbacks: {plan} {stats}")
+        untuned, plan, ustats = serve(empty)
+        if plan != ["not optimized (-O3 baseline)"] * FLEET_CELLS \
+                or ustats["schedule_fallbacks"] != FLEET_CELLS \
+                or len(ustats["warnings"]) != 1 \
+                or f" {FLEET_CELLS} kernel(s) " not in ustats["warnings"][0]:
+            fail(f"an empty cache without --strict-schedules: {plan} "
+                 f"{ustats}")
+    finally:
+        shutil.rmtree(empty)
+    print("  tuned schedules served: " + json.dumps(
+        {"tuned": stats, "untuned": ustats, "strict_refusal_s": wall}),
+        flush=True)
+    return tuned, untuned
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1845,9 +2174,19 @@ def main() -> int:
 
     phase("6 optimizer main paths")
     launches["optimize"], pair_configs = optimize_phase()
-    launches["fleet"], fleet_configs = fleet_phase()
-    launches["fleet_ssm"], ssd_config = ssm_fleet_phase()
-    tiling_gate(dict(fleet_configs, **pair_configs, ssd=ssd_config))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    fleet_cache = tempfile.mkdtemp(prefix="chip_smoke_fleet_",
+                                   dir=os.path.join(ROOT, "build"))
+    try:
+        launches["fleet"], fleet_configs = fleet_phase(fleet_cache)
+        launches["fleet_ssm"], ssd_config = ssm_fleet_phase()
+        tiling_gate(dict(fleet_configs, **pair_configs, ssd=ssd_config))
+        launches["guided"] = guided_phase()
+        costmodel_phase()
+        launches["serve_tuned"], launches["serve_untuned"] = \
+            tuned_serve_phase(fleet_cache)
+    finally:
+        shutil.rmtree(fleet_cache)
 
     phase("7 kernels")
     kernels = []

@@ -24,9 +24,7 @@ machine, run on the host whatever the strategy, so ``greedy`` and
 ``random`` use no device.  For each PPO cell the launcher prints the
 search's wall time split between the agent's calls and the rest (the
 environments on the host).  The registry holds all seven kernels, so
-every ``--arch`` fleet runs (mamba2-1.3b's 16 cells include ``ssd``);
-the ``beam``/``lookahead`` strategies raise ``NotImplementedError`` until
-the cost model is ported (ROADMAP A11).
+every ``--arch`` fleet runs (mamba2-1.3b's 16 cells include ``ssd``).
 
 Sibling of ``launch.train`` / ``launch.serve``: one session shares the
 per-target stall tables and the cross-kernel measurement memo across the

@@ -4,11 +4,13 @@
 Spins up :class:`repro_torch.serve.engine.ServeEngine` on ``--device``
 (the card by default; it refuses to start when there is none), replays a
 seeded Poisson-arrival trace at ``--qps`` across ``--tenants`` weighted
-tenants, and reports p50/p99 latency, TTFT, tokens/s and the per-tenant
-fairness table.  Without ``--qps`` it runs the one-shot static-batch
-:func:`repro_torch.serve.generate` path.  Weights are seeded random (seed
-0, as the reference's ``PRNGKey(0)``).  The reference's ``--schedule-cache`` and
-``--strict-schedules`` wait for the port's ``sched`` slice.
+tenants, and reports p50/p99 latency, TTFT, tokens/s, the per-tenant
+fairness table, and with ``--schedule-cache`` the resolved
+``kernel@bucket [target]`` schedule plan (pure cache-index lookups — no
+autotune at serve time; ``--strict-schedules`` refuses to serve a kernel
+without a cached schedule).  Without ``--qps`` it runs the one-shot
+static-batch :func:`repro_torch.serve.generate` path.  Weights are
+seeded random (seed 0, as the reference's ``PRNGKey(0)``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,14 @@ from repro_torch.models import for_config
 from repro_torch.serve import (ServeEngine, Tenant, TrafficConfig, generate,
                                run_load)
 from repro_torch.utils.device import resolve_device
+
+
+def _print_plan(engine) -> None:
+    if not engine.plan:
+        return
+    print("[serve] resolved schedule plan:")
+    for line in engine.plan_summary():
+        print(f"[serve]   {line}")
 
 
 def _print_fairness(engine) -> None:
@@ -48,8 +58,15 @@ def _engine_mode(args, cfg, params, device) -> None:
     engine = ServeEngine.from_config(
         cfg, params=params, max_batch=args.max_batch, max_seq=max_seq,
         block_size=args.block_size, kv_blocks=args.kv_blocks,
-        tenants=tenants, paged=args.paged,
-        debug_invariants=args.debug_invariants, device=device)
+        tenants=tenants, schedule_cache=args.schedule_cache,
+        paged=args.paged, debug_invariants=args.debug_invariants,
+        on_missing="raise" if args.strict_schedules else "baseline",
+        device=device)
+    _print_plan(engine)
+    if engine.counters.get("schedule_fallbacks"):
+        print(f"[serve] WARNING: {engine.counters['schedule_fallbacks']} "
+              f"kernel(s) serving the -O3 baseline (no cached schedule); "
+              f"use --strict-schedules to refuse degraded serving")
     traffic = TrafficConfig(
         qps=args.qps, n_requests=args.requests, n_tenants=args.tenants,
         prompt_len=(max(2, args.prompt_len // 2), args.prompt_len),
@@ -88,6 +105,18 @@ def _engine_mode(args, cfg, params, device) -> None:
 
 
 def _static_mode(args, cfg, params) -> None:
+    if args.schedule_cache:
+        from repro_torch.launch.specs import kernel_fleet
+        from repro_torch.serve.engine import schedule_plan
+        on_missing = "raise" if args.strict_schedules else "baseline"
+        for key, art in schedule_plan(kernel_fleet(cfg),
+                                      cache_dir=args.schedule_cache,
+                                      on_missing=on_missing).items():
+            name, bucket = key if isinstance(key, tuple) else (key, None)
+            label = name if bucket in (None, "default") else f"{name}@{bucket}"
+            state = (f"{art.speedup:.3f}x ({art.optimized_cycles:.0f} cycles)"
+                     if art is not None else "not optimized (-O3 baseline)")
+            print(f"[serve] schedule {label}: {state}")
     rng = np.random.default_rng(0)
     prompt = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len),
                           dtype=np.int64)
@@ -108,6 +137,13 @@ def main(argv=None) -> None:
                     help="the published widths (default: the reduced config)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
+    ap.add_argument("--schedule-cache", default=None, metavar="DIR",
+                    help="resolve the arch's RL-optimized kernel schedules "
+                         "from this cache (index lookup only, no autotune)")
+    ap.add_argument("--strict-schedules", action="store_true",
+                    help="refuse to serve kernels without a cached schedule "
+                         "(on_missing='raise'); default degrades them to "
+                         "the -O3 baseline with a warning")
     # engine mode
     ap.add_argument("--qps", type=float, default=None,
                     help="offered Poisson arrival rate; enables the "

@@ -7,8 +7,8 @@ re-architected around three small protocols):
   the cross-kernel measurement memo;
 * :class:`SearchStrategy` — how the schedule space is searched (PPO over
   the assembly game, plus cheap greedy-swap and random-search baselines for
-  A/B tests and CI; the cost-model-guided ones raise until they are
-  ported);
+  A/B tests and CI, and the cost-model-guided beam and lookahead of
+  :mod:`repro_torch.costmodel.search`);
 * :class:`OptimizeRequest` / :class:`OptimizeResult` — declarative inputs
   and outputs replacing the old tangle of constructor kwargs.
 
@@ -187,15 +187,6 @@ class SearchStrategy(Protocol):
         ...
 
 
-def _not_ported(name: str, needs: str, item: str):
-    def make(*args, **kwargs):
-        raise NotImplementedError(
-            f"the {name!r} search strategy needs {needs}, which the port "
-            f"does not have yet (ROADMAP {item}); the port runs the "
-            f"'ppo', 'greedy' and 'random' strategies")
-    return make
-
-
 class PPOStrategy:
     """The paper's assembly game: PPO over vectorized envs
     (:func:`repro_torch.core.game.train_on_program`), measuring through
@@ -301,25 +292,34 @@ class RandomSearchStrategy:
             best_cycles=env.best_cycles, baseline_cycles=env.t0, stats=stats)
 
 
-# the reference's names, so the launcher takes the same --strategy values;
-# the cost-model-guided strategies (repro/costmodel/search.py) are not
-# ported yet and raise when built
+# values are classes, or "module:Class" strings resolved lazily — the
+# model-guided strategies live in repro_torch.costmodel.search, which
+# imports SearchOutcome from this module, so eager registration would be
+# an import cycle
 STRATEGIES = {
     "ppo": PPOStrategy,
     "greedy": GreedySwapStrategy,
     "random": RandomSearchStrategy,
-    "beam": _not_ported("beam", "the cost model (costmodel/)", "A11"),
-    "lookahead": _not_ported("lookahead", "the cost model (costmodel/)",
-                             "A11"),
+    "beam": "repro_torch.costmodel.search:BeamSearchStrategy",
+    "lookahead": "repro_torch.costmodel.search:GreedyLookaheadStrategy",
 }
 
 
-def make_strategy(name: str, **kwargs) -> SearchStrategy:
+def _strategy_cls(name: str):
     try:
         cls = STRATEGIES[name]
     except KeyError:
         raise KeyError(f"unknown strategy {name!r}; one of {sorted(STRATEGIES)}")
-    return cls(**kwargs)
+    if isinstance(cls, str):
+        import importlib
+        mod_name, _, cls_name = cls.partition(":")
+        cls = getattr(importlib.import_module(mod_name), cls_name)
+        STRATEGIES[name] = cls            # resolve once
+    return cls
+
+
+def make_strategy(name: str, **kwargs) -> SearchStrategy:
+    return _strategy_cls(name)(**kwargs)
 
 
 def make_budgeted_strategy(name: str, timesteps: int = 8192,
@@ -330,8 +330,8 @@ def make_budgeted_strategy(name: str, timesteps: int = 8192,
     definition so the CLI and the tests stay in lockstep: PPO clamps its
     rollout length to the budget and runs its agent on ``device``; greedy
     applies up to one episode of steepest-descent moves; random search
-    spends the timestep budget across restarts; the strategies not ported
-    yet raise (their budgets arrive with them)."""
+    spends the timestep budget across restarts; beam and lookahead rank
+    with the oracle and cap their real measurements at the budget."""
     if name == "ppo":
         return PPOStrategy(PPOConfig(
             total_timesteps=timesteps, num_envs=num_envs,
@@ -343,6 +343,15 @@ def make_budgeted_strategy(name: str, timesteps: int = 8192,
         return RandomSearchStrategy(
             episodes=max(1, timesteps // max(episode_length, 1)),
             episode_length=episode_length)
+    if name == "beam":
+        # CLI beam defaults to the oracle ranker (no trained model on
+        # hand); the timestep budget caps real measurements
+        return make_strategy(name, depth=episode_length,
+                             max_measurements=timesteps)
+    if name == "lookahead":
+        return make_strategy(name, ranker="oracle",
+                             max_steps=episode_length,
+                             max_measurements=timesteps)
     return make_strategy(name)
 
 

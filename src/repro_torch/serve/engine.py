@@ -21,25 +21,35 @@ tenant's request gets the next free slot.  Every engine step:
    teacher-forces its generated tokens on resume, paged mode spills its
    pages to host memory and uploads them again.
 
+Kernel schedules come from the cache index via
+:func:`repro_torch.sched.lowering.schedule_plan` (re-exported here) —
+nearest-bucket pure lookups at construction time, **zero**
+autotune/``Machine.run`` on the serve path.  The plan is informational,
+as in the reference: the kernels' tiling on the card is not driven from
+it.
+
 The module-level :func:`generate` is the one-shot static-batch
 convenience wrapper over the same ``decode_step``; under greedy decoding
 the engine matches it token for token per request.
 
 The engine runs on the card unless ``device`` says otherwise.  The
-reference's ``mesh``, ``schedule_cache`` and ``on_missing`` parameters
-wait for the port's ``dist`` and ``sched`` slices (ROADMAP D1).
+reference's ``mesh`` parameter waits for the port's ``dist`` slice
+(ROADMAP A14).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sched.cache import ScheduleCache
+# schedule_plan is re-exported here: the serve-facing API
+from repro_torch.sched.lowering import schedule_plan
 from repro_torch.serve.batching import SlotState, assemble, assemble_paged
 from repro_torch.serve.decode import (decode_step, init_caches,
                                       init_paged_caches, paged_decode_step)
@@ -69,7 +79,8 @@ class ServeEngine:
 
     Construct through :meth:`from_config`::
 
-        engine = ServeEngine.from_config(cfg, max_batch=8, max_seq=256,
+        engine = ServeEngine.from_config(cfg, schedule_cache=cache,
+                                         max_batch=8, max_seq=256,
                                          paged=True)
         req = engine.submit(prompt_tokens, max_new_tokens=64, tenant="a")
         engine.run()            # or engine.step() per tick under a loadgen
@@ -88,7 +99,9 @@ class ServeEngine:
                  starvation_bound: int = 8, prefill_chunk: int = 4,
                  admission: str = "continuous",
                  paged: bool = False, share_prefix: bool = True,
-                 debug_invariants: bool = False, rng_seed: int = 0,
+                 debug_invariants: bool = False,
+                 schedule_cache: Optional[Union[ScheduleCache, str]] = None,
+                 on_missing: str = "baseline", rng_seed: int = 0,
                  device=None):
         if cfg.family == "encdec":
             raise ValueError("ServeEngine serves decoder-only families")
@@ -129,13 +142,30 @@ class ServeEngine:
             self.caches = init_caches(cfg, self.max_batch + 1, self.max_seq,
                                       self.device)
 
+        if isinstance(schedule_cache, str):
+            schedule_cache = ScheduleCache(schedule_cache)
+        self.schedule_cache = schedule_cache
+        if schedule_cache is not None:
+            # Lazy import, as in the reference (whose launch.specs imports
+            # serve at module load): importing serve loads no launcher.
+            from repro_torch.launch.specs import kernel_fleet
+            # on_missing="baseline" (default): kernels with missing/corrupt
+            # cached schedules degrade to the -O3 baseline (None plan
+            # entries, counted below); "raise" refuses to start degraded
+            self.plan = schedule_plan(kernel_fleet(cfg), cache=schedule_cache,
+                                      on_missing=on_missing)
+        else:
+            self.plan = {}
+
         self._active: List[SlotState] = []
         self.finished: List[Request] = []
         self.counters = {"engine_steps": 0, "passes": 0, "lane_tokens": 0,
                          "admissions": 0, "stalls": 0, "preemptions": 0,
                          "truncations": 0, "max_active": 0,
                          "prefix_hits": 0, "cow_forks": 0,
-                         "preempt_spills": 0, "resume_uploads": 0}
+                         "preempt_spills": 0, "resume_uploads": 0,
+                         "schedule_fallbacks": sum(
+                             1 for art in self.plan.values() if art is None)}
 
     @classmethod
     def from_config(cls, cfg: ModelConfig, **kwargs) -> "ServeEngine":
@@ -492,6 +522,20 @@ class ServeEngine:
         c["peak_kv_bytes"] = self.peak_kv_bytes()
         return {"engine": c, "pool": self.pool.stats(),
                 "tenants": self.scheduler.fairness_table()}
+
+    def plan_summary(self) -> List[str]:
+        """``kernel@bucket [target]: state`` lines for the resolved plan."""
+        lines = []
+        for key, art in sorted(self.plan.items(), key=str):
+            name, bucket = key if isinstance(key, tuple) else (key, "default")
+            label = name if bucket == "default" else f"{name}@{bucket}"
+            if art is not None:
+                target = art.target or "-"
+                lines.append(f"{label} [{target}]: {art.speedup:.3f}x "
+                             f"({art.optimized_cycles:.0f} cycles)")
+            else:
+                lines.append(f"{label}: not optimized (-O3 baseline)")
+        return lines
 
 
 @torch.inference_mode()

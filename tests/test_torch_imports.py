@@ -22,7 +22,8 @@ SUBPACKAGES = ["repro_torch", "repro_torch.configs", "repro_torch.kernels",
                "repro_torch.core.ppo", "repro_torch.core.game",
                "repro_torch.core.moves", "repro_torch.sched.api",
                "repro_torch.kernels.softmax", "repro_torch.kernels.ssd",
-               "repro_torch.nn.ssm"]
+               "repro_torch.nn.ssm", "repro_torch.costmodel",
+               "repro_torch.launch.evaluate"]
 
 
 def test_import_loads_no_jax_and_no_repro():

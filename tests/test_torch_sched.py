@@ -447,8 +447,11 @@ def test_deploy_and_schedule_plan_measure_nothing(tmp_path, stall_db,
 
 def test_unported_strategies_and_registry(tmp_path, stall_db, monkeypatch):
     """PPO runs (tests/test_torch_ppo.py holds it against the reference);
-    the cost-model strategies still raise, naming ROADMAP A11; the
-    default strategy, ppo, needs a card unless asked for the CPU; the
+    the cost-model strategies, beam and lookahead, build at the
+    launcher's budget and reach the reference's cycles on bmm
+    (tests/test_torch_costmodel.py holds their walks against the
+    reference's); the default strategy, ppo, needs a card unless asked
+    for the CPU; the
     registry holds the seven kernels in the reference's order, ``ssd``
     last, each with its Hopper kernel and its plain version, and an
     unknown name raises ``KeyError`` listing them."""
@@ -460,9 +463,20 @@ def test_unported_strategies_and_registry(tmp_path, stall_db, monkeypatch):
                               verify_seeds=2).optimize("bmm")
     assert res.strategy == "ppo" and res.game is not None
     assert res.artifact.optimized_cycles <= res.artifact.baseline_cycles
-    for name in ("beam", "lookahead"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            make_budgeted_strategy(name)
+    bmm = schedule(lower(get_kernel("bmm").make_spec(
+        get_kernel("bmm").configs[0])))
+    for name, best in (("beam", 8268), ("lookahead", 8270)):
+        strategy = make_budgeted_strategy(name)
+        assert strategy.name == f"{name}-oracle"
+        assert strategy.max_measurements == 8192
+        out = strategy.search(bmm, stall_db=stall_db,
+                              backend=FastTimingBackend(), owner="bmm")
+        jout = jbudgeted(name).search(
+            jschedule(jlower(jget_kernel("bmm").make_spec(
+                jget_kernel("bmm").configs[0]))),
+            stall_db=stall_db, backend=JFast(), owner="bmm")
+        assert (out.baseline_cycles, out.best_cycles) == (8275, best) == \
+            (jout.baseline_cycles, jout.best_cycles)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         OptimizationSession(cache_dir=str(tmp_path / "d"),
@@ -518,6 +532,29 @@ def test_launcher_output_matches_reference(tmp_path, monkeypatch, capsys):
         assert got == want
     assert "[optimize] matmul_leakyrelu: 8294 -> 8289 cycles" in want \
         or "[optimize] matmul_leakyrelu: cached" in want
+
+
+@pytest.mark.parametrize("strategy,cycles", [
+    ("beam", ("8294 -> 8286", "8275 -> 8268")),
+    ("lookahead", ("8294 -> 8288", "8275 -> 8270"))])
+def test_guided_launcher_output_matches_reference(tmp_path, monkeypatch,
+                                                  capsys, strategy, cycles):
+    """``--strategy beam|lookahead`` (the oracle-ranked walks) prints the
+    reference command's lines, shared-memo line included, and the
+    reference's ``--deploy`` reads the port's cache back."""
+    args = [*PAIR, "--strategy", strategy]
+    port_cache = ["--cache-dir", str(tmp_path / "t")]
+    for extra in ([], ["--deploy"]):
+        got = _run_main(toptimize, args + extra + port_cache, monkeypatch,
+                        capsys)
+        want = _run_main(joptimize, args + extra + [
+            "--cache-dir", str(tmp_path / "j")], monkeypatch, capsys)
+        assert got == want
+    assert _run_main(joptimize, args + ["--deploy"] + port_cache,
+                     monkeypatch, capsys) == got
+    for name, c in zip(PAIR, cycles):
+        assert f"[optimize] {name}: cached config " in got and \
+            f" {c} cycles" in got
 
 
 def test_arch_fleet_launcher_matches_reference(tmp_path, monkeypatch,
@@ -577,10 +614,12 @@ def test_ssm_fleet_launcher_matches_reference(tmp_path, monkeypatch,
         "'p': 64, 'n': 128} 3945 -> 3943 cycles" in got
 
 
-def test_launcher_fails_fast_on_unported_paths(tmp_path, monkeypatch):
+def test_launcher_fails_fast_on_unported_paths(tmp_path, monkeypatch,
+                                              capsys):
     """The default strategy, ppo, needs a card and says so before any
     search unless ``--device cpu`` asks for the CPU; the cost-model
-    strategies raise, naming A11."""
+    strategies, beam and lookahead, run on the host without a card and
+    print the reference's cycles on bmm."""
     base = ["--cache-dir", str(tmp_path)]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(sys, "argv", ["optimize", "bmm", *base])
@@ -588,10 +627,14 @@ def test_launcher_fails_fast_on_unported_paths(tmp_path, monkeypatch):
         toptimize.main()                             # --strategy ppo default
     assert not os.path.exists(os.path.join(str(tmp_path),
                                            toptimize.LEDGER_FILENAME))
-    monkeypatch.setattr(sys, "argv", ["optimize", "bmm", "--strategy", "beam",
-                                      *base])
-    with pytest.raises(NotImplementedError, match="A11"):
+    for name, cycles in (("beam", "8275 -> 8268"),
+                         ("lookahead", "8275 -> 8270")):
+        monkeypatch.setattr(sys, "argv", [
+            "optimize", "bmm", "--strategy", name, "--cache-dir",
+            str(tmp_path / name)])
         toptimize.main()
+        assert f"[optimize] bmm: {cycles} cycles (1.001x, {name}-oracle, " \
+            in capsys.readouterr().out
 
 
 # ---------------------------------------------------------------------------

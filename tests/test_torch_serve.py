@@ -10,6 +10,8 @@ paged engine's sharing / copy-on-write / spill counters equal to the JAX
 engine's on a seeded Poisson trace; and the entry points' refusal to run
 on the CPU unless asked."""
 
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -219,6 +221,145 @@ def test_paged_counters_match_jax_on_poisson_trace():
     assert streams == jstreams
     assert counters["prefix_hits"] > 0 and counters["cow_forks"] > 0 \
         and counters["preempt_spills"] > 0, counters
+
+
+# ---------------------------------------------------------------------------
+# tuned schedules resolved by the engine (the schedule plan)
+# ---------------------------------------------------------------------------
+
+def _tuned_cache(pkg, d, stall_db):
+    """A schedule cache written by one package: rmsnorm tuned at the
+    default bucket and bmm at the fleet's first bucket (each dispatched
+    to every bucket of the fleet, 6 of 18 cells); the other kernels
+    untuned."""
+    if pkg == "port":
+        from repro_torch.configs import get_config as cfg_of
+        from repro_torch.launch.specs import kernel_fleet
+        from repro_torch.sched import (OptimizationSession, OptimizeRequest,
+                                       make_budgeted_strategy)
+    else:
+        from repro.configs import get_config as cfg_of
+        from repro.launch.specs import kernel_fleet
+        from repro.sched import (OptimizationSession, OptimizeRequest,
+                                 make_budgeted_strategy)
+    scen = dict(kernel_fleet(cfg_of("qwen1.5-4b", reduced=True)))["bmm"]
+    session = OptimizationSession(
+        strategy=make_budgeted_strategy("greedy", timesteps=64,
+                                        episode_length=8),
+        cache_dir=d, stall_db=stall_db, verify_seeds=2)
+    session.optimize(OptimizeRequest(kernel="rmsnorm"))
+    session.optimize(OptimizeRequest(kernel="bmm", scenario=scen))
+    return d
+
+
+def _plan_lines(out):
+    return [line for line in out.splitlines()
+            if line.startswith(("[serve]   ", "[serve] WARNING",
+                                "[serve] resolved", "[serve] schedule "))]
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_schedule_plan_matches_jax_over_either_packages_cache(
+        tmp_path, stall_db, monkeypatch, capsys, writer):
+    """Over a cache written by either package the port engine resolves
+    the JAX engine's plan: the same ``plan_summary()`` lines (18 cells of
+    qwen1.5-4b's fleet) and fallback count, and both refuse to start
+    under ``on_missing="raise"``.  The serving launchers print the same
+    plan lines and warning in engine and static modes, and
+    ``--strict-schedules`` refuses before serving."""
+    from repro.launch import serve as jlaunch_serve
+    from repro.sched.cache import ScheduleCache as JCache
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.sched.cache import ScheduleCache
+    d = _tuned_cache(writer, str(tmp_path / "cache"), stall_db)
+    cfg, params, jcfg, jparams = _models("qwen1.5-4b")
+    kw = dict(max_batch=2, max_seq=32)
+    engine = ServeEngine.from_config(cfg, params=params, device="cpu",
+                                     schedule_cache=d, **kw)
+    jengine = jserve.ServeEngine.from_config(jcfg, params=jparams,
+                                             schedule_cache=JCache(d), **kw)
+    lines = engine.plan_summary()
+    assert lines == jengine.plan_summary()
+    assert len(lines) == 18 and isinstance(engine.schedule_cache,
+                                           ScheduleCache)
+    assert engine.counters["schedule_fallbacks"] == \
+        jengine.counters["schedule_fallbacks"] == 12
+    assert sum("not optimized (-O3 baseline)" in x for x in lines) == 12
+    assert engine.plan[("rmsnorm", "b32_s32768_f32_full")] is not None
+    for make in (lambda: ServeEngine.from_config(
+            cfg, params=params, device="cpu", schedule_cache=d,
+            on_missing="raise", **kw),
+            lambda: jserve.ServeEngine.from_config(
+                jcfg, params=jparams, schedule_cache=d, on_missing="raise",
+                **kw)):
+        with pytest.raises(FileNotFoundError, match="on_missing='raise'"):
+            make()
+
+    def launch(module, argv):
+        monkeypatch.setattr(sys, "argv", ["serve", *argv])
+        module.main()
+        return _plan_lines(capsys.readouterr().out)
+
+    common = ["--arch", "qwen1.5-4b", "--schedule-cache", d,
+              "--prompt-len", "4", "--new-tokens", "2"]
+    for mode in (["--qps", "50", "--requests", "2"], ["--batch", "1"]):
+        got = launch(launch_serve, common + mode + ["--device", "cpu"])
+        assert got == launch(jlaunch_serve, common + mode)
+        assert len([x for x in got if "@b" in x]) == 18
+    assert "[serve] schedule matmul_leakyrelu@b256_s4096_f32_full: not " \
+        "optimized (-O3 baseline)" in got
+    assert not any(x.startswith("[serve] schedule rmsnorm@") and
+                   "not optimized" in x for x in got)
+    monkeypatch.setattr(launch_serve, "run_load", lambda *a: 1 / 0)
+    with pytest.raises(FileNotFoundError):
+        launch(launch_serve, common + ["--qps", "50", "--device", "cpu",
+                                       "--strict-schedules"])
+
+
+def test_serve_hot_path_zero_measurements(tmp_path, stall_db, monkeypatch):
+    """The port's counterpart of tests/test_serve_engine.py::
+    test_serve_hot_path_zero_measurements: an engine constructed with a
+    schedule cache resolves its whole kernel plan and serves traffic with
+    zero ``Machine.run``/``Machine.time``/autotune calls."""
+    from repro_torch.core import Machine
+    from repro_torch.sched import OptimizationSession, make_budgeted_strategy
+    from repro_torch.sched.cache import ScheduleCache
+    from repro_torch.sched.session import OptimizeRequest
+
+    session = OptimizationSession(
+        strategy=make_budgeted_strategy("greedy", timesteps=64,
+                                        episode_length=8),
+        cache_dir=str(tmp_path / "cache"), stall_db=stall_db,
+        verify_seeds=2)
+    session.optimize(OptimizeRequest(kernel="rmsnorm"))
+
+    calls = {"run": 0, "time": 0, "autotune": 0}
+    real_run, real_time = Machine.run, Machine.time
+    autotune_mod = sys.modules["repro_torch.sched.autotune"]
+
+    def counting(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    monkeypatch.setattr(Machine, "run", counting("run", real_run))
+    monkeypatch.setattr(Machine, "time", counting("time", real_time))
+    monkeypatch.setattr(autotune_mod, "autotune",
+                        counting("autotune", autotune_mod.autotune))
+
+    cfg, params, _, _ = _models("qwen1.5-4b")
+    engine = ServeEngine.from_config(
+        cfg, params=params, max_batch=2, max_seq=32, device="cpu",
+        schedule_cache=ScheduleCache(str(tmp_path / "cache")))
+    rms = {k: v for k, v in engine.plan.items()
+           if (k[0] if isinstance(k, tuple) else k) == "rmsnorm"}
+    assert rms and all(a is not None for a in rms.values())
+    assert any(a is None for a in engine.plan.values())
+    reqs = [engine.submit([1, 2, 3, 4], 4), engine.submit([5, 6], 3)]
+    engine.run()
+    assert [len(r.output) for r in reqs] == [4, 3]
+    assert calls == {"run": 0, "time": 0, "autotune": 0}
 
 
 # ---------------------------------------------------------------------------
