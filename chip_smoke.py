@@ -4,20 +4,24 @@
     python3 chip_smoke.py                  # the seven phases below
     python3 chip_smoke.py --profile DIR    # also: torch.profiler
                                            # breakdowns of decode passes
-                                           # and of a train step, in DIR
+                                           # and of train steps, in DIR
 
 Phases, each printed on lines of its own:
 
 1. card — ``nvidia-smi`` name and power limit; build the kernel library
    from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a) and time it;
 2. kernels — each hand-written kernel against its plain PyTorch version
-   on the card: K1 ``rmsnorm`` in bf16 and f32 at the serving path's 8 x
-   2560, the training paths' 8192 x 2560 and 8192 x 4096 (stablelm-3b's
-   and mamba2-1.3b's gated norm) and a ragged shape; K2 ``fused_ff`` in
-   bf16 and f32 at the serving path's 8 x 2560 . 2560 x 6912, the decode
-   threshold's neighbours (M 1, 3, 9, 16, 32), ragged shapes and the
-   training path's 8192 rows; K6 ``flash_attention`` in f32 and bf16 at
-   the training path's shape, a ragged GQA shape with a window, a
+   on the card: K1 ``rmsnorm`` in bf16 and f32 at the serving paths' 8 x
+   2560, 8 x 2048, 8 x 4096 and 8 x 5120 (qwen1.5-4b's and zamba2-2.7b's
+   norms, mamba2-1.3b's ln1 and gated norm, zamba2-2.7b's gated norm),
+   the training paths' 8192 x 2560, 8192 x 4096 and 8192 x 5120
+   (stablelm-3b's norms, mamba2-1.3b's and zamba2-2.7b's gated norm) and
+   a ragged shape; K2 ``fused_ff`` in bf16 and f32 at the serving path's
+   8 x 2560 . 2560 x 6912, the decode threshold's neighbours (M 1, 3, 9,
+   16, 32), ragged shapes, the training path's 8192 rows and zamba2-2.7b's
+   shared MLP (8 and 8192 rows . 2560 x 10240); K6 ``flash_attention`` in
+   f32 and bf16 at the training paths' shape (stablelm-3b's and
+   zamba2-2.7b's), a ragged GQA shape with a window, a
    non-causal shape and a query offset; K3 ``matmul_leakyrelu`` and K4
    ``bmm`` in f32 and bf16 at ``tests/test_kernels.py``'s shapes, a ragged
    shape and the optimizer path's shapes; K5 ``softmax`` in f32 and bf16
@@ -27,7 +31,9 @@ Phases, each printed on lines of its own:
    query positions); K7 ``ssd`` in f32 and bf16 in the registry's flat
    layout at ``tests/test_kernels.py``'s shape (chunk 32 and 64) and in
    the model layout at the SSM training path's shape (mamba2-1.3b: (4,
-   2048, 64, 64) x (4, 2048, 1, 128)), a ragged two-group shape, chunk
+   2048, 64, 64) x (4, 2048, 1, 128)), the hybrid's (zamba2-2.7b: (4,
+   2048, 80, 64) x (4, 2048, 2, 64), N 64 through the N 128 instance,
+   zero-padded), a ragged two-group shape, chunk
    128, P 128 with N 64, a strong decay, widths only its SIMT instance
    takes, a batch of one (timed with the segments the kernel picks and
    with one) and chunk counts that those segments do not divide; K6 in bf16 at each ``CONFIGS`` entry (bq, bk, d) on a
@@ -50,24 +56,33 @@ Phases, each printed on lines of its own:
    (host time included) and as device time (``device_ms``: its kernels'
    own time from torch.profiler), its plain version's and a library
    yardstick's beside its bound;
-3. device against host — full-width qwen1.5-4b cut to 2 layers, f32:
-   decode logits agree; full-width stablelm-3b and mamba2-1.3b cut to 2
-   layers, f32: one train step's loss and grad-norm agree (the grad-norm
-   within a bound set by the host's own f32 error against an f64
-   evaluation);
-4. serving main path — qwen1.5-4b at full width, bf16, seeded random
-   weights, 16 loadgen requests from 2 tenants through the paged
-   ``ServeEngine`` (8 lanes); every request completes with in-vocab
-   tokens, and the kernels' launch counts equal engine passes x 81
-   (rmsnorm) and x 40 (fused_ff);
-5. training main paths — stablelm-3b, then mamba2-1.3b, at full width,
-   bf16, remat, seq 2048, global batch 4, 3 steps of ``Trainer`` each;
-   every loss and grad-norm is finite, step 0's loss agrees with the same
-   loss evaluated with every kernel replaced by its plain version, and
-   the launch counts equal steps x (4L + 1) (rmsnorm), x 2L (fused_ff)
-   and x 2L (flash_attention) for stablelm-3b, and steps x (4L + 1)
-   (rmsnorm) and x 2L (ssd) for mamba2-1.3b: forward and per-layer
-   recompute;
+3. device against host — full-width qwen1.5-4b and mamba2-1.3b cut to
+   2 layers, f32: paged decode logits agree; full-width stablelm-3b and
+   mamba2-1.3b cut to 2 layers and zamba2-2.7b cut to 12 (two groups:
+   the shared block's gradient sums two applications), f32: one train
+   step's loss and grad-norm agree (the grad-norm within a bound set by
+   the host's own f32 error against an f64 evaluation);
+4. serving main paths — qwen1.5-4b, mamba2-1.3b and zamba2-2.7b at full
+   width, bf16, seeded random weights, each 16 loadgen requests from 2
+   tenants through the paged ``ServeEngine`` (8 lanes); every request
+   completes with in-vocab tokens, and the kernels' launch counts equal
+   engine passes x ``serve_sites``: rmsnorm 2L + 1 and fused_ff L
+   (qwen1.5-4b: 81, 40), rmsnorm 2L + 1 (mamba2-1.3b: 97), rmsnorm 2L +
+   2G + 1 and fused_ff G over G shared-block applications (zamba2-2.7b:
+   127, 9); then zamba2-2.7b with its pool cut to 48 blocks, the trace's
+   first 8 requests at once: at least one spill of pages and recurrent
+   slot rows and one resume by upload, every request complete;
+5. training main paths — stablelm-3b, mamba2-1.3b, then zamba2-2.7b, at
+   full width, bf16, remat, seq 2048, global batch 4, 3 steps of
+   ``Trainer`` each; every loss and grad-norm is finite, step 0's loss
+   agrees with the same loss evaluated with every kernel replaced by its
+   plain version, and the launch counts equal steps x ``train_sites``,
+   forward and recompute: (4L + 1) (rmsnorm), 2L (fused_ff) and 2L
+   (flash_attention) for stablelm-3b; (4L + 1) (rmsnorm) and 2L (ssd)
+   for mamba2-1.3b; (4L + 4G + 1) (rmsnorm: 253), 2L (ssd: 108), 2G
+   (flash_attention, fused_ff: 18) for zamba2-2.7b, whose remat
+   recomputes each group of 6 Mamba-2 layers and the shared block as
+   one unit;
 6. optimizer main paths — (a) ``python -m repro_torch.launch.optimize
    matmul_leakyrelu bmm --strategy greedy`` into a fresh schedule cache
    must print the reference's cycles (8294 -> 8289, 8275 -> 8271), then
@@ -85,8 +100,9 @@ Phases, each printed on lines of its own:
    through the registry at the first bucket's config, in bf16 and f32, at
    the path's shapes, held against ``ref_fn``, twice each; (c) the SSM
    fleet: ``--arch mamba2-1.3b --strategy greedy`` into a fresh cache
-   must print the reference's 16 cells and memo line, ``--deploy`` must
-   read them back, and the deployed ``ssd`` is launched through the
+   must print the reference's 16 cells and memo line (the cache kept
+   for (h)), ``--deploy`` must read them back, and the deployed ``ssd``
+   is launched through the
    registry at the first bucket's config in bf16 and f32, once a call;
    (d) the deployed config chooses the tiling: K3's and K4's deployed
    configs (the pair's), K1's, K2's, K5's and K6's (the fleet's first
@@ -116,9 +132,15 @@ Phases, each printed on lines of its own:
    request with in-vocab tokens, and launches K1 and K2 passes x 81 and
    x 40 times; over an empty cache it exits non-zero before serving, and
    without ``--strict-schedules`` serves with 18 ``-O3 baseline`` lines,
-   the warning and 18 ``schedule_fallbacks``;
+   the warning and 18 ``schedule_fallbacks``; (h) tuned SSM serving:
+   ``launch.serve --arch mamba2-1.3b --full --qps 4 --requests 8
+   --schedule-cache DIR --strict-schedules`` over the cache (c) wrote
+   prints the 16-line plan with no fallback, completes every request and
+   launches K1 passes x 97 times;
 7. the ``{"kernels": [...]}`` line (K1-K7, with their launches by path
-   and by path and tiling),
+   — serve, serve_ssm, serve_hybrid, serve_hybrid_spill, train,
+   train_ssm, train_hybrid and the optimizer paths — and by path and
+   tiling),
    then the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line.  No phase catches its
@@ -175,6 +197,16 @@ SOFTMAX_ROWS = 20 * 2048
 # gated norm's width); K7 in the model layout.
 SSM_ARCH, D_INNER = "mamba2-1.3b", 4096
 SSM_SHAPE = (BATCH, SEQ, 64, 1, 64, 128)       # B, S, H, G, P, N
+# Its serving path: 8 lanes of d_model 2048 (ln1) and d_inner 4096 (the
+# gated norm).
+SSM_D_MODEL = 2048
+# The hybrid paths, zamba2-2.7b at full width: 54 Mamba-2 layers of
+# d_model 2560 (d_inner 5120: 80 SSD heads of P 64 in 2 groups, state N
+# 64) and one shared attention + MLP block (32 heads of 80, d_ff 10240)
+# after every 6 (9 applications); trained at global batch 4 x seq 2048.
+HYBRID_ARCH = "zamba2-2.7b"
+HYBRID_D_INNER, HYBRID_D_FF = 5120, 10240
+HYBRID_SSM_SHAPE = (BATCH, SEQ, 80, 2, 64, 64)  # B, S, H, G, P, N
 # The SSM fleet: greedy over mamba2-1.3b's 4 kernels x 4 buckets, the
 # reference's cycles (the same in the first three buckets)
 SSM_FLEET_CYCLES = {"matmul_leakyrelu": ("35519 -> 35504", "10458 -> 10455"),
@@ -215,7 +247,7 @@ def fail(msg: str) -> None:
 
 
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.strftime('%H:%M:%S')})", flush=True)
 
 
 def event_ms(fn, iters: int = 30, warmup: int = 5) -> float:
@@ -376,8 +408,10 @@ def alternatives(mod, cases, check, iters=30):
 
 
 def rmsnorm_checks(gen, records):
-    """K1 at the serving path's 8 x 2560, the training paths' 8192 x 2560
-    and 8192 x 4096 and a ragged 13 x 1001, in bf16 and f32, each
+    """K1 at the serving paths' 8 x 2560 (qwen1.5-4b; zamba2-2.7b's ln1),
+    8 x 2048 and 8 x 4096 (mamba2-1.3b's ln1 and gated norm) and 8 x 5120
+    (zamba2-2.7b's gated norm), the training paths' 8192 x 2560, 8192 x
+    4096 and 8192 x 5120 and a ragged 13 x 1001, in bf16 and f32, each
     launching the instance ``select_tiling`` names; in bf16 at the path
     shapes, timed beside ``F.rms_norm``, with the instance of every br of
     ``CONFIGS`` that divides the rows (through ``br=``, as a deployed
@@ -395,8 +429,12 @@ def rmsnorm_checks(gen, records):
     for dname, dt in (("bfloat16", torch.bfloat16),
                       ("float32", torch.float32)):
         for rows, cols, path in ((LANES, D_MODEL, "serve"), (13, 1001, None),
+                                 (LANES, SSM_D_MODEL, "serve_ssm"),
+                                 (LANES, D_INNER, "serve_ssm"),
+                                 (LANES, HYBRID_D_INNER, "serve_hybrid"),
                                  (ROWS, D_MODEL, "train"),
-                                 (ROWS, D_INNER, "train_ssm")):
+                                 (ROWS, D_INNER, "train_ssm"),
+                                 (ROWS, HYBRID_D_INNER, "train_hybrid")):
             x = (torch.randn(rows, cols, device="cuda", generator=gen)
                  * 0.5).to(dt)
             g = (torch.randn(cols, device="cuda", generator=gen) * 0.5
@@ -454,8 +492,9 @@ def wgmma_at(tiling, x, w_gate, w_up):
 def fused_ff_checks(gen, records):
     """K2 at the serving path's 8 x 2560 . 2560 x 6912, the decode
     threshold's neighbours (M 1, 3, 9, 16, 32), ragged shapes (M not a
-    multiple of 128, N not a multiple of 8; K and N ragged at decode) and
-    the training path's 8192 rows, in bf16 and f32, each launching the
+    multiple of 128, N not a multiple of 8; K and N ragged at decode),
+    the training path's 8192 rows, and zamba2-2.7b's shared MLP (8 and
+    8192 rows . 2560 x 10240), in bf16 and f32, each launching the
     instance ``select_tiling`` names; in bf16 at the path shapes timed
     beside the cuBLAS composite, the serving shape also on the default
     wgmma instance (``wgmma_at``), the training shape at every ``CONFIGS``
@@ -474,7 +513,9 @@ def fused_ff_checks(gen, records):
         (3, D_MODEL, D_FF, None), (LANES + 1, D_MODEL, D_FF, "threshold"),
         (16, D_MODEL, D_FF, "threshold"), (32, D_MODEL, D_FF, "threshold"),
         (3, 1001, 777, None), (300, D_MODEL, 777, None),
-        (300, D_MODEL, 776, None), (ROWS, D_MODEL, D_FF, "train")]
+        (300, D_MODEL, 776, None), (ROWS, D_MODEL, D_FF, "train"),
+        (LANES, D_MODEL, HYBRID_D_FF, "serve_hybrid"),
+        (ROWS, D_MODEL, HYBRID_D_FF, "train_hybrid")]
     for dname, dt in (("bfloat16", torch.bfloat16),
                       ("float32", torch.float32)):
         for m, k, n, path in cases:
@@ -485,7 +526,8 @@ def fused_ff_checks(gen, records):
             # L2, as a decode pass does.
             ws = [tuple((torch.randn(k, n, device="cuda", generator=gen)
                          * k ** -0.5).to(dt) for _ in range(2))
-                  for _ in range(4 if path in ("serve", "threshold") else 1)]
+                  for _ in range(4 if path in ("serve", "serve_hybrid",
+                                               "threshold") else 1)]
             shape = f"{m}x{k}x{n} {dname}"
             plain = ops.fused_ff(x, *ws[0], impl="ref")
             got, ran = launched(ff_mod, lambda: ff_mod.fused_ff(x, *ws[0]))
@@ -509,7 +551,7 @@ def fused_ff_checks(gen, records):
                 check_close(f"fused_ff {shape} {t}", out, plain,
                             *tol[dname])
 
-            iters = 10 if path == "train" else 30
+            iters = 10 if path.startswith("train") else 30
             if path == "serve":
                 # the wgmma route below its threshold: what the threshold
                 # weighs the gemv route against
@@ -596,7 +638,9 @@ def flash_attention_checks(gen, records):
                 (2 * B * H * Sq + 2 * B * KH * Sk) * D * el,
                 4 * B * H * D * pairs, dname,
                 timed(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True), 20), tiling=tiling))
+                    q, k, v, is_causal=True), 20), tiling=tiling,
+                note="also zamba2-2.7b's training shape (train_hybrid: "
+                     "its shared block's 32 heads of 80)"))
     # bf16 at each CONFIGS entry (bq, bk, d): a causal shape, and grouped
     # KV heads with a window and a query offset; each must launch its own
     # wgmma instance
@@ -855,8 +899,10 @@ def ssd_checks(gen, records):
     """K7 in the model layout, and in the registry's flat layout at
     ``tests/test_kernels.py``'s shape, against its plain version, each
     case launching the instance ``select_tiling`` names for its chunk; at
-    the training shape timed in f32 and bf16, with bf16's other chunk
-    (128 beside the model's 64) checked, asserted and timed beside it."""
+    the training shapes (mamba2-1.3b's, and zamba2-2.7b's N 64 through
+    the N 128 instance, zero-padded) timed in f32 and bf16, with bf16's
+    other chunk (128 beside the model's 64) checked, asserted and timed
+    beside it."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd as ssd_mod
@@ -865,6 +911,7 @@ def ssd_checks(gen, records):
         ((2, 128, 1, 1, 32, 16), 32, False, True, None),
         ((2, 128, 1, 1, 32, 16), 64, False, True, None),
         (SSM_SHAPE, 64, False, False, "train_ssm"),
+        (HYBRID_SSM_SHAPE, 64, False, False, "train_hybrid"),
         ((2, 1000, 8, 2, 64, 64), 64, False, False, None),
         (SSM_SHAPE, 128, False, False, None),
         ((2, 1024, 16, 1, 128, 64), 64, False, False, None),
@@ -1025,14 +1072,19 @@ def kernel_phase():
 # phase 3: the same decode on the card and on the host
 # ---------------------------------------------------------------------------
 
-def device_host_phase():
+def device_host_phase(arch):
+    """Four paged decode passes of ``arch`` (qwen1.5-4b, mamba2-1.3b) at
+    full width cut to 2 layers, f32, on the card and on the host from the
+    same parameters, tokens and block table; recurrent slot rows are
+    passed gathered to the 8 lanes, as the engine passes them."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import lm
     from repro_torch.serve import init_paged_caches, paged_decode_step
+    from repro_torch.serve.decode import paged_cache_kinds
 
-    cfg = get_config("qwen1.5-4b").replace(n_layers=2, dtype="float32")
+    cfg = get_config(arch).replace(n_layers=2, dtype="float32")
     params = lm.init_model(cfg, torch.Generator().manual_seed(0))
     dparams = _tree_to(params, "cuda")
     B, bs, steps = LANES, 16, 4
@@ -1040,8 +1092,13 @@ def device_host_phase():
     table = torch.from_numpy(
         rng.permutation(B * 2).reshape(B, 2).astype(np.int64))
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (steps, B, 1)))
-    host = init_paged_caches(cfg, B * 2, bs, B)
-    dev = init_paged_caches(cfg, B * 2, bs, B, "cuda")
+
+    def lanes(caches):
+        return [{k: a[:B] for k, a in c.items()} if kind == "slot" else c
+                for c, kind in zip(caches, paged_cache_kinds(cfg))]
+
+    host = lanes(init_paged_caches(cfg, B * 2, bs, B))
+    dev = lanes(init_paged_caches(cfg, B * 2, bs, B, "cuda"))
     wmask = torch.ones(B, dtype=torch.bool)
     worst = 0.0
     for t in range(steps):
@@ -1055,17 +1112,19 @@ def device_host_phase():
         worst = max(worst, err / scale)
         print(f"  pass {t}: max|d| {err:.3e} of max|logit| {scale:.1f}",
               flush=True)
-    # f32 dot products over 2560-6912 terms, summed in other orders on the
+    # f32 dot products over 2048-6912 terms, summed in other orders on the
     # two devices (no TF32): a relative bound on the logit scale.
-    print(f"  worst max|d| / max|logit| {worst:.3e} (bound 1e-5)", flush=True)
+    print(f"  {arch}: worst max|d| / max|logit| {worst:.3e} (bound 1e-5)",
+          flush=True)
     if not worst <= 1e-5:
-        fail("device and host decode logits disagree")
+        fail(f"device and host decode logits of {arch} disagree")
 
 
-def device_host_train_step(arch):
-    """One train step of ``arch`` (stablelm-3b, mamba2-1.3b) at full
-    width cut to 2 layers, f32, on the card and on the host from the same
-    parameters and batch.
+def device_host_train_step(arch, n_layers=2):
+    """One train step of ``arch`` (stablelm-3b, mamba2-1.3b; zamba2-2.7b
+    cut to 12 layers: two groups, so that the shared block's gradient
+    sums two applications) at full width cut to ``n_layers`` layers, f32,
+    on the card and on the host from the same parameters and batch.
 
     The loss agrees within 1e-4 relative.  The grad-norm cannot: with the
     reference's initialisation (a tied N(0, 1) embedding at width 2560,
@@ -1083,7 +1142,7 @@ def device_host_train_step(arch):
     from repro_torch.train import TrainState, compute_grads, make_train_step
     from repro_torch.utils.tree import global_norm
 
-    cfg = get_config(arch).replace(n_layers=2, dtype="float32")
+    cfg = get_config(arch).replace(n_layers=n_layers, dtype="float32")
     batch = make_data(cfg, 128, 2, seed=0).batch_at(0)
     params = lm.init_model(cfg, torch.Generator().manual_seed(0))
     metrics = {}
@@ -1154,27 +1213,81 @@ def _expected_launches(**counts):
     return {name: counts.get(name, 0) for name in KERNELS}
 
 
-def serve_phase(profile_dir):
+# the serving trace: a seeded Poisson trace of 16 requests at 4 a second
+# from 2 tenants, prompts of 64-128 tokens, 32-64 generated
+SERVE_TRAFFIC = dict(qps=4.0, n_requests=16, n_tenants=2,
+                     prompt_len=(64, 128), output_len=(32, 64), seed=0)
+# The spill run: the trace's first 8 requests submitted at once into a
+# pool cut to 48 blocks of 16 positions (from 8 lanes x 256 = 128
+# blocks).  Which requests stall and spill then depends on the pool
+# alone, not on the clock: 2 spills and 2 resumes (the same run on the
+# host at reduced widths: the pool's accounting does not depend on the
+# widths).
+PREEMPT_REQUESTS, PREEMPT_KV_BLOCKS = 8, 48
+
+
+def serve_sites(cfg):
+    """Kernel launches a decode pass of ``cfg`` makes, by kernel: K1 at
+    each norm (a dense layer's two, a Mamba-2 layer's ln1 and gated norm,
+    the hybrid's shared block's two at each of its applications) and at
+    the final norm, K2 at each MLP."""
+    shared = (cfg.n_layers // cfg.shared_attn_every
+              if cfg.family == "hybrid" else 0)
+    return {"rmsnorm": 2 * cfg.n_layers + 2 * shared + 1,
+            "fused_ff": cfg.n_layers if cfg.family == "dense" else shared}
+
+
+def _serve_engine(arch, **kw):
+    """(cfg, engine): the paged ``ServeEngine`` over ``arch`` at full
+    width, bf16, seeded random weights, 8 lanes of 256 positions, warmed
+    up."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.serve import ServeEngine, Tenant, TrafficConfig, run_load
+    from repro_torch.serve import ServeEngine, Tenant
     from repro_torch.utils.tree import param_count
 
-    cfg = get_config("qwen1.5-4b")
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     engine = ServeEngine.from_config(
         cfg, max_batch=LANES, max_seq=256, block_size=16, paged=True,
-        tenants=[Tenant("t0"), Tenant("t1")], rng_seed=0, device="cuda")
+        tenants=[Tenant("t0"), Tenant("t1")], rng_seed=0, device="cuda",
+        **kw)
     torch.cuda.synchronize()
     n_params = param_count(engine.params)
     print(f"  {cfg.name}: {n_params / 1e9:.3f} B parameters in bf16, made "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
     engine.generate([1, 2, 3], 2, tenant="t0")      # warm-up: cuBLAS etc.
     engine.finished.clear()
-    traffic = TrafficConfig(qps=4.0, n_requests=16, n_tenants=2,
-                            prompt_len=(64, 128), output_len=(32, 64),
-                            vocab=cfg.vocab, seed=0)
+    return cfg, engine
 
+
+def _check_served(cfg, engine, n_requests, passes, launches):
+    """Every request finished whole with in-vocab tokens, and the kernels
+    launched ``serve_sites`` times a pass."""
+    reqs = engine.finished
+    bad = [r.id for r in reqs if r.truncated or len(r.output)
+           != r.max_new_tokens or not all(0 <= t < cfg.vocab
+                                          for t in r.output)]
+    if len(reqs) != n_requests or bad:
+        fail(f"{cfg.name}: {len(reqs)} of {n_requests} requests finished; "
+             f"incomplete or out of vocab: {bad}")
+    want = _expected_launches(**{name: passes * n for name, n
+                                 in serve_sites(cfg).items()})
+    print(f"  passes {passes}; launches {launches}; expected {want} "
+          f"({serve_sites(cfg)} a pass); by tiling {launches.tilings}",
+          flush=True)
+    if launches != want or passes == 0:
+        fail(f"the {cfg.name} serving path did not go through the kernels "
+             f"once per site")
+
+
+def serve_phase(arch, profile_dir):
+    """``arch`` served through the paged engine on the serving trace."""
+    import torch
+    from repro_torch.serve import TrafficConfig, run_load
+
+    cfg, engine = _serve_engine(arch)
+    traffic = TrafficConfig(vocab=cfg.vocab, **SERVE_TRAFFIC)
     passes0 = engine.counters["passes"]
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
@@ -1182,22 +1295,11 @@ def serve_phase(profile_dir):
     torch.cuda.synchronize()
     launches = _read_launches()
     passes = engine.counters["passes"] - passes0
-
-    reqs = engine.finished
-    bad = [r.id for r in reqs if r.truncated or len(r.output)
-           != r.max_new_tokens or not all(0 <= t < cfg.vocab
-                                          for t in r.output)]
     print(f"  requests completed {report['completed']}/"
           f"{report['n_requests']}, tokens {report['tokens']}", flush=True)
-    if report["completed"] != traffic.n_requests or len(reqs) \
-            != traffic.n_requests or bad:
-        fail(f"requests incomplete or out of vocab: {bad}")
-    want = _expected_launches(rmsnorm=passes * (2 * cfg.n_layers + 1),
-                              fused_ff=passes * cfg.n_layers)
-    print(f"  passes {passes}; launches {launches}; expected {want}; by "
-          f"tiling {launches.tilings}", flush=True)
-    if launches != want or passes == 0:
-        fail("the main path did not go through the kernels once per site")
+    if report["completed"] != traffic.n_requests:
+        fail(f"{arch}: requests incomplete")
+    _check_served(cfg, engine, traffic.n_requests, passes, launches)
     stats = {
         "tokens_per_s": report["tokens_per_s"],
         "latency_p50_s": report["latency_p50_s"],
@@ -1207,11 +1309,52 @@ def serve_phase(profile_dir):
         "wall_s": report["wall_s"], "passes": passes,
         "ms_per_pass": report["wall_s"] * 1e3 / passes,
         "lane_utilization": report["stats"]["engine"]["lane_utilization"],
+        "peak_kv_bytes": engine.peak_kv_bytes(),
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    print("  serving main path " + json.dumps(stats), flush=True)
+    print(f"  serving main path ({arch}) " + json.dumps(stats), flush=True)
     if profile_dir:
         profile_passes(engine, cfg, profile_dir)
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def preempt_phase(arch):
+    """``arch`` with its pool cut (``PREEMPT_KV_BLOCKS``): the serving
+    trace's first ``PREEMPT_REQUESTS`` requests, submitted at once, must
+    spill at least one request's pages and recurrent slot rows to the
+    host and resume it by upload, and every request must complete."""
+    import torch
+    from repro_torch.serve import TrafficConfig, poisson_trace
+
+    cfg, engine = _serve_engine(arch, kv_blocks=PREEMPT_KV_BLOCKS)
+    trace = poisson_trace(TrafficConfig(**dict(
+        SERVE_TRAFFIC, n_requests=PREEMPT_REQUESTS, vocab=cfg.vocab)),
+        ["t0", "t1"])
+    for a in trace:
+        engine.submit(a.prompt, a.max_new_tokens, tenant=a.tenant)
+    passes0 = engine.counters["passes"]
+    _reset_launches()
+    t0 = time.perf_counter()
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    passes = engine.counters["passes"] - passes0
+    _check_served(cfg, engine, PREEMPT_REQUESTS, passes, launches)
+    c = engine.counters
+    stats = {k: c[k] for k in ("preemptions", "preempt_spills",
+                               "resume_uploads", "stalls")}
+    stats.update(passes=passes, wall_s=wall, kv_blocks=PREEMPT_KV_BLOCKS,
+                 ms_per_pass=wall * 1e3 / passes,
+                 resume_tokens=sum(len(r.resume_tokens)
+                                   for r in engine.finished))
+    print(f"  spill run ({arch}) " + json.dumps(stats), flush=True)
+    if c["preempt_spills"] < 1 or c["resume_uploads"] < 1 \
+            or stats["resume_tokens"]:
+        fail(f"{arch} with {PREEMPT_KV_BLOCKS} blocks: no spill and resume, "
+             f"or a resume that recomputed: {stats}")
     del engine
     torch.cuda.empty_cache()
     return launches
@@ -1247,7 +1390,7 @@ def _write_profile(out_dir, name, lines, prof):
 
 def profile_passes(engine, cfg, out_dir: str, n_passes: int = 8):
     """torch.profiler over steady decode passes: device busy share and
-    time by kernel, written to ``out_dir``/profile_main_path.txt."""
+    time by kernel, written to ``out_dir``/profile_decode_ARCH.txt."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1268,7 +1411,7 @@ def profile_passes(engine, cfg, out_dir: str, n_passes: int = 8):
         wall = time.perf_counter() - t0
     done = engine.counters["passes"] - before
     lines, busy_us = _kernel_breakdown(prof)
-    _write_profile(out_dir, "profile_main_path.txt", lines, prof)
+    _write_profile(out_dir, f"profile_decode_{cfg.name}.txt", lines, prof)
     print(f"  profile: {done} passes in {wall * 1e3:.1f} ms wall (profiler "
           f"on), device busy {busy_us / 1e3:.1f} ms = {busy_us / 1e6 / wall:.1%}"
           f" of wall; kernel time by name:", flush=True)
@@ -1283,14 +1426,20 @@ def profile_passes(engine, cfg, out_dir: str, n_passes: int = 8):
 TRAIN_STEPS = 3
 
 
-# launches a train step of L layers, by kernel: forward and per-layer
-# recompute (remat), and the final norm once
-TRAIN_SITES = {
-    "stablelm-3b": {"rmsnorm": lambda L: 4 * L + 1,
-                    "fused_ff": lambda L: 2 * L,
-                    "flash_attention": lambda L: 2 * L},
-    SSM_ARCH: {"rmsnorm": lambda L: 4 * L + 1, "ssd": lambda L: 2 * L},
-}
+def train_sites(cfg):
+    """Kernel launches a train step of ``cfg`` makes, by kernel: every
+    site of a decode pass (``serve_sites``) but the final norm twice, in
+    the forward and in the recompute of remat (per layer, or per group of
+    Mamba-2 layers and the shared block that follows it), and the final
+    norm once; K6 at each attention, K7 at each Mamba-2 layer, likewise
+    twice."""
+    sites = serve_sites(cfg)
+    attn = {"dense": cfg.n_layers, "ssm": 0,
+            "hybrid": sites["fused_ff"]}[cfg.family]
+    return {"rmsnorm": 2 * (sites["rmsnorm"] - 1) + 1,
+            "fused_ff": 2 * sites["fused_ff"],
+            "flash_attention": 2 * attn,
+            "ssd": 0 if cfg.family == "dense" else 2 * cfg.n_layers}
 
 
 def train_phase(arch, profile_dir):
@@ -1338,7 +1487,7 @@ def train_phase(arch, profile_dir):
             math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
             for r in log):
         fail("a training loss or grad-norm is not finite")
-    # bf16 activations through 32 or 48 layers: the kernels and the plain
+    # bf16 activations through 32 to 54 layers: the kernels and the plain
     # versions round the same values to bf16 at the same places, but
     # their f32 sums run in other orders, so bf16 roundings may flip.
     rel = abs(log[0]["loss"] - plain_loss) / abs(plain_loss)
@@ -1348,10 +1497,10 @@ def train_phase(arch, profile_dir):
     if not rel <= 1e-2:
         fail("step 0's loss disagrees with the plain versions' loss")
     want = _expected_launches(**{
-        name: TRAIN_STEPS * per_step(cfg.n_layers)
-        for name, per_step in TRAIN_SITES[arch].items()})
-    print(f"  launches {launches}; expected {want} (forward and per-layer "
-          f"recompute); by tiling {launches.tilings}", flush=True)
+        name: TRAIN_STEPS * n for name, n in train_sites(cfg).items()})
+    print(f"  launches {launches}; expected {want} ({train_sites(cfg)} a "
+          f"step: forward and recompute); by tiling {launches.tilings}",
+          flush=True)
     if launches != want:
         fail("the training path did not go through the kernels once per "
              "site and pass")
@@ -1680,48 +1829,40 @@ _GREEDY_CELL = re.compile(r"\[optimize\] (\w+)@(\w+): (\d+ -> \d+) cycles "
                           r"\([0-9.]+x, greedy, ")
 
 
-def ssm_fleet_phase():
+def ssm_fleet_phase(cache_dir):
     """(c) The SSM fleet, greedy: ``python -m repro_torch.launch.optimize
-    --arch mamba2-1.3b --strategy greedy`` into a fresh cache prints the
+    --arch mamba2-1.3b --strategy greedy`` into ``cache_dir`` (a fresh
+    cache, kept for 6(h)) prints the
     reference's 16 cells (4 kernels x 4 buckets) and its campaign and memo
     lines, and ``--deploy`` reads the 16 back; then the deployed ``ssd``
     is launched through the registry, ``get_kernel("ssd").kernel_fn(x, a,
     b, c, **artifact.config)``, at the first bucket's config on the flat
     path's shape (mamba2-1.3b's 64 heads x batch 4 as 256 rows of 2048
     positions), in bf16 and f32, held against ``ref_fn``, once a call."""
-    import shutil
-    import tempfile
-
     import torch
     from repro_torch.kernels import get_kernel
     from repro_torch.sched import OptimizationSession, Scenario
 
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_ssm_",
-                                 dir=os.path.join(ROOT, "build"))
-    try:
-        fleet = ["--arch", SSM_ARCH, "--strategy", "greedy", "--cache-dir",
-                 cache_dir]
-        searched, wall = _optimize_cli(*fleet)
-        deployed, deploy_wall = _optimize_cli(*fleet, "--deploy")
-        cells = {(m.group(1), m.group(2)): m.group(3)
-                 for m in map(_GREEDY_CELL.match, searched) if m}
-        want = {(name, bucket): cycles[bucket == SSM_BUCKETS[-1]]
-                for name, cycles in SSM_FLEET_CYCLES.items()
-                for bucket in SSM_BUCKETS}
-        if cells != want:
-            fail(f"the SSM fleet printed {cells}, not the reference's {want}")
-        for tail in SSM_FLEET_TAIL:
-            if not any(line.startswith(tail) for line in searched):
-                fail(f"the SSM fleet did not print {tail!r}")
-        back = {(m.group(1), m.group(2)): f"{m.group(4)} -> {m.group(5)}"
-                for m in map(_DEPLOYED.match, deployed) if m}
-        if back != want:
-            fail(f"--deploy read back {back}")
-        config = OptimizationSession(strategy="greedy", cache_dir=cache_dir) \
-            .deploy("ssd", scenario=Scenario.parse(FLEET_BUCKET)).config
-    finally:
-        shutil.rmtree(cache_dir)
+    fleet = ["--arch", SSM_ARCH, "--strategy", "greedy", "--cache-dir",
+             cache_dir]
+    searched, wall = _optimize_cli(*fleet)
+    deployed, deploy_wall = _optimize_cli(*fleet, "--deploy")
+    cells = {(m.group(1), m.group(2)): m.group(3)
+             for m in map(_GREEDY_CELL.match, searched) if m}
+    want = {(name, bucket): cycles[bucket == SSM_BUCKETS[-1]]
+            for name, cycles in SSM_FLEET_CYCLES.items()
+            for bucket in SSM_BUCKETS}
+    if cells != want:
+        fail(f"the SSM fleet printed {cells}, not the reference's {want}")
+    for tail in SSM_FLEET_TAIL:
+        if not any(line.startswith(tail) for line in searched):
+            fail(f"the SSM fleet did not print {tail!r}")
+    back = {(m.group(1), m.group(2)): f"{m.group(4)} -> {m.group(5)}"
+            for m in map(_DEPLOYED.match, deployed) if m}
+    if back != want:
+        fail(f"--deploy read back {back}")
+    config = OptimizationSession(strategy="greedy", cache_dir=cache_dir) \
+        .deploy("ssd", scenario=Scenario.parse(FLEET_BUCKET)).config
     print(f"  SSM fleet: {len(cells)} cells as the reference's, "
           f"search {wall:.1f} s, deploy {deploy_wall:.1f} s; ssd deployed "
           f"at {config}", flush=True)
@@ -2011,6 +2152,65 @@ _PLAN_LINE = re.compile(r"\[serve\]   (\w+)@(\w+)(?: \[\S+\])?: (.*)$")
 _TUNED = re.compile(r"[0-9.]+x \(\d+ cycles\)$")
 
 
+def _serve_in_process(arch, cache, *extra):
+    """``launch.serve --arch ARCH --full --qps 4 --requests 8
+    --schedule-cache CACHE EXTRA`` through the launcher's ``main`` in this
+    process, so that its engine and the kernels' counts can be read:
+    every request must finish whole with in-vocab tokens, and the kernels
+    launch ``serve_sites`` times a pass.  Returns (the launches, the
+    plan lines' states, stats)."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.launch import serve as launch_serve
+
+    engines = []
+
+    class Recorded(launch_serve.ServeEngine):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            engines.append(self)
+
+    real, launch_serve.ServeEngine = launch_serve.ServeEngine, Recorded
+    buf = io.StringIO()
+    argv = ["--arch", arch, "--full", "--qps", "4", "--requests",
+            str(TUNED_REQUESTS), "--schedule-cache", cache, *extra]
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            launch_serve.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        launch_serve.ServeEngine = real
+        print(f"  launch.serve {' '.join(argv)}  "
+              f"({time.perf_counter() - t0:.1f} s)\n"
+              + "\n".join("    " + line
+                          for line in buf.getvalue().splitlines()),
+              flush=True)
+    launches = _read_launches()
+    engine, = engines
+    passes = engine.counters["passes"]
+    _check_served(engine.cfg, engine, TUNED_REQUESTS, passes, launches)
+    lines = buf.getvalue().splitlines()
+    plan = [m.group(3) for m in map(_PLAN_LINE.match, lines) if m]
+    warned = [line for line in lines if line.startswith("[serve] WARNING: ")]
+    stats = {"passes": passes, "plan_lines": len(plan),
+             "schedule_fallbacks": engine.counters["schedule_fallbacks"],
+             "warnings": warned}
+    del engines, engine
+    torch.cuda.empty_cache()
+    return launches, plan, stats
+
+
+def _tuned(plan, stats, cells):
+    """Whether ``plan`` is ``cells`` tuned lines, with no fallback."""
+    return (len(plan) == cells and all(map(_TUNED.search, plan))
+            and not stats["warnings"] and stats["schedule_fallbacks"] == 0)
+
+
 def tuned_serve_phase(cache_dir):
     """(g) Tuned schedules served: ``launch.serve --arch qwen1.5-4b --full
     --qps 4 --requests 8 --schedule-cache DIR --strict-schedules`` over the
@@ -2020,78 +2220,18 @@ def tuned_serve_phase(cache_dir):
     command exits non-zero before serving, and without
     ``--strict-schedules`` it serves with 18 ``not optimized (-O3
     baseline)`` lines, the warning and 18 ``schedule_fallbacks``.  The
-    two serving runs call the launcher's ``main`` in this process, so
-    that its engine and the kernels' counts can be read."""
-    import contextlib
-    import io
+    two serving runs call the launcher's ``main`` in this process
+    (``_serve_in_process``)."""
     import shutil
     import tempfile
 
-    import torch
-    from repro_torch.launch import serve as launch_serve
-
-    base = ["--arch", FLEET_ARCH, "--full", "--qps", "4", "--requests",
-            str(TUNED_REQUESTS)]
     empty = tempfile.mkdtemp(prefix="chip_smoke_empty_",
                              dir=os.path.join(ROOT, "build"))
-
-    def serve(cache, *extra):
-        engines = []
-
-        class Recorded(launch_serve.ServeEngine):
-            def __init__(self, *a, **k):
-                super().__init__(*a, **k)
-                engines.append(self)
-
-        real, launch_serve.ServeEngine = launch_serve.ServeEngine, Recorded
-        buf = io.StringIO()
-        argv = [*base, "--schedule-cache", cache, *extra]
-        torch.cuda.synchronize()
-        _reset_launches()
-        t0 = time.perf_counter()
-        try:
-            with contextlib.redirect_stdout(buf):
-                launch_serve.main(argv)
-            torch.cuda.synchronize()
-        finally:
-            launch_serve.ServeEngine = real
-            print(f"  launch.serve {' '.join(argv)}  "
-                  f"({time.perf_counter() - t0:.1f} s)\n"
-                  + "\n".join("    " + line
-                              for line in buf.getvalue().splitlines()),
-                  flush=True)
-        launches = _read_launches()
-        engine, = engines
-        cfg, passes = engine.cfg, engine.counters["passes"]
-        reqs = engine.finished
-        bad = [r.id for r in reqs if r.truncated or len(r.output)
-               != r.max_new_tokens or not all(0 <= t < cfg.vocab
-                                              for t in r.output)]
-        if len(reqs) != TUNED_REQUESTS or bad:
-            fail(f"tuned serving: requests incomplete or out of vocab: "
-                 f"{len(reqs)} finished, bad {bad}")
-        want = _expected_launches(rmsnorm=passes * (2 * cfg.n_layers + 1),
-                                  fused_ff=passes * cfg.n_layers)
-        print(f"  passes {passes}; launches {launches}; expected {want}",
-              flush=True)
-        if launches != want or passes == 0:
-            fail("the tuned serving path did not go through the kernels "
-                 "once per site")
-        lines = buf.getvalue().splitlines()
-        plan = [m.group(3) for m in map(_PLAN_LINE.match, lines) if m]
-        warned = [line for line in lines if line.startswith(
-            "[serve] WARNING: ")]
-        stats = {"passes": passes, "plan_lines": len(plan),
-                 "schedule_fallbacks": engine.counters["schedule_fallbacks"],
-                 "warnings": warned}
-        del engines, engine
-        torch.cuda.empty_cache()
-        return launches, plan, stats
-
     try:
         proc, lines, wall = _run_cli(
-            "repro_torch.launch.serve", *base, "--schedule-cache", empty,
-            "--strict-schedules", timeout=600)
+            "repro_torch.launch.serve", "--arch", FLEET_ARCH, "--full",
+            "--qps", "4", "--requests", str(TUNED_REQUESTS),
+            "--schedule-cache", empty, "--strict-schedules", timeout=600)
         if proc.returncode == 0 or "FileNotFoundError" not in proc.stderr \
                 or any(line.startswith("[serve] tokens/s") for line in lines):
             fail(f"--strict-schedules over an empty cache did not refuse "
@@ -2100,12 +2240,12 @@ def tuned_serve_phase(cache_dir):
         print(f"  an empty cache under --strict-schedules: exit "
               f"{proc.returncode}, {proc.stderr.strip().splitlines()[-1]}",
               flush=True)
-        tuned, plan, stats = serve(cache_dir, "--strict-schedules")
-        if len(plan) != FLEET_CELLS or not all(map(_TUNED.search, plan)) \
-                or stats["warnings"] or stats["schedule_fallbacks"] != 0:
+        tuned, plan, stats = _serve_in_process(FLEET_ARCH, cache_dir,
+                                               "--strict-schedules")
+        if not _tuned(plan, stats, FLEET_CELLS):
             fail(f"the PPO fleet's cache did not give an {FLEET_CELLS}-line "
                  f"tuned plan without fallbacks: {plan} {stats}")
-        untuned, plan, ustats = serve(empty)
+        untuned, plan, ustats = _serve_in_process(FLEET_ARCH, empty)
         if plan != ["not optimized (-O3 baseline)"] * FLEET_CELLS \
                 or ustats["schedule_fallbacks"] != FLEET_CELLS \
                 or len(ustats["warnings"]) != 1 \
@@ -2120,13 +2260,30 @@ def tuned_serve_phase(cache_dir):
     return tuned, untuned
 
 
+def tuned_ssm_serve_phase(cache_dir):
+    """(h) Tuned SSM serving: ``launch.serve --arch mamba2-1.3b --full
+    --qps 4 --requests 8 --schedule-cache DIR --strict-schedules`` over
+    the cache the SSM fleet (c) wrote prints the 16-line plan (4 kernels
+    x 4 buckets) and no fallback, completes every request with in-vocab
+    tokens, and launches K1 passes x 97 times."""
+    launches, plan, stats = _serve_in_process(SSM_ARCH, cache_dir,
+                                              "--strict-schedules")
+    cells = len(SSM_FLEET_CYCLES) * len(SSM_BUCKETS)
+    if not _tuned(plan, stats, cells):
+        fail(f"the SSM fleet's cache did not give a {cells}-line tuned plan "
+             f"without fallbacks: {plan} {stats}")
+    print("  tuned SSM schedules served: " + json.dumps(stats), flush=True)
+    return launches
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile decode passes and a train step "
-                         "with torch.profiler and write the tables to DIR")
+                         "of each served and trained model with "
+                         "torch.profiler and write the tables to DIR")
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -2161,32 +2318,42 @@ def main() -> int:
     records = kernel_phase()
 
     phase("3 device against host")
-    device_host_phase()
+    device_host_phase("qwen1.5-4b")
+    device_host_phase(SSM_ARCH)
     device_host_train_step("stablelm-3b")
     device_host_train_step(SSM_ARCH)
+    device_host_train_step(HYBRID_ARCH, n_layers=12)
 
-    phase("4 serving main path")
-    launches = {"serve": serve_phase(args.profile)}
+    phase("4 serving main paths")
+    launches = {"serve": serve_phase("qwen1.5-4b", args.profile),
+                "serve_ssm": serve_phase(SSM_ARCH, args.profile),
+                "serve_hybrid": serve_phase(HYBRID_ARCH, args.profile),
+                "serve_hybrid_spill": preempt_phase(HYBRID_ARCH)}
 
     phase("5 training main paths")
     launches["train"] = train_phase("stablelm-3b", args.profile)
     launches["train_ssm"] = train_phase(SSM_ARCH, args.profile)
+    launches["train_hybrid"] = train_phase(HYBRID_ARCH, args.profile)
 
     phase("6 optimizer main paths")
     launches["optimize"], pair_configs = optimize_phase()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     fleet_cache = tempfile.mkdtemp(prefix="chip_smoke_fleet_",
                                    dir=os.path.join(ROOT, "build"))
+    ssm_cache = tempfile.mkdtemp(prefix="chip_smoke_ssm_",
+                                 dir=os.path.join(ROOT, "build"))
     try:
         launches["fleet"], fleet_configs = fleet_phase(fleet_cache)
-        launches["fleet_ssm"], ssd_config = ssm_fleet_phase()
+        launches["fleet_ssm"], ssd_config = ssm_fleet_phase(ssm_cache)
         tiling_gate(dict(fleet_configs, **pair_configs, ssd=ssd_config))
         launches["guided"] = guided_phase()
         costmodel_phase()
         launches["serve_tuned"], launches["serve_untuned"] = \
             tuned_serve_phase(fleet_cache)
+        launches["serve_ssm_tuned"] = tuned_ssm_serve_phase(ssm_cache)
     finally:
         shutil.rmtree(fleet_cache)
+        shutil.rmtree(ssm_cache)
 
     phase("7 kernels")
     kernels = []

@@ -2,8 +2,9 @@
 ``python -m repro_torch.launch.train --arch stablelm-3b --full``.
 
 Trains a model of a family whose forward is ported (dense, e.g.
-stablelm-3b; ssm, mamba2-1.3b) on ``--device`` (the card by default; it
-refuses to start when there is none) with the reference's flags:
+stablelm-3b; ssm, mamba2-1.3b; hybrid, zamba2-2.7b) on ``--device``
+(the card by default; it refuses to start when there is none) with the
+reference's flags:
 ``--device cpu`` trains the reduced config on the CPU, ``--full`` takes
 the published widths (card only, in practice).  Other families raise
 ``NotImplementedError`` naming their ROADMAP item.  It prints the reference's

@@ -1,9 +1,9 @@
-"""Decoder LM assembly, dense and ssm families: parameter specs,
+"""Decoder LM assembly, dense, ssm and hybrid families: parameter specs,
 initialisation, the per-layer window schedule, the embedding and head,
 and the full-sequence forward of training and prefill (decode passes run
-their layers in :mod:`repro_torch.serve.decode`, dense family only).
+their layers in :mod:`repro_torch.serve.decode`).
 
-The other families of the reference (moe, hybrid, encdec) raise
+The other families of the reference (moe, encdec) raise
 ``NotImplementedError`` naming their ROADMAP item, and so do the
 reference's distribution hooks (``mesh``, ``tp_axis``, ``seq_parallel``:
 ROADMAP A14).
@@ -12,7 +12,7 @@ ROADMAP A14).
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -27,22 +27,18 @@ from repro_torch.utils.tree import tree_leaves
 
 _FAMILY_ITEM = {
     "moe": "ROADMAP D2 (MoE and MLA)",
-    "ssm": "ROADMAP D3 (SSM and hybrid serving)",
-    "hybrid": "ROADMAP A12 (the hybrid forward) and D3 (SSM and hybrid "
-              "serving)",
     "encdec": "ROADMAP D4 (encoder-decoder)",
 }
 _DIST_ITEM = "ROADMAP A14 (distribution)"
-# the families whose full-sequence forward (and so training) is ported
-FORWARD_FAMILIES = ("dense", "ssm")
+# the families whose full-sequence forward (training, prefill) and decode
+# (serving) are ported
+FORWARD_FAMILIES = ("dense", "ssm", "hybrid")
 
 
-def require_family(cfg: ModelConfig, what: str,
-                   families: Sequence[str] = ("dense",)) -> None:
+def require_family(cfg: ModelConfig, what: str) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item unless
-    ``cfg``'s family is one of ``families`` (the ones ``what`` is ported
-    for)."""
-    if cfg.family not in families:
+    ``cfg``'s family is one of ``FORWARD_FAMILIES``."""
+    if cfg.family not in FORWARD_FAMILIES:
         item = _FAMILY_ITEM.get(cfg.family, "ROADMAP D")
         raise NotImplementedError(
             f"{what}: family {cfg.family!r} ({cfg.name}) is not ported yet; "
@@ -98,11 +94,13 @@ def ssm_block_spec(cfg: ModelConfig) -> Dict:
 
 
 def model_spec(cfg: ModelConfig) -> Dict:
-    require_family(cfg, "model_spec", FORWARD_FAMILIES)
+    require_family(cfg, "model_spec")
     block = dense_block_spec if cfg.family == "dense" else ssm_block_spec
     spec: Dict = {"embed": nn.embedding_spec(cfg.vocab, cfg.d_model),
                   "final_norm": _norm_spec(cfg, cfg.d_model),
                   "layers": stack_specs(block(cfg), cfg.n_layers)}
+    if cfg.family == "hybrid":     # zamba2: one unstacked shared block
+        spec["shared_block"] = dense_block_spec(cfg)
     if not cfg.tie_embeddings:
         spec["lm_head"] = nn.lm_head_spec(cfg.d_model, cfg.vocab)
     return spec
@@ -205,44 +203,71 @@ def _unstack(stacked: Dict, n: int) -> List[Dict]:
     return out
 
 
+def _remat(cfg: ModelConfig, body, x: torch.Tensor) -> torch.Tensor:
+    """``body(x)``; with ``cfg.remat`` under ``torch.utils.checkpoint``
+    (non-reentrant): only ``x`` is kept and ``body`` is recomputed in the
+    backward pass, the counterpart of
+    ``jax.checkpoint(policy=nothing_saveable)``."""
+    if cfg.seq_parallel:
+        raise NotImplementedError(f"seq_parallel ({cfg.name}) needs a mesh; "
+                                  f"see {_DIST_ITEM}")
+    if not cfg.remat:
+        return body(x)
+    if cfg.remat_policy != "nothing":
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r}: only 'nothing' (recompute "
+            f"the whole layer) is ported")
+    return torch.utils.checkpoint.checkpoint(
+        body, x, use_reentrant=False, preserve_rng_state=False)
+
+
 def _scan_layers(cfg: ModelConfig, block, stacked: Dict, x: torch.Tensor,
                  windows: Optional[np.ndarray] = None, mesh=None,
                  tp_axis: Optional[str] = None) -> torch.Tensor:
     """The reference's ``lax.scan`` over the stacked layer axis, as a
-    Python loop.  With ``cfg.remat`` each layer runs under
-    ``torch.utils.checkpoint`` (non-reentrant): only its input is kept and
-    the layer is recomputed in the backward pass, the counterpart of
-    ``jax.checkpoint(policy=nothing_saveable)``."""
+    Python loop, each layer under :func:`_remat`."""
     _no_dist("_scan_layers", mesh, tp_axis)
-    if cfg.seq_parallel:
-        raise NotImplementedError(f"seq_parallel ({cfg.name}) needs a mesh; "
-                                  f"see {_DIST_ITEM}")
-    if cfg.remat and cfg.remat_policy != "nothing":
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r}: only 'nothing' (recompute "
-            f"the whole layer) is ported")
     n = tree_leaves(stacked)[0].shape[0]
     for i, layer_p in enumerate(_unstack(stacked, n)):
         kw = {} if windows is None else {"window": int(windows[i])}
-        body = functools.partial(block, cfg, layer_p, **kw)
-        if cfg.remat:
-            x = torch.utils.checkpoint.checkpoint(
-                body, x, use_reentrant=False, preserve_rng_state=False)
-        else:
-            x = body(x)
+        x = _remat(cfg, functools.partial(block, cfg, layer_p, **kw), x)
+    return x
+
+
+def _hybrid_forward(params: Dict, x: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Zamba2: groups of ``shared_attn_every`` Mamba-2 layers, each group
+    followed by the one shared attention + MLP block.  Each group (its
+    SSM layers and the shared block) is one :func:`_remat` unit, as the
+    reference checkpoints ``group_fn``; the shared block's gradient is
+    the sum over its applications."""
+    k = cfg.shared_attn_every
+    assert cfg.n_layers % k == 0, (cfg.n_layers, k)
+    layers = _unstack(params["layers"], cfg.n_layers)
+    shared = params["shared_block"]
+
+    def group_fn(group: List[Dict], h: torch.Tensor) -> torch.Tensor:
+        for layer_p in group:
+            h = ssm_block(cfg, layer_p, h)
+        return dense_block(cfg, shared, h)
+
+    for g in range(0, cfg.n_layers, k):
+        x = _remat(cfg, functools.partial(group_fn, layers[g: g + k]), x)
     return x
 
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
             mesh=None) -> torch.Tensor:
-    """tokens (B, S) -> f32 logits (B, S, vocab), dense and ssm
+    """tokens (B, S) -> f32 logits (B, S, vocab), dense, ssm and hybrid
     families."""
-    require_family(cfg, "forward", FORWARD_FAMILIES)
+    require_family(cfg, "forward")
     _no_dist("forward", mesh)
     x = embed_forward(params, tokens, cfg)
     if cfg.family == "dense":
         x = _scan_layers(cfg, dense_block, params["layers"], x,
                          windows=window_schedule(cfg))
-    else:
+    elif cfg.family == "ssm":
         x = _scan_layers(cfg, ssm_block, params["layers"], x)
+    else:
+        x = _hybrid_forward(params, x, cfg)
     return head_forward(params, x, cfg)

@@ -101,12 +101,16 @@ def apply_ssm(p: Dict, x: torch.Tensor, cfg: SSMConfig) -> torch.Tensor:
 # decode: O(1) state per step
 # ---------------------------------------------------------------------------
 
-def init_ssm_cache(cfg: SSMConfig, batch: int, dtype=torch.float32) -> Dict:
+def init_ssm_cache(cfg: SSMConfig, batch: int, dtype=torch.float32,
+                   device="cpu") -> Dict:
+    """Zeroed decode cache on ``device``: the conv tail in ``dtype`` (the
+    model's), the recurrent state always in f32, as in the reference."""
     conv_dim = cfg.d_inner + 2 * cfg.n_groups * cfg.d_state
     return {
-        "conv": torch.zeros((batch, CONV_WIDTH - 1, conv_dim), dtype=dtype),
+        "conv": torch.zeros((batch, CONV_WIDTH - 1, conv_dim), dtype=dtype,
+                            device=device),
         "state": torch.zeros((batch, cfg.n_heads, cfg.head_p, cfg.d_state),
-                             dtype=torch.float32),
+                             dtype=torch.float32, device=device),
     }
 
 

@@ -1,15 +1,19 @@
-"""Serving: KV caches + single-token decode steps, dense family.
+"""Serving: KV caches + single-token decode steps, dense, ssm and
+hybrid families.
 
 Decode is unrolled over layers: each layer owns its cache dict, so
 per-layer cache shapes can differ — gemma's local layers keep a bounded
 ``window``-sized ring buffer while its global layers keep the full
-sequence.
+sequence; mamba layers keep an O(1) recurrent state and conv tail; the
+hybrid (zamba2) keeps one per Mamba-2 layer, then one attention cache
+per application of its shared block.
 
 Absolute caches and pages are written in place (the reference's
 functional update copies); a ring buffer is rebuilt by its
-shift-and-append, which is a copy either way.  Each step returns the
-cache list it updated, as the reference does.  The moe, ssm, hybrid and
-encdec families raise ``NotImplementedError`` naming their ROADMAP item.
+shift-and-append, and a recurrent cache by its step, which are copies
+either way.  Each step returns the cache list it updated, as the
+reference does.  The moe and encdec families raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,12 +25,13 @@ import torch
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import (_apply_mlp, _apply_norm, embed_forward,
-                                   head_forward, require_family,
+                                   head_forward, require_family, ssm_config,
                                    window_schedule)
 from repro_torch.nn.attention import (NO_WINDOW, masked_decode_attention,
                                       paged_decode_attention,
                                       paged_update_cache)
 from repro_torch.nn.core import torch_dtype
+from repro_torch.nn.ssm import apply_ssm_decode, init_ssm_cache
 
 
 def _layer_params(stacked: Dict, i: int) -> Dict:
@@ -49,36 +54,58 @@ def _attn_cache(cfg: ModelConfig, batch: int, length: int, device) -> Dict:
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _ssm_cache(cfg: ModelConfig, batch: int, device) -> Dict:
+    return init_ssm_cache(ssm_config(cfg), batch, torch_dtype(cfg.dtype),
+                          device)
+
+
+def _n_shared(cfg: ModelConfig) -> int:
+    """Applications of the hybrid's shared block (0 for other families)."""
+    return (cfg.n_layers // cfg.shared_attn_every
+            if cfg.family == "hybrid" else 0)
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 device="cpu") -> List:
     """One cache dict per layer: ``max_seq`` positions for global layers,
-    ``min(window, max_seq)`` for windowed (ring-buffer) layers."""
+    ``min(window, max_seq)`` for windowed (ring-buffer) layers; for ssm
+    and hybrid one recurrent cache per Mamba-2 layer, then (hybrid) one
+    ``max_seq`` attention cache per application of the shared block."""
     require_family(cfg, "init_caches")
-    caches = []
-    for w in window_schedule(cfg):
-        length = max_seq if w >= NO_WINDOW else min(int(w), max_seq)
-        caches.append(_attn_cache(cfg, batch, length, device))
-    return caches
+    if cfg.family == "dense":
+        return [_attn_cache(cfg, batch,
+                            max_seq if w >= NO_WINDOW
+                            else min(int(w), max_seq), device)
+                for w in window_schedule(cfg)]
+    return ([_ssm_cache(cfg, batch, device) for _ in range(cfg.n_layers)]
+            + [_attn_cache(cfg, batch, max_seq, device)
+               for _ in range(_n_shared(cfg))])
 
 
 def paged_cache_kinds(cfg: ModelConfig) -> List[str]:
     """Per-cache-entry layout under paging, parallel to the cache list:
     ``"paged"`` — block-major physical pages addressed through the block
-    table.  (The reference's ``"slot"`` kind, recurrent state gathered by
-    slot, arrives with the ssm and hybrid families.)"""
+    table (attention K/V); ``"slot"`` — per-slot rows gathered and
+    scattered by slot index (recurrent SSM/conv state has no sequence
+    dimension to page)."""
     require_family(cfg, "paged_cache_kinds")
-    return ["paged"] * cfg.n_layers
+    if cfg.family == "dense":
+        return ["paged"] * cfg.n_layers
+    return ["slot"] * cfg.n_layers + ["paged"] * _n_shared(cfg)
 
 
 def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int,
                       num_slots: int, device="cpu") -> List:
-    """Block-major caches for the paged serve path: every layer holds
-    ``num_blocks`` physical pages of ``block_size`` positions shared by
-    every request — memory scales with the KV budget, not
+    """Block-major caches for the paged serve path: every attention entry
+    holds ``num_blocks`` physical pages of ``block_size`` positions
+    shared by every request — memory scales with the KV budget, not
     ``num_slots × max_seq``.  Windowed layers store absolute positions
-    too (their ring is rebuilt by a trailing-window gather)."""
-    return [_attn_cache(cfg, num_blocks, block_size, device)
-            for _ in paged_cache_kinds(cfg)]
+    too (their ring is rebuilt by a trailing-window gather).  Recurrent
+    entries keep ``num_slots + 1`` per-slot rows (the scratch row
+    included), as the dense path does."""
+    return [_ssm_cache(cfg, num_slots + 1, device) if kind == "slot"
+            else _attn_cache(cfg, num_blocks, block_size, device)
+            for kind in paged_cache_kinds(cfg)]
 
 
 # ---------------------------------------------------------------------------
@@ -169,6 +196,42 @@ def _as_tokens(token, device) -> torch.Tensor:
     return torch.as_tensor(token, device=device).long()
 
 
+def _attn_mlp(cfg: ModelConfig, p: Dict, x: torch.Tensor, caches: List,
+              ci: int, window: int, attend) -> torch.Tensor:
+    """A dense block's decode: attention through ``attend`` on cache
+    ``ci`` (updated in ``caches``), then the MLP."""
+    a, caches[ci] = attend(p["attn"], _apply_norm(cfg, p["ln1"], x),
+                           caches[ci], window)
+    x = x + a
+    return x + _apply_mlp(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x))
+
+
+def _decode_layers(params: Dict, caches: List, x: torch.Tensor,
+                   cfg: ModelConfig, attend) -> Tuple[torch.Tensor, List]:
+    """The layers of one decode step, ``attend(p, h, cache, window)``
+    giving an attention layer's output and its updated cache.  SSM layers
+    carry no position: they advance one step per call, whatever ``pos``
+    their attention layers see.  The hybrid's shared block writes cache
+    ``n_layers + g`` after group ``g``, unwindowed."""
+    new = list(caches)
+    if cfg.family == "dense":
+        for li, win in enumerate(window_schedule(cfg)):
+            x = _attn_mlp(cfg, _layer_params(params["layers"], li), x, new,
+                          li, int(win), attend)
+        return x, new
+    scfg = ssm_config(cfg)
+    for li in range(cfg.n_layers):
+        p = _layer_params(params["layers"], li)
+        y, new[li] = apply_ssm_decode(p["ssm"], _apply_norm(cfg, p["ln1"], x),
+                                      caches[li], scfg)
+        x = x + y
+        if cfg.family == "hybrid" and (li + 1) % cfg.shared_attn_every == 0:
+            x = _attn_mlp(cfg, params["shared_block"], x, new,
+                          cfg.n_layers + li // cfg.shared_attn_every,
+                          NO_WINDOW, attend)
+    return x, new
+
+
 def decode_step(params: Dict, caches: List, token, pos,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, List]:
     """token (B, 1) int -> logits (B, vocab) f32; updates caches.
@@ -182,14 +245,11 @@ def decode_step(params: Dict, caches: List, token, pos,
     if isinstance(pos, torch.Tensor) and pos.ndim >= 1:
         pos = pos.to(device)
     x = embed_forward(params, _as_tokens(token, device), cfg)
-    new_caches = list(caches)
-    for li, win in enumerate(window_schedule(cfg)):
-        p = _layer_params(params["layers"], li)
-        h = _apply_norm(cfg, p["ln1"], x)
-        a, new_caches[li] = _attn_decode(cfg, p["attn"], h, caches[li], pos,
-                                         int(win))
-        x = x + a
-        x = x + _apply_mlp(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x))
+
+    def attend(p, h, cache, window):
+        return _attn_decode(cfg, p, h, cache, pos, window)
+
+    x, new_caches = _decode_layers(params, caches, x, cfg, attend)
     return head_forward(params, x, cfg)[:, 0], new_caches
 
 
@@ -198,12 +258,14 @@ def paged_decode_step(params: Dict, caches: List, block_table, token, pos,
                       max_seq: int) -> Tuple[torch.Tensor, List]:
     """token (B, 1) int -> logits (B, vocab) f32 through the block table.
 
-    The paged analogue of :func:`decode_step`: every cache entry is the
-    full block-major page array, and every lane reads/writes its own
-    pages through its ``block_table`` row at its own ragged ``pos``.
-    ``write_mask`` (B,) suppresses the page write for idle lanes and for
-    shared-prefix re-run passes whose target position is owned by a
-    shared block (the stored value is bit-identical, so skipping the
+    The paged analogue of :func:`decode_step`: ``"paged"`` cache entries
+    (see :func:`paged_cache_kinds`) are the full block-major page arrays,
+    and every lane reads/writes its own pages through its
+    ``block_table`` row at its own ragged ``pos``; ``"slot"`` entries
+    arrive already gathered to (B, ...) rows (the engine scatters them
+    back).  ``write_mask`` (B,) suppresses the page write for idle lanes
+    and for shared-prefix re-run passes whose target position is owned
+    by a shared block (the stored value is bit-identical, so skipping the
     write avoids a spurious copy-on-write fork).  The mask becomes lane
     indices on the host once per pass (a host sync if it lies on the
     card; the engine hands it over from the host)."""
@@ -214,13 +276,10 @@ def paged_decode_step(params: Dict, caches: List, block_table, token, pos,
     rows = torch.nonzero(torch.as_tensor(write_mask).cpu()).squeeze(1)
     write_rows = None if len(rows) == len(pos) else rows.to(device)
     x = embed_forward(params, _as_tokens(token, device), cfg)
-    new_caches = list(caches)
-    for li, win in enumerate(window_schedule(cfg)):
-        p = _layer_params(params["layers"], li)
-        h = _apply_norm(cfg, p["ln1"], x)
-        a, new_caches[li] = _attn_decode_paged(
-            cfg, p["attn"], h, caches[li], block_table, pos, int(win),
-            max_seq, write_rows)
-        x = x + a
-        x = x + _apply_mlp(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x))
+
+    def attend(p, h, cache, window):
+        return _attn_decode_paged(cfg, p, h, cache, block_table, pos,
+                                  window, max_seq, write_rows)
+
+    x, new_caches = _decode_layers(params, caches, x, cfg, attend)
     return head_forward(params, x, cfg)[:, 0], new_caches

@@ -19,7 +19,15 @@ tenant's request gets the next free slot.  Every engine step:
 4. **preempt** — if nothing could advance (pool exhausted), the
    youngest request is returned to its tenant queue: dense mode
    teacher-forces its generated tokens on resume, paged mode spills its
-   pages to host memory and uploads them again.
+   pages (and its recurrent slot rows) to host memory and uploads them
+   again.
+
+Cache entries are of two kinds (:func:`~repro_torch.serve.decode.
+paged_cache_kinds`): ``"slot"`` rows (every entry in dense mode; the
+recurrent SSM/conv state of the ssm and hybrid families in paged mode)
+are gathered by slot for a pass, scattered back after it and zeroed on
+admission, so no request's state leaks into the next; ``"paged"`` K/V
+pages are addressed in place through the block table.
 
 Kernel schedules come from the cache index via
 :func:`repro_torch.sched.lowering.schedule_plan` (re-exported here) —
@@ -52,7 +60,8 @@ from repro_torch.sched.cache import ScheduleCache
 from repro_torch.sched.lowering import schedule_plan
 from repro_torch.serve.batching import SlotState, assemble, assemble_paged
 from repro_torch.serve.decode import (decode_step, init_caches,
-                                      init_paged_caches, paged_decode_step)
+                                      init_paged_caches, paged_cache_kinds,
+                                      paged_decode_step)
 from repro_torch.serve.pool import KVBlockPool, PoolCapacityError
 from repro_torch.serve.scheduler import (DEFAULT_TENANT, FairScheduler,
                                          Request, Tenant)
@@ -61,11 +70,12 @@ from repro_torch.utils.device import resolve_device
 
 @dataclasses.dataclass
 class _Spill:
-    """Host-side copy of a preempted request's KV pages — the payload of
-    copy-free preemption.  Travels on ``Request.spill`` through the
-    scheduler queue; re-admission allocates ``n_blocks`` fresh blocks and
-    uploads ``data`` into them, so decoding resumes at ``pos``
-    bit-exactly with zero recompute."""
+    """Host-side copy of a preempted request's KV pages (and recurrent
+    slot rows) — the payload of copy-free preemption.  Travels on
+    ``Request.spill`` through the scheduler queue; re-admission allocates
+    ``n_blocks`` fresh blocks and uploads ``data`` into them (the slot
+    rows into its new slot), so decoding resumes at ``pos`` bit-exactly
+    with zero recompute."""
     tokens: List[int]
     pos: int
     prompt_len: int
@@ -120,7 +130,8 @@ class ServeEngine:
         self.paged = bool(paged)
         self.debug_invariants = bool(debug_invariants)
         # Prefix sharing needs the cache content at a position to be a pure
-        # function of the token prefix — true for attention pages.
+        # function of the token prefix — true for attention pages, false
+        # for recurrent state (ssm/hybrid carry per-request rows).
         self.share_prefix = (self.paged and bool(share_prefix)
                              and cfg.family in ("dense", "moe"))
 
@@ -138,9 +149,11 @@ class ServeEngine:
             self.caches = init_paged_caches(cfg, self.pool.num_blocks,
                                             self.pool.block_size,
                                             self.max_batch, self.device)
+            self._kinds = paged_cache_kinds(cfg)
         else:
             self.caches = init_caches(cfg, self.max_batch + 1, self.max_seq,
                                       self.device)
+            self._kinds = ["slot"] * len(self.caches)
 
         if isinstance(schedule_cache, str):
             schedule_cache = ScheduleCache(schedule_cache)
@@ -252,47 +265,61 @@ class ServeEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.long).to(self.device)
 
-    @torch.inference_mode()
-    def _dense_step(self, idx: np.ndarray, tok: np.ndarray,
-                    pos: np.ndarray) -> np.ndarray:
-        """Gather the advancing rows, step them at their own positions,
-        scatter them back.  Idle lanes (gathered from the scratch row) are
-        not written back."""
-        idx_t = self._tensor(idx)
-        rows = [{k: a.index_select(0, idx_t) for k, a in c.items()}
-                for c in self.caches]
-        logits, new_rows = decode_step(self.params, rows,
-                                       self._tensor(tok)[:, None],
-                                       self._tensor(pos), self.cfg)
-        keep = self._tensor(np.flatnonzero(idx != self.scratch_slot))
-        dst = idx_t[keep]
-        for c, n in zip(self.caches, new_rows):
-            for k, a in c.items():
-                a.index_copy_(0, dst, n[k][keep].to(a.dtype))
-        return logits.argmax(dim=-1).cpu().numpy()
+    def _entries(self, kind: str) -> List[int]:
+        return [i for i, k in enumerate(self._kinds) if k == kind]
 
     @torch.inference_mode()
-    def _paged_step(self, table: np.ndarray, tok: np.ndarray,
-                    pos: np.ndarray, wstart: np.ndarray) -> np.ndarray:
+    def _step_rows(self, idx: np.ndarray, step) -> np.ndarray:
+        """Gather the ``"slot"`` entries' rows of the lanes ``idx``, run
+        ``step(caches)`` (the ``"paged"`` entries passed whole), scatter
+        the stepped rows back and return the lanes' greedy tokens.  Idle
+        lanes (gathered from the scratch row) are not written back: the
+        reference's out-of-range ``mode="drop"``."""
+        idx_t = self._tensor(idx)
+        slots = self._entries("slot")
+        caches = list(self.caches)
+        for i in slots:
+            caches[i] = {k: a.index_select(0, idx_t)
+                         for k, a in caches[i].items()}
+        logits, new = step(caches)
+        keep = self._tensor(np.flatnonzero(idx != self.scratch_slot))
+        dst = idx_t[keep]
+        for i in slots:
+            for k, a in self.caches[i].items():
+                a.index_copy_(0, dst, new[i][k][keep].to(a.dtype))
+        for i in self._entries("paged"):     # written in place
+            self.caches[i] = new[i]
+        return logits.argmax(dim=-1).cpu().numpy()
+
+    def _dense_step(self, idx: np.ndarray, tok: np.ndarray,
+                    pos: np.ndarray) -> np.ndarray:
+        """Step the advancing rows at their own positions."""
+        return self._step_rows(idx, lambda caches: decode_step(
+            self.params, caches, self._tensor(tok)[:, None],
+            self._tensor(pos), self.cfg))
+
+    def _paged_step(self, idx: np.ndarray, table: np.ndarray,
+                    tok: np.ndarray, pos: np.ndarray,
+                    wstart: np.ndarray) -> np.ndarray:
         """Every lane reads and writes the page arrays in place through
         its block-table row; idle lanes write nothing (``wstart`` is
         ``NEVER_WRITE`` there)."""
-        logits, self.caches = paged_decode_step(
-            self.params, self.caches, self._tensor(table),
+        return self._step_rows(idx, lambda caches: paged_decode_step(
+            self.params, caches, self._tensor(table),
             self._tensor(tok)[:, None], self._tensor(pos), pos >= wstart,
-            self.cfg, self.max_seq)
-        return logits.argmax(dim=-1).cpu().numpy()
+            self.cfg, self.max_seq))
 
     @torch.inference_mode()
     def _reset_rows(self, idx: List[int]) -> None:
-        # Zero rows for newly admitted requests (dense slots).  Attention
-        # masks hide a previous occupant's KV already; zeroing keeps the
+        # Zero the slot rows of newly admitted requests: recurrent SSM/conv
+        # state would otherwise leak across requests.  Attention masks
+        # hide a previous occupant's KV already; zeroing keeps the dense
         # cache a pure function of the live requests, as the reference
         # does.  Page contents are never read unmasked before being
-        # written, so paged mode has nothing to reset.
+        # written, so pages are not reset.
         rows = self._tensor(np.asarray(idx))
-        for c in self.caches:
-            for a in c.values():
+        for i in self._entries("slot"):
+            for a in self.caches[i].values():
                 a.index_fill_(0, rows, 0)
 
     def _admissible(self, req: Request) -> bool:
@@ -341,7 +368,7 @@ class ServeEngine:
                 self._active.append(SlotState.admit(table.slot, req))
             fresh.append(table.slot)
             self.counters["admissions"] += 1
-        if fresh and not self.paged:
+        if fresh:
             self._reset_rows(fresh)
         for table, spill in resumed:
             self._upload_spill(table, spill)
@@ -378,8 +405,8 @@ class ServeEngine:
                 lambda s: self.pool.table(s.request.id).blocks)
             if asm is None:
                 return 0
-            _, table, tok, pos, wstart, stepped = asm
-            nxt = self._paged_step(table, tok, pos, wstart)
+            idx, table, tok, pos, wstart, stepped = asm
+            nxt = self._paged_step(idx, table, tok, pos, wstart)
         else:
             asm = assemble(cand, self.max_batch, self.scratch_slot)
             if asm is None:
@@ -407,20 +434,22 @@ class ServeEngine:
         it."""
         src = self._tensor(np.asarray([a for a, _ in forks]))
         dst = self._tensor(np.asarray([b for _, b in forks]))
-        for c in self.caches:
-            for a in c.values():
+        for i in self._entries("paged"):
+            for a in self.caches[i].values():
                 a.index_copy_(0, dst, a.index_select(0, src))
         self.counters["cow_forks"] += len(forks)
 
     @torch.inference_mode()
     def _spill(self, victim: SlotState) -> "_Spill":
-        """Copy the victim's pages to host memory so preemption frees its
-        device blocks without losing the computed KV — resume is a remap
-        + upload, not a recompute."""
+        """Copy the victim's pages (and recurrent slot rows) to host
+        memory so preemption frees its device blocks without losing the
+        computed KV — resume is a remap + upload, not a recompute."""
         t = self.pool.table(victim.request.id)
         ids = self._tensor(np.asarray(t.blocks))
-        data = [{k: a.index_select(0, ids).cpu() for k, a in c.items()}
-                for c in self.caches]
+        data = [{k: (a.index_select(0, ids) if kind == "paged"
+                     else a[victim.slot]).to("cpu", copy=True)
+                 for k, a in c.items()}
+                for c, kind in zip(self.caches, self._kinds)]
         return _Spill(tokens=list(victim.tokens), pos=victim.pos,
                       prompt_len=victim.prompt_len,
                       target_len=victim.target_len,
@@ -429,9 +458,13 @@ class ServeEngine:
     @torch.inference_mode()
     def _upload_spill(self, table, spill: "_Spill") -> None:
         ids = self._tensor(np.asarray(table.blocks))
-        for c, d in zip(self.caches, spill.data):
+        for c, d, kind in zip(self.caches, spill.data, self._kinds):
             for k, a in c.items():
-                a.index_copy_(0, ids, d[k].to(device=a.device, dtype=a.dtype))
+                h = d[k].to(device=a.device, dtype=a.dtype)
+                if kind == "paged":
+                    a.index_copy_(0, ids, h)
+                else:
+                    a[table.slot].copy_(h)
 
     def _evict(self) -> None:
         done = [s for s in self._active if s.done]
@@ -497,21 +530,24 @@ class ServeEngine:
     def active(self) -> int:
         return len(self._active)
 
+    def _bytes(self, kind: str) -> int:
+        return sum(a.numel() * a.element_size()
+                   for i in self._entries(kind)
+                   for a in self.caches[i].values())
+
     def kv_bytes_allocated(self) -> int:
         """Device bytes backing the KV cache.  Paged mode scales with
         ``kv_blocks × block_size``; dense mode with
         ``(max_batch + 1) × max_seq`` regardless of occupancy."""
-        return int(sum(a.numel() * a.element_size()
-                       for c in self.caches for a in c.values()))
+        return self._bytes("slot") + self._bytes("paged")
 
     def peak_kv_bytes(self) -> int:
         """High-water KV footprint actually addressed: paged mode scales
-        the page bytes by the pool's high-water block count; dense mode
-        pins the full allocation from construction."""
-        if not self.paged:
-            return self.kv_bytes_allocated()
+        the page bytes by the pool's high-water block count (slot rows
+        are pinned from construction); dense mode pins the full
+        allocation from construction."""
         frac = self.pool.high_water_blocks / max(1, self.pool.num_blocks)
-        return int(self.kv_bytes_allocated() * frac)
+        return int(self._bytes("paged") * frac + self._bytes("slot"))
 
     def stats(self) -> Dict[str, object]:
         c = dict(self.counters)

@@ -3,12 +3,14 @@
 The JAX model's initialised parameters are carried across with
 ``params_from_jax``; inputs come from numpy seeds and go to both
 frameworks.  Checked: decode logits (dense and paged, scalar and ragged
-positions) in f32 (see ``_assert_logits_close`` for the tolerance); the
-port engine's streams (dense and paged) bit-exact against the port's
-``generate()`` per request; those streams equal to the JAX engine's; the
-paged engine's sharing / copy-on-write / spill counters equal to the JAX
-engine's on a seeded Poisson trace; and the entry points' refusal to run
-on the CPU unless asked."""
+positions) in f32 (see ``_assert_logits_close`` for the tolerance) for
+the dense (qwen1.5-4b, gemma3-1b), ssm (mamba2-1.3b) and hybrid
+(zamba2-2.7b) families; the port engine's streams (dense and paged)
+bit-exact against the port's ``generate()`` per request; those streams
+equal to the JAX engine's; the paged engine's sharing / copy-on-write /
+spill counters equal to the JAX engine's on a seeded Poisson trace;
+spill preemption resuming recurrent slot rows and pages bit-exactly; and
+the entry points' refusal to run on the CPU unless asked."""
 
 import sys
 
@@ -30,8 +32,11 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import (ServeEngine, TrafficConfig, decode_step,
                                generate, init_caches, init_paged_caches,
                                paged_decode_step, poisson_trace)
+from repro_torch.serve.decode import paged_cache_kinds
 
-ARCHS = ["qwen1.5-4b", "gemma3-1b"]     # absolute caches; ring windows
+# absolute caches; ring windows; recurrent slot rows; both (zamba2)
+ARCHS = ["qwen1.5-4b", "gemma3-1b", "mamba2-1.3b", "zamba2-2.7b"]
+RECURRENT = ["mamba2-1.3b", "zamba2-2.7b"]
 MAX_SEQ = 48
 LOGIT_ATOL = 1e-4
 SAME_FUNCTION_ATOL = 1e-3
@@ -116,7 +121,9 @@ def test_decode_step_logits_match_jax(arch, ragged):
 def test_paged_decode_step_logits_match_jax(arch):
     """Ragged lanes (one starts 3 positions late), a scrambled physical
     block order, and a lane whose writes are masked for its first passes
-    (a shared-prefix re-run) — the same inputs to both packages."""
+    (a shared-prefix re-run) — the same inputs to both packages.  Slot
+    entries (recurrent state) are passed gathered to the lanes' rows, as
+    the engines pass them."""
     cfg, params, jcfg, jparams = _models(arch)
     cfg64, params64 = _f64(arch)
     B, bs, steps = 2, 4, 14
@@ -124,9 +131,17 @@ def test_paged_decode_step_logits_match_jax(arch):
     rng = np.random.default_rng(2)
     table = rng.permutation(2 * nb).reshape(B, nb).astype(np.int32)
     toks = rng.integers(0, cfg.vocab, (steps, B, 1))
-    caches = init_paged_caches(cfg, 2 * nb, bs, B)
-    caches64 = init_paged_caches(cfg64, 2 * nb, bs, B)
-    jcaches = jax_init_paged_caches(jcfg, 2 * nb, bs, B)
+    kinds = paged_cache_kinds(cfg)
+
+    def lanes(caches, rows):
+        return [{k: rows(a) for k, a in c.items()} if kind == "slot" else c
+                for c, kind in zip(caches, kinds)]
+
+    caches = lanes(init_paged_caches(cfg, 2 * nb, bs, B), lambda a: a[:B])
+    caches64 = lanes(init_paged_caches(cfg64, 2 * nb, bs, B),
+                     lambda a: a[:B])
+    jcaches = lanes(jax_init_paged_caches(jcfg, 2 * nb, bs, B),
+                    lambda a: a[:B])
     for t in range(steps):
         pos = np.array([t, max(0, t - 3)], np.int32)
         wmask = np.array([True, t >= 5])
@@ -141,9 +156,10 @@ def test_paged_decode_step_logits_match_jax(arch):
                                                               jnp.int32),
             jnp.asarray(pos), jnp.asarray(wmask), jcfg, MAX_SEQ)
         _assert_logits_close(logits, jlogits, exact.numpy())
-    for c, jc in zip(caches, jcaches):      # the same pages were written
-        np.testing.assert_array_equal(c["k"].numpy() != 0,
-                                      np.asarray(jc["k"]) != 0)
+    for c, jc, kind in zip(caches, jcaches, kinds):
+        if kind == "paged":                 # the same pages were written
+            np.testing.assert_array_equal(c["k"].numpy() != 0,
+                                          np.asarray(jc["k"]) != 0)
 
 
 # ---------------------------------------------------------------------------
@@ -191,14 +207,14 @@ def test_engine_streams_bitexact_vs_generate_and_jax(arch, paged):
         "port engine streams differ from the JAX engine's"
 
 
-def test_paged_counters_match_jax_on_poisson_trace():
-    """Shared system prompts (prefix hits, copy-on-write forks) and an
-    oversubscribed pool (spill preemption) on a seeded trace: the port
-    engine admits, shares, forks and spills exactly as the JAX engine,
-    and produces the same streams."""
-    cfg, params, jcfg, jparams = _models("qwen1.5-4b")
+def _counters_on_poisson_trace(arch):
+    """Shared system prompts and an oversubscribed pool on a seeded
+    trace, through the paged engines of both packages: (the port's
+    streams and counters, the JAX engine's)."""
+    cfg, params, jcfg, jparams = _models(arch)
     # Prompts are a 10-token system prompt plus 0-2 tokens, so identical
-    # prompts share their partial last block and fork it on first write.
+    # prompts share their partial last block and fork it on first write
+    # (where the family shares prefixes: not ssm or hybrid).
     traffic = TrafficConfig(qps=100.0, n_requests=10, n_tenants=2,
                             prompt_len=(0, 2), output_len=(4, 16),
                             vocab=cfg.vocab, seed=1, prefix_tokens=10,
@@ -216,11 +232,63 @@ def test_paged_counters_match_jax_on_poisson_trace():
         eng.run(max_steps=5000)
         results.append(([r.output for r in reqs],
                         {k: eng.counters[k] for k in names}))
-    (streams, counters), (jstreams, jcounters) = results
+    return results
+
+
+def test_paged_counters_match_jax_on_poisson_trace():
+    """Shared system prompts (prefix hits, copy-on-write forks) and an
+    oversubscribed pool (spill preemption) on a seeded trace: the port
+    engine admits, shares, forks and spills exactly as the JAX engine,
+    and produces the same streams."""
+    (streams, counters), (jstreams, jcounters) = \
+        _counters_on_poisson_trace("qwen1.5-4b")
     assert counters == jcounters
     assert streams == jstreams
     assert counters["prefix_hits"] > 0 and counters["cow_forks"] > 0 \
         and counters["preempt_spills"] > 0, counters
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_paged_counters_match_jax_on_poisson_trace(arch):
+    """The same trace on the ssm and hybrid families, which share no
+    prefix (their recurrent rows are per request): equal counters and
+    streams, spills and resumes included, and no prefix hit or fork."""
+    (streams, counters), (jstreams, jcounters) = \
+        _counters_on_poisson_trace(arch)
+    assert counters == jcounters
+    assert streams == jstreams
+    assert counters["prefix_hits"] == counters["cow_forks"] == 0
+    assert counters["preempt_spills"] > 0 \
+        and counters["resume_uploads"] > 0, counters
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_spill_preemption_resumes_slot_rows_bitexact(arch):
+    """``tests/test_serve_paged.py::
+    test_spill_preemption_resumes_bitexact_without_recompute`` on the
+    port's recurrent families: with the pool oversubscribed, stalled
+    victims spill their slot rows (and, for the hybrid, their pages) to
+    the host and resume by uploading them into their new slot; streams
+    stay bit-exact against the port's batched ``generate()`` and no
+    request is teacher-force recomputed."""
+    cfg, params, _, _ = _models(arch)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, 12).tolist() for _ in range(3)]
+    refs = generate(params, cfg, np.asarray(prompts), 20,
+                    max_seq=MAX_SEQ).tolist()
+    engine = ServeEngine.from_config(cfg, params=params, device="cpu",
+                                     max_batch=4, max_seq=MAX_SEQ,
+                                     block_size=8, kv_blocks=6, paged=True,
+                                     share_prefix=False,
+                                     debug_invariants=True)
+    reqs = [engine.submit(p, 20) for p in prompts]
+    engine.run(max_steps=5000)
+    assert engine.counters["preempt_spills"] > 0, "pool never pressured"
+    assert engine.counters["resume_uploads"] > 0
+    for req, ref in zip(reqs, refs):
+        assert list(req.prompt) + list(req.output) == ref
+        assert not req.truncated
+        assert not req.resume_tokens, "spill resume must not recompute"
 
 
 # ---------------------------------------------------------------------------

@@ -367,13 +367,13 @@ def test_train_step_matches_jax():
 
 
 def test_families_without_a_forward_raise():
-    """hybrid, moe and encdec still raise, naming their ROADMAP items;
-    serving an ssm model raises naming D3."""
+    """moe and encdec still raise, naming their ROADMAP items; serving an
+    moe model raises naming D2."""
     from repro_torch.serve import init_caches
-    for arch, item in (("zamba2-2.7b", "A12"),
+    for arch, item in (("olmoe-1b-7b", "D2"),
                        ("deepseek-v2-lite-16b", "D2"),
                        ("whisper-large-v3", "D4")):
         with pytest.raises(NotImplementedError, match=item):
             lm.model_spec(get_config(arch, reduced=True))
-    with pytest.raises(NotImplementedError, match="D3"):
-        init_caches(get_config(ARCH, reduced=True), 1, 8)
+    with pytest.raises(NotImplementedError, match="D2"):
+        init_caches(get_config("olmoe-1b-7b", reduced=True), 1, 8)

@@ -378,11 +378,13 @@ def test_launcher(capsys):
 
 
 def test_launcher_trains_the_ssm_family(capsys):
-    """``--arch mamba2-1.3b`` trains the reduced config on the CPU; a
-    family whose forward is not ported (hybrid) raises naming its item."""
-    launch_train.main(["--arch", "mamba2-1.3b", "--device", "cpu", "--steps",
-                       "3", "--seq-len", "16", "--global-batch", "2"])
-    out = capsys.readouterr().out
-    assert out.count("[train] step=") == 3 and "[train] final loss" in out
-    with pytest.raises(NotImplementedError, match="A12"):
-        launch_train.main(["--arch", "zamba2-2.7b", "--device", "cpu"])
+    """``--arch mamba2-1.3b`` and ``--arch zamba2-2.7b`` (hybrid) train
+    the reduced config on the CPU; a family whose forward is not ported
+    (moe) raises naming its item."""
+    for arch in ("mamba2-1.3b", "zamba2-2.7b"):
+        launch_train.main(["--arch", arch, "--device", "cpu", "--steps",
+                           "3", "--seq-len", "16", "--global-batch", "2"])
+        out = capsys.readouterr().out
+        assert out.count("[train] step=") == 3 and "[train] final loss" in out
+    with pytest.raises(NotImplementedError, match="D2"):
+        launch_train.main(["--arch", "olmoe-1b-7b", "--device", "cpu"])
