@@ -12,17 +12,20 @@ Phases, each printed on lines of its own:
    from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a) and time it;
 2. kernels — each hand-written kernel against its plain PyTorch version
    on the card: K1 ``rmsnorm`` in bf16 and f32 at the serving paths' 8 x
-   2560, 8 x 2048, 8 x 4096 and 8 x 5120 (qwen1.5-4b's and zamba2-2.7b's
-   norms, mamba2-1.3b's ln1 and gated norm, zamba2-2.7b's gated norm),
-   the training paths' 8192 x 2560, 8192 x 4096 and 8192 x 5120
-   (stablelm-3b's norms, mamba2-1.3b's and zamba2-2.7b's gated norm) and
-   a ragged shape; K2 ``fused_ff`` in bf16 and f32 at the serving path's
-   8 x 2560 . 2560 x 6912, the decode threshold's neighbours (M 1, 3, 9,
-   16, 32), ragged shapes, the training path's 8192 rows and zamba2-2.7b's
-   shared MLP (8 and 8192 rows . 2560 x 10240); K6 ``flash_attention`` in
-   f32 and bf16 at the training paths' shape (stablelm-3b's and
-   zamba2-2.7b's), a ragged GQA shape with a window, a
-   non-causal shape and a query offset; K3 ``matmul_leakyrelu`` and K4
+   2560, 8 x 2048, 8 x 4096, 8 x 5120, 128 x 128 and 8 x 512 (qwen1.5-4b's
+   and zamba2-2.7b's norms, mamba2-1.3b's ln1 and gated norm, zamba2-2.7b's
+   gated norm, olmoe-1b-7b's q/k norms, deepseek-v2-lite-16b's latent
+   norm), the training paths' 8192 x 2560, 8192 x 4096, 8192 x 5120, 8192
+   x 2048, 131072 x 128 and 8192 x 512 and a ragged shape; K2 ``fused_ff``
+   in bf16 and f32 at the serving path's 8 x 2560 . 2560 x 6912, the
+   decode threshold's neighbours (M 1, 3, 9, 16, 32), ragged shapes, the
+   training path's 8192 rows, zamba2-2.7b's shared MLP (8 and 8192 rows .
+   2560 x 10240) and deepseek-v2-lite-16b's dense layer and shared
+   experts (8 and 8192 rows . 2048 x 10944 and 2048 x 2816); K6
+   ``flash_attention`` in f32 and bf16 at the training paths' shapes
+   (stablelm-3b's and zamba2-2.7b's, olmoe-1b-7b's head dim 128, and
+   deepseek-v2-lite-16b's MLA: q and k 192, v 128), a ragged GQA shape
+   with a window, non-causal shapes and query offsets; K3 ``matmul_leakyrelu`` and K4
    ``bmm`` in f32 and bf16 at ``tests/test_kernels.py``'s shapes, a ragged
    shape and the optimizer path's shapes; K5 ``softmax`` in f32 and bf16
    at ``tests/test_kernels.py``'s shape (512 x 4096, br 8), at 8192
@@ -52,26 +55,37 @@ Phases, each printed on lines of its own:
    timed beside the gemv route; the
    gradients of the four model kernels' ``autograd.Function``s against
    autograd through the plain versions at the training shapes (K7's under
-   the strong decay); each kernel's time, as CUDA events around one call
+   the strong decay; K6's also at MLA's head dims); each kernel's time, as CUDA events around one call
    (host time included) and as device time (``device_ms``: its kernels'
    own time from torch.profiler), its plain version's and a library
    yardstick's beside its bound;
-3. device against host — full-width qwen1.5-4b and mamba2-1.3b cut to
-   2 layers, f32: paged decode logits agree; full-width stablelm-3b and
-   mamba2-1.3b cut to 2 layers and zamba2-2.7b cut to 12 (two groups:
-   the shared block's gradient sums two applications), f32: one train
-   step's loss and grad-norm agree (the grad-norm within a bound set by
-   the host's own f32 error against an f64 evaluation);
-4. serving main paths — qwen1.5-4b, mamba2-1.3b and zamba2-2.7b at full
-   width, bf16, seeded random weights, each 16 loadgen requests from 2
-   tenants through the paged ``ServeEngine`` (8 lanes); every request
-   completes with in-vocab tokens, and the kernels' launch counts equal
-   engine passes x ``serve_sites``: rmsnorm 2L + 1 and fused_ff L
-   (qwen1.5-4b: 81, 40), rmsnorm 2L + 1 (mamba2-1.3b: 97), rmsnorm 2L +
-   2G + 1 and fused_ff G over G shared-block applications (zamba2-2.7b:
-   127, 9); then zamba2-2.7b with its pool cut to 48 blocks, the trace's
-   first 8 requests at once: at least one spill of pages and recurrent
-   slot rows and one resume by upload, every request complete;
+3. device against host — full-width qwen1.5-4b, mamba2-1.3b,
+   olmoe-1b-7b and deepseek-v2-lite-16b cut to 2 layers, f32: paged
+   decode logits agree within 1e-5 of the logit scale
+   (deepseek-v2-lite-16b's against the host's f64 evaluation, within the
+   host's own f32 error plus that); full-width stablelm-3b, mamba2-1.3b,
+   olmoe-1b-7b and deepseek-v2-lite-16b cut to 2 layers and zamba2-2.7b
+   cut to 12 (two groups: the shared block's gradient sums two
+   applications), f32: one train step's loss and grad-norm agree (the
+   grad-norm within a bound set by the host's own f32 error against an
+   f64 evaluation);
+4. serving main paths — qwen1.5-4b, mamba2-1.3b, zamba2-2.7b,
+   olmoe-1b-7b and deepseek-v2-lite-16b at full width, bf16, seeded
+   random weights, each 16 loadgen requests from 2 tenants through the
+   paged ``ServeEngine`` (8 lanes); every request completes with in-vocab
+   tokens, and the kernels' launch counts equal engine passes x
+   ``serve_sites``: rmsnorm 2L + 1 and fused_ff L (qwen1.5-4b: 81, 40),
+   rmsnorm 2L + 1 (mamba2-1.3b: 97), rmsnorm 2L + 2G + 1 and fused_ff G
+   over G shared-block applications (zamba2-2.7b: 127, 9), rmsnorm 4L +
+   1 with the q/k norms (olmoe-1b-7b: 65), rmsnorm 3L + 1 with the latent
+   norm and fused_ff at the dense layer and each moe layer's shared
+   experts (deepseek-v2-lite-16b: 82, 27); then zamba2-2.7b with its pool
+   cut to 48 blocks, the trace's first 8 requests at once: at least one
+   spill of pages and recurrent slot rows and one resume by upload, every
+   request complete; then deepseek-v2-lite-16b's fork run: a donor
+   prefills a 100-token prompt, 7 identical prompts map its MLA pages
+   (latent and rope key) and fork the partial block copy-on-write (at
+   least 7 prefix hits and 7 forks), and all 8 streams are equal;
 5. training main paths — stablelm-3b, mamba2-1.3b, then zamba2-2.7b, at
    full width, bf16, remat, seq 2048, global batch 4, 3 steps of
    ``Trainer`` each; every loss and grad-norm is finite, step 0's loss
@@ -82,7 +96,12 @@ Phases, each printed on lines of its own:
    for mamba2-1.3b; (4L + 4G + 1) (rmsnorm: 253), 2L (ssd: 108), 2G
    (flash_attention, fused_ff: 18) for zamba2-2.7b, whose remat
    recomputes each group of 6 Mamba-2 layers and the shared block as
-   one unit;
+   one unit; then olmoe-1b-7b and deepseek-v2-lite-16b at full width cut
+   to the layers that fit one card beside AdamW's state
+   (``TRAIN_LAYERS``: 8 and 6, the latter its dense layer and 5 moe
+   layers), with (8L + 1) (rmsnorm: 65) and 2L (flash_attention: 16),
+   and (6L + 1) (rmsnorm: 37), 2L (fused_ff, flash_attention: 12), each
+   with its peak memory;
 6. optimizer main paths — (a) ``python -m repro_torch.launch.optimize
    matmul_leakyrelu bmm --strategy greedy`` into a fresh schedule cache
    must print the reference's cycles (8294 -> 8289, 8275 -> 8271), then
@@ -138,9 +157,9 @@ Phases, each printed on lines of its own:
    prints the 16-line plan with no fallback, completes every request and
    launches K1 passes x 97 times;
 7. the ``{"kernels": [...]}`` line (K1-K7, with their launches by path
-   — serve, serve_ssm, serve_hybrid, serve_hybrid_spill, train,
-   train_ssm, train_hybrid and the optimizer paths — and by path and
-   tiling),
+   — serve, serve_ssm, serve_hybrid, serve_hybrid_spill, serve_moe,
+   serve_mla, serve_mla_fork, train, train_ssm, train_hybrid, train_moe,
+   train_mla and the optimizer paths — and by path and tiling),
    then the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line.  No phase catches its
@@ -237,6 +256,22 @@ EVAL_BUDGET = 512
 SPEARMAN_FLOOR = 0.5
 # requests served over the PPO fleet's tuned schedules
 TUNED_REQUESTS = 8
+# The moe paths: olmoe-1b-7b (16 layers, d_model 2048, 16 heads of
+# 128 with q/k norms, 64 experts top-8 of d_ff 1024) and
+# deepseek-v2-lite-16b (27 layers, the first a dense layer of d_ff 10944,
+# MLA with a 512-wide latent, q and k heads of 192 = 128 + 64 rope and v
+# heads of 128, 64 experts top-6 of d_ff 1408 and 2 shared experts: 2816
+# wide).  Served at full width and depth; trained at full width with the
+# layers that fit one card beside AdamW's state (PERF.md §4).
+MOE_ARCH, MLA_ARCH = "olmoe-1b-7b", "deepseek-v2-lite-16b"
+MOE_D_MODEL, MOE_HEADS, MOE_HEAD_DIM = 2048, 16, 128
+MLA_D_FF, MLA_SHARED_D_FF, MLA_LATENT = 10944, 2816, 512
+MLA_QK_DIM, MLA_V_DIM = 192, 128
+TRAIN_LAYERS = {MOE_ARCH: 8, MLA_ARCH: 6}
+# the fork run: one donor prefills a prompt of this many tokens (6 blocks
+# of 16 and a partial seventh), then this many identical prompts map its
+# pages and fork the partial block on their first write
+FORK_PROMPT, FORK_SHARERS, FORK_NEW_TOKENS = 100, 7, 32
 SSM_FLEET_TAIL = ("[optimize] campaign: 16 succeeded (0 degraded), 0 failed",
                   "[optimize] shared memo: 7399 entries, 30017/37416 hits "
                   "(80.2%), 0 cross-kernel")
@@ -246,8 +281,18 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+_PHASE = {"name": None, "t0": 0.0}
+
+
 def phase(name: str) -> None:
-    print(f"== {name} (at {time.strftime('%H:%M:%S')})", flush=True)
+    """Start phase ``name``, printing the seconds the previous one took."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        print(f"  phase {_PHASE['name']} took {now - _PHASE['t0']:.1f} s",
+              flush=True)
+    _PHASE.update(name=name, t0=now)
+    if name is not None:
+        print(f"== {name} (at {time.strftime('%H:%M:%S')})", flush=True)
 
 
 def event_ms(fn, iters: int = 30, warmup: int = 5) -> float:
@@ -409,9 +454,13 @@ def alternatives(mod, cases, check, iters=30):
 
 def rmsnorm_checks(gen, records):
     """K1 at the serving paths' 8 x 2560 (qwen1.5-4b; zamba2-2.7b's ln1),
-    8 x 2048 and 8 x 4096 (mamba2-1.3b's ln1 and gated norm) and 8 x 5120
-    (zamba2-2.7b's gated norm), the training paths' 8192 x 2560, 8192 x
-    4096 and 8192 x 5120 and a ragged 13 x 1001, in bf16 and f32, each
+    8 x 2048 and 8 x 4096 (mamba2-1.3b's ln1 and gated norm; also the moe
+    models' ln1 and ln2), 8 x 5120 (zamba2-2.7b's gated norm), 128 x 128
+    (olmoe-1b-7b's q/k norms: 8 lanes x 16 heads) and 8 x 512
+    (deepseek-v2-lite-16b's MLA latent norm), the training paths' 8192 x
+    2560, 8192 x 4096, 8192 x 5120, 8192 x 2048 (the moe models' ln1 and
+    ln2), 131072 x 128 (olmoe's q/k norms) and 8192 x 512 (the latent
+    norm) and a ragged 13 x 1001, in bf16 and f32, each
     launching the instance ``select_tiling`` names; in bf16 at the path
     shapes, timed beside ``F.rms_norm``, with the instance of every br of
     ``CONFIGS`` that divides the rows (through ``br=``, as a deployed
@@ -432,9 +481,16 @@ def rmsnorm_checks(gen, records):
                                  (LANES, SSM_D_MODEL, "serve_ssm"),
                                  (LANES, D_INNER, "serve_ssm"),
                                  (LANES, HYBRID_D_INNER, "serve_hybrid"),
+                                 (LANES * MOE_HEADS, MOE_HEAD_DIM,
+                                  "serve_moe"),
+                                 (LANES, MLA_LATENT, "serve_mla"),
                                  (ROWS, D_MODEL, "train"),
                                  (ROWS, D_INNER, "train_ssm"),
-                                 (ROWS, HYBRID_D_INNER, "train_hybrid")):
+                                 (ROWS, HYBRID_D_INNER, "train_hybrid"),
+                                 (ROWS, MOE_D_MODEL, "train_moe"),
+                                 (ROWS * MOE_HEADS, MOE_HEAD_DIM,
+                                  "train_moe"),
+                                 (ROWS, MLA_LATENT, "train_mla")):
             x = (torch.randn(rows, cols, device="cuda", generator=gen)
                  * 0.5).to(dt)
             g = (torch.randn(cols, device="cuda", generator=gen) * 0.5
@@ -493,8 +549,10 @@ def fused_ff_checks(gen, records):
     """K2 at the serving path's 8 x 2560 . 2560 x 6912, the decode
     threshold's neighbours (M 1, 3, 9, 16, 32), ragged shapes (M not a
     multiple of 128, N not a multiple of 8; K and N ragged at decode),
-    the training path's 8192 rows, and zamba2-2.7b's shared MLP (8 and
-    8192 rows . 2560 x 10240), in bf16 and f32, each launching the
+    the training path's 8192 rows, zamba2-2.7b's shared MLP (8 and 8192
+    rows . 2560 x 10240), and deepseek-v2-lite-16b's dense layer (8 and
+    8192 rows . 2048 x 10944, N not a multiple of 128) and shared experts
+    (. 2048 x 2816), in bf16 and f32, each launching the
     instance ``select_tiling`` names; in bf16 at the path shapes timed
     beside the cuBLAS composite, the serving shape also on the default
     wgmma instance (``wgmma_at``), the training shape at every ``CONFIGS``
@@ -515,7 +573,11 @@ def fused_ff_checks(gen, records):
         (3, 1001, 777, None), (300, D_MODEL, 777, None),
         (300, D_MODEL, 776, None), (ROWS, D_MODEL, D_FF, "train"),
         (LANES, D_MODEL, HYBRID_D_FF, "serve_hybrid"),
-        (ROWS, D_MODEL, HYBRID_D_FF, "train_hybrid")]
+        (ROWS, D_MODEL, HYBRID_D_FF, "train_hybrid"),
+        (LANES, MOE_D_MODEL, MLA_D_FF, "serve_mla"),
+        (LANES, MOE_D_MODEL, MLA_SHARED_D_FF, "serve_mla"),
+        (ROWS, MOE_D_MODEL, MLA_D_FF, "train_mla"),
+        (ROWS, MOE_D_MODEL, MLA_SHARED_D_FF, "train_mla")]
     for dname, dt in (("bfloat16", torch.bfloat16),
                       ("float32", torch.float32)):
         for m, k, n, path in cases:
@@ -527,7 +589,8 @@ def fused_ff_checks(gen, records):
             ws = [tuple((torch.randn(k, n, device="cuda", generator=gen)
                          * k ** -0.5).to(dt) for _ in range(2))
                   for _ in range(4 if path in ("serve", "serve_hybrid",
-                                               "threshold") else 1)]
+                                               "serve_mla", "threshold")
+                                 else 1)]
             shape = f"{m}x{k}x{n} {dname}"
             plain = ops.fused_ff(x, *ws[0], impl="ref")
             got, ran = launched(ff_mod, lambda: ff_mod.fused_ff(x, *ws[0]))
@@ -591,7 +654,31 @@ def fused_ff_checks(gen, records):
     torch.cuda.empty_cache()
 
 
+def sdpa_backends(q, k, v):
+    """The SDPA backends that take (q, k, v) causal, in PyTorch's own
+    order of preference (the one a plain call runs is the first)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    ok = []
+    for name in ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION",
+                 "MATH"):
+        try:
+            with sdpa_kernel([getattr(SDPBackend, name)]):
+                F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            ok.append(name)
+        except RuntimeError:
+            pass
+    return ok
+
+
 def flash_attention_checks(gen, records):
+    """K6 at the training paths' shapes, stablelm-3b's (4, 32, 2048, 80),
+    olmoe-1b-7b's (4, 16, 2048, 128) and deepseek-v2-lite-16b's MLA heads
+    (4, 16, 2048, q and k 192, v 128), causal, a ragged GQA shape with a
+    window, a non-causal shape and a query offset, in f32 and bf16, each
+    launching the instance ``select_tiling`` names (bf16 path shapes on
+    wgmma); the path shapes timed beside SDPA (the backend PyTorch picks;
+    those that take MLA's Dv != D printed)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa_mod
@@ -601,46 +688,70 @@ def flash_attention_checks(gen, records):
     # tests/test_kernels.py's tolerances for this kernel: atol 2e-4 in f32
     # (:91), 3e-2 in bf16 (:104, one bf16 rounding of outputs near 1).
     tol = {"float32": (2e-4, 0.0), "bfloat16": (3e-2, 0.0)}
-    cases = [  # B, H, KH, Sq, Sk, D, causal, window, q_offset
-        (BATCH, HEADS, HEADS, SEQ, SEQ, HEAD_DIM, True, NO_WINDOW, 0),
-        (2, 8, 2, 1000, 1000, HEAD_DIM, True, 256, 0),
-        (2, 8, 8, 1000, 1000, HEAD_DIM, False, NO_WINDOW, 0),
-        (1, 4, 2, 100, 300, 64, True, NO_WINDOW, 200),
+    cases = [  # B, H, KH, Sq, Sk, D, Dv, causal, window, q_offset, path
+        (BATCH, HEADS, HEADS, SEQ, SEQ, HEAD_DIM, HEAD_DIM, True, NO_WINDOW,
+         0, "train"),
+        (BATCH, MOE_HEADS, MOE_HEADS, SEQ, SEQ, MOE_HEAD_DIM, MOE_HEAD_DIM,
+         True, NO_WINDOW, 0, "train_moe"),
+        (BATCH, MOE_HEADS, MOE_HEADS, SEQ, SEQ, MLA_QK_DIM, MLA_V_DIM, True,
+         NO_WINDOW, 0, "train_mla"),
+        (2, 8, 2, 1000, 1000, HEAD_DIM, HEAD_DIM, True, 256, 0, None),
+        (2, 8, 8, 1000, 1000, HEAD_DIM, HEAD_DIM, False, NO_WINDOW, 0, None),
+        (1, 4, 2, 100, 300, 64, 64, True, NO_WINDOW, 200, None),
+        (2, 4, 4, 300, 300, MLA_QK_DIM, MLA_V_DIM, False, NO_WINDOW, 0,
+         None),
+        (1, 4, 2, 100, 300, MLA_QK_DIM, MLA_V_DIM, True, NO_WINDOW, 200,
+         None),
     ]
     for dname, dt in (("float32", torch.float32),
                       ("bfloat16", torch.bfloat16)):
-        for B, H, KH, Sq, Sk, D, causal, window, q_offset in cases:
+        for B, H, KH, Sq, Sk, D, Dv, causal, window, q_offset, path in cases:
             q = torch.randn(B, H, Sq, D, device="cuda", generator=gen).to(dt)
-            k, v = (torch.randn(B, KH, Sk, D, device="cuda",
-                                generator=gen).to(dt) for _ in range(2))
+            k = torch.randn(B, KH, Sk, D, device="cuda", generator=gen).to(dt)
+            v = torch.randn(B, KH, Sk, Dv, device="cuda",
+                            generator=gen).to(dt)
             kw = dict(causal=causal, window=window, q_offset=q_offset)
             win = "" if window == NO_WINDOW else f" window {window}"
-            shape = (f"({B},{H},{Sq},{D}) kv ({KH},{Sk}) "
+            dims = f"{D}" if Dv == D else f"{D}/{Dv}"
+            shape = (f"({B},{H},{Sq},{dims}) kv ({KH},{Sk}) "
                      f"{'causal' if causal else 'full'}{win}"
                      f"{f' q_offset {q_offset}' if q_offset else ''} "
                      f"{dname}")
             got, ran = launched(
                 fa_mod, lambda: fa_mod.flash_attention(q, k, v, **kw))
+            want = fa_mod.select_tiling(dt, q.shape, dv=Dv)
+            tiling = expect_tiling(f"flash_attention {shape}", ran, want)
+            if path is not None and dname == "bfloat16" \
+                    and not tiling.startswith("wgmma_"):
+                fail(f"flash_attention {shape} ran {tiling}, not wgmma")
             err = check_close(f"flash_attention {shape} {ran}", got,
                               ops.flash_attention(q, k, v, impl="ref", **kw),
                               *tol[dname])
-            if (Sq, dname) != (SEQ, "bfloat16"):
+            del got
+            if path is None or dname != "bfloat16":
                 continue
-            tiling = expect_tiling(f"flash_attention {shape}", ran)
             el = q.element_size()
-            # the (query, key) pairs this run's mask keeps, two products each
+            # the (query, key) pairs this run's mask keeps: each a D-wide
+            # and a Dv-wide product
             pairs = sum(min(q_offset + i + 1, Sk) for i in range(Sq))
+            backends = sdpa_backends(q, k, v)
+            print(f"  SDPA backends that take {shape}: {backends}",
+                  flush=True)
+            extra = ({"note": "also zamba2-2.7b's training shape "
+                              "(train_hybrid: its shared block's 32 heads "
+                              "of 80)"} if path == "train" else {})
             records.append(record(
-                "flash_attention", "train", shape, err,
+                "flash_attention", path, shape, err,
                 timed(lambda: fa_mod.flash_attention(q, k, v, **kw), 20),
                 event_ms(lambda: ops.flash_attention(q, k, v, impl="ref",
                                                      **kw), 10),
-                (2 * B * H * Sq + 2 * B * KH * Sk) * D * el,
-                4 * B * H * D * pairs, dname,
+                (B * H * Sq * (D + Dv) + B * KH * Sk * (D + Dv)) * el,
+                2 * B * H * (D + Dv) * pairs, dname,
                 timed(lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True), 20), tiling=tiling,
-                note="also zamba2-2.7b's training shape (train_hybrid: "
-                     "its shared block's 32 heads of 80)"))
+                sdpa_backends=backends, **extra))
+            del q, k, v
+    torch.cuda.empty_cache()
     # bf16 at each CONFIGS entry (bq, bk, d): a causal shape, and grouped
     # KV heads with a window and a query offset; each must launch its own
     # wgmma instance
@@ -1030,6 +1141,13 @@ def gradient_checks(gen):
         "flash_attention": (
             lambda impl, q, k, v: ops.flash_attention(q, k, v, impl=impl),
             [rnd(BATCH, HEADS, SEQ, HEAD_DIM) for _ in range(3)]),
+        # deepseek-v2-lite-16b's MLA heads: dv shaped like v
+        "flash_attention (D 192, Dv 128)": (
+            lambda impl, q, k, v: ops.flash_attention(
+                q, k, v, impl=impl, scale=MLA_QK_DIM ** -0.5),
+            [rnd(BATCH, MOE_HEADS, SEQ, MLA_QK_DIM),
+             rnd(BATCH, MOE_HEADS, SEQ, MLA_QK_DIM),
+             rnd(BATCH, MOE_HEADS, SEQ, MLA_V_DIM)]),
         "ssd": (lambda impl, x, a, b, c: ops.ssd_chunk(x, a, b, c,
                                                        impl=impl),
                 list(ssd_inputs(gen, SSM_SHAPE, torch.bfloat16,
@@ -1072,11 +1190,21 @@ def kernel_phase():
 # phase 3: the same decode on the card and on the host
 # ---------------------------------------------------------------------------
 
-def device_host_phase(arch):
-    """Four paged decode passes of ``arch`` (qwen1.5-4b, mamba2-1.3b) at
-    full width cut to 2 layers, f32, on the card and on the host from the
-    same parameters, tokens and block table; recurrent slot rows are
-    passed gathered to the 8 lanes, as the engine passes them."""
+def device_host_phase(arch, f64_witness=False):
+    """Four paged decode passes of ``arch`` (qwen1.5-4b, mamba2-1.3b,
+    olmoe-1b-7b, deepseek-v2-lite-16b: its dense layer and one moe layer)
+    at full width cut to 2 layers, f32, on the card and on the host from
+    the same parameters, tokens and block table; recurrent slot rows are
+    passed gathered to the 8 lanes, as the engine passes them.  The
+    logits agree within 1e-5 of the logit scale.
+
+    With ``f64_witness`` (deepseek-v2-lite-16b: with the reference's
+    initialisation a stacked layer's weights have unit variance at 2
+    layers, so MLA's attention logits and the logits reach the hundreds,
+    and the host's own f32 logits lie more than 1e-5 of that scale from
+    f64) the card is held instead to the host's f64 evaluation: at each
+    pass, max|card - f64| within max|host - f64| plus 1e-5 of the scale,
+    which a card within 1e-5 of the host meets too (ROADMAP §C)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1085,6 +1213,7 @@ def device_host_phase(arch):
     from repro_torch.serve.decode import paged_cache_kinds
 
     cfg = get_config(arch).replace(n_layers=2, dtype="float32")
+    cfg64 = cfg.replace(dtype="float64")
     params = lm.init_model(cfg, torch.Generator().manual_seed(0))
     dparams = _tree_to(params, "cuda")
     B, bs, steps = LANES, 16, 4
@@ -1099,29 +1228,47 @@ def device_host_phase(arch):
 
     host = lanes(init_paged_caches(cfg, B * 2, bs, B))
     dev = lanes(init_paged_caches(cfg, B * 2, bs, B, "cuda"))
+    if f64_witness:
+        params64 = _tree_to(params, "cpu", torch.float64)
+        host64 = lanes(init_paged_caches(cfg64, B * 2, bs, B))
     wmask = torch.ones(B, dtype=torch.bool)
-    worst = 0.0
+    worst = -float("inf")
     for t in range(steps):
         pos = torch.full((B,), t)
         h_logits, host = paged_decode_step(params, host, table, toks[t], pos,
                                            wmask, cfg, 2 * bs)
         d_logits, dev = paged_decode_step(dparams, dev, table, toks[t], pos,
                                           wmask, cfg, 2 * bs)
-        err = (d_logits.cpu() - h_logits).abs().max().item()
+        d_logits = d_logits.cpu()
         scale = h_logits.abs().max().item()
-        worst = max(worst, err / scale)
-        print(f"  pass {t}: max|d| {err:.3e} of max|logit| {scale:.1f}",
-              flush=True)
+        line = (f"  pass {t}: max|d| {(d_logits - h_logits).abs().max():.3e}"
+                f" of max|logit| {scale:.1f}")
+        if f64_witness:
+            exact, host64 = paged_decode_step(params64, host64, table,
+                                              toks[t], pos, wmask, cfg64,
+                                              2 * bs)
+            h_err = (h_logits.double() - exact).abs().max().item()
+            d_err = (d_logits.double() - exact).abs().max().item()
+            line += (f"; against f64: card {d_err:.3e}, host {h_err:.3e} "
+                     f"(bound {h_err + 1e-5 * scale:.3e})")
+            worst = max(worst, (d_err - h_err) / scale)
+        else:
+            worst = max(worst, (d_logits - h_logits).abs().max().item()
+                        / scale)
+        print(line, flush=True)
     # f32 dot products over 2048-6912 terms, summed in other orders on the
-    # two devices (no TF32): a relative bound on the logit scale.
-    print(f"  {arch}: worst max|d| / max|logit| {worst:.3e} (bound 1e-5)",
+    # two devices (no TF32): a relative bound on the logit scale
+    what = ("(max|card - f64| - max|host - f64|)" if f64_witness
+            else "max|d|")
+    print(f"  {arch}: worst {what} / max|logit| {worst:.3e} (bound 1e-5)",
           flush=True)
     if not worst <= 1e-5:
         fail(f"device and host decode logits of {arch} disagree")
 
 
 def device_host_train_step(arch, n_layers=2):
-    """One train step of ``arch`` (stablelm-3b, mamba2-1.3b; zamba2-2.7b
+    """One train step of ``arch`` (stablelm-3b, mamba2-1.3b, olmoe-1b-7b,
+    deepseek-v2-lite-16b: its dense layer and one moe layer; zamba2-2.7b
     cut to 12 layers: two groups, so that the shared block's gradient
     sums two applications) at full width cut to ``n_layers`` layers, f32,
     on the card and on the host from the same parameters and batch.
@@ -1228,13 +1375,22 @@ PREEMPT_REQUESTS, PREEMPT_KV_BLOCKS = 8, 48
 
 def serve_sites(cfg):
     """Kernel launches a decode pass of ``cfg`` makes, by kernel: K1 at
-    each norm (a dense layer's two, a Mamba-2 layer's ln1 and gated norm,
-    the hybrid's shared block's two at each of its applications) and at
-    the final norm, K2 at each MLP."""
+    each norm (an attention layer's ln1 and ln2, its q and k norms where
+    the config has them and MLA's latent norm; a Mamba-2 layer's ln1 and
+    gated norm; the hybrid's shared block's two at each of its
+    applications) and at the final norm, K2 at each SwiGLU (a dense
+    layer's MLP, an moe layer's shared experts)."""
     shared = (cfg.n_layers // cfg.shared_attn_every
               if cfg.family == "hybrid" else 0)
+    if cfg.family in ("dense", "moe"):
+        per_layer = 2 + 2 * cfg.qk_norm + cfg.mla
+        n_moe = cfg.n_layers - cfg.first_dense_layers \
+            if cfg.family == "moe" else 0
+        return {"rmsnorm": per_layer * cfg.n_layers + 1,
+                "fused_ff": cfg.n_layers - n_moe
+                + (n_moe if cfg.n_shared_experts else 0)}
     return {"rmsnorm": 2 * cfg.n_layers + 2 * shared + 1,
-            "fused_ff": cfg.n_layers if cfg.family == "dense" else shared}
+            "fused_ff": shared}
 
 
 def _serve_engine(arch, **kw):
@@ -1315,6 +1471,57 @@ def serve_phase(arch, profile_dir):
     print(f"  serving main path ({arch}) " + json.dumps(stats), flush=True)
     if profile_dir:
         profile_passes(engine, cfg, profile_dir)
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def fork_phase(arch):
+    """Copy-on-write over ``arch``'s pages (deepseek-v2-lite-16b: the MLA
+    latent and rope-key pages): one donor prefills a prompt of
+    ``FORK_PROMPT`` tokens (a partial last block), then ``FORK_SHARERS``
+    identical prompts are admitted onto its registered pages, prefill
+    nothing, and fork the partial block on their first write.  Clock-free:
+    each count is the pool's alone.  Every stream equals the donor's, so
+    a forked page holds what the donor's own pages hold, and the launch
+    counts equal passes x ``serve_sites``."""
+    import numpy as np
+    import torch
+
+    cfg, engine = _serve_engine(arch)
+    prompt = np.random.default_rng(1).integers(
+        0, cfg.vocab, FORK_PROMPT).tolist()
+    passes0 = engine.counters["passes"]
+    _reset_launches()
+    t0 = time.perf_counter()
+    donor = engine.submit(prompt, FORK_NEW_TOKENS, tenant="t0")
+
+    def donor_pos():
+        slot = next((s for s in engine._active if s.request is donor), None)
+        return -1 if slot is None else slot.pos
+
+    # the partial block is registered once the pass at the prompt's last
+    # position has completed it
+    while donor_pos() < len(prompt):
+        engine.step()
+    for i in range(FORK_SHARERS):
+        engine.submit(prompt, FORK_NEW_TOKENS, tenant=f"t{i % 2}")
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    passes = engine.counters["passes"] - passes0
+    _check_served(cfg, engine, 1 + FORK_SHARERS, passes, launches)
+    c = engine.counters
+    stats = {k: c[k] for k in ("prefix_hits", "cow_forks", "admissions")}
+    stats.update(passes=passes, wall_s=wall,
+                 streams_equal=all(r.output == donor.output
+                                   for r in engine.finished))
+    print(f"  fork run ({arch}) " + json.dumps(stats), flush=True)
+    if c["prefix_hits"] < FORK_SHARERS or c["cow_forks"] < FORK_SHARERS \
+            or not stats["streams_equal"]:
+        fail(f"{arch}: shared pages did not fork copy-on-write into the "
+             f"donor's stream: {stats}")
     del engine
     torch.cuda.empty_cache()
     return launches
@@ -1434,15 +1641,18 @@ def train_sites(cfg):
     norm once; K6 at each attention, K7 at each Mamba-2 layer, likewise
     twice."""
     sites = serve_sites(cfg)
-    attn = {"dense": cfg.n_layers, "ssm": 0,
+    attn = {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
             "hybrid": sites["fused_ff"]}[cfg.family]
     return {"rmsnorm": 2 * (sites["rmsnorm"] - 1) + 1,
             "fused_ff": 2 * sites["fused_ff"],
             "flash_attention": 2 * attn,
-            "ssd": 0 if cfg.family == "dense" else 2 * cfg.n_layers}
+            "ssd": (2 * cfg.n_layers if cfg.family in ("ssm", "hybrid")
+                    else 0)}
 
 
 def train_phase(arch, profile_dir):
+    """``TRAIN_STEPS`` steps of ``arch`` at full width, with the layers of
+    ``TRAIN_LAYERS`` where the full depth does not fit one card."""
     import math
 
     import torch
@@ -1452,14 +1662,16 @@ def train_phase(arch, profile_dir):
     from repro_torch.utils.tree import param_count
 
     cfg = get_config(arch)
+    if arch in TRAIN_LAYERS:
+        cfg = cfg.replace(n_layers=TRAIN_LAYERS[arch])
     tcfg = TrainConfig(steps=TRAIN_STEPS, seq_len=SEQ, global_batch=BATCH)
     t0 = time.perf_counter()
     trainer = Trainer(cfg, tcfg, device="cuda")
     torch.cuda.synchronize()
     n_params = param_count(trainer.state.params)
-    print(f"  {cfg.name}: {n_params / 1e9:.3f} B parameters in {cfg.dtype}, "
-          f"remat {cfg.remat}, made in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"  {cfg.name}: {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+          f"parameters in {cfg.dtype}, remat {cfg.remat}, made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # step 0's loss evaluated once more with every kernel replaced by its
     # plain version, from the same parameters and batch
@@ -1506,7 +1718,7 @@ def train_phase(arch, profile_dir):
              "site and pass")
     steady = [r["seconds"] for r in log[1:]]
     stats = {
-        "steps": len(log), "wall_s": wall,
+        "n_layers": cfg.n_layers, "steps": len(log), "wall_s": wall,
         "step_s": [r["seconds"] for r in log],
         "steady_step_s": statistics.median(steady),
         "tokens_per_s": tokens / statistics.median(steady),
@@ -2320,20 +2532,29 @@ def main() -> int:
     phase("3 device against host")
     device_host_phase("qwen1.5-4b")
     device_host_phase(SSM_ARCH)
+    device_host_phase(MOE_ARCH)
+    device_host_phase(MLA_ARCH, f64_witness=True)
     device_host_train_step("stablelm-3b")
     device_host_train_step(SSM_ARCH)
     device_host_train_step(HYBRID_ARCH, n_layers=12)
+    device_host_train_step(MOE_ARCH)
+    device_host_train_step(MLA_ARCH)
 
     phase("4 serving main paths")
     launches = {"serve": serve_phase("qwen1.5-4b", args.profile),
                 "serve_ssm": serve_phase(SSM_ARCH, args.profile),
                 "serve_hybrid": serve_phase(HYBRID_ARCH, args.profile),
-                "serve_hybrid_spill": preempt_phase(HYBRID_ARCH)}
+                "serve_hybrid_spill": preempt_phase(HYBRID_ARCH),
+                "serve_moe": serve_phase(MOE_ARCH, args.profile),
+                "serve_mla": serve_phase(MLA_ARCH, args.profile),
+                "serve_mla_fork": fork_phase(MLA_ARCH)}
 
     phase("5 training main paths")
     launches["train"] = train_phase("stablelm-3b", args.profile)
     launches["train_ssm"] = train_phase(SSM_ARCH, args.profile)
     launches["train_hybrid"] = train_phase(HYBRID_ARCH, args.profile)
+    launches["train_moe"] = train_phase(MOE_ARCH, args.profile)
+    launches["train_mla"] = train_phase(MLA_ARCH, args.profile)
 
     phase("6 optimizer main paths")
     launches["optimize"], pair_configs = optimize_phase()
@@ -2377,6 +2598,7 @@ def main() -> int:
                               if k not in ("name", "route", "source",
                                            "replaces")} for r in mine])
         kernels.append(entry)
+    phase(None)
     print(f"  every phase passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

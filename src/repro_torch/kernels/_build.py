@@ -47,9 +47,9 @@ _SIGNATURES = {
     "repro_rmsnorm": [_P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P],
     # (x, wg, wu, out, work, M, K, N, splits, tiling, dtype, stream)
     "repro_fused_ff": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # (q, k, v, o, B, H, KH, Sq, Sk, D, scale, causal, window, q_offset,
-    #  tiling, dtype, stream)
-    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    # (q, k, v, o, B, H, KH, Sq, Sk, D, Dv, scale, causal, window,
+    #  q_offset, tiling, dtype, stream)
+    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               ctypes.c_float, _I, _I, _I, _I, _I, _P],
     # (a, b, out, M, K, N, negative_slope, tiling, dtype, stream)
     "repro_matmul_leakyrelu": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I,

@@ -14,7 +14,9 @@
 // q_pos = q_offset + i when j > q_pos - window and, if causal, j <= q_pos.
 // A masked logit is -1e30 (as the reference's recurrence has it, so a row
 // that sees no key gets the mean of v), a key past Sk gets weight 0, l is
-// floored at 1e-30.  Any Sq, Sk and D <= 128 are taken.  Only the key
+// floored at 1e-30.  v's head dim Dv may differ from q's and k's D (MLA:
+// D 192 = 128 + 64 rope, Dv 128); o is (B, H, Sq, Dv).  Any Sq and Sk are
+// taken, at the (D, Dv) widths of the instances below.  Only the key
 // tiles that some row of the block may see are visited: with every row
 // seeing at least one key, tiles above the causal diagonal and tiles
 // behind the window are skipped (their logits would be masked for every
@@ -70,11 +72,24 @@
 // D-64 instance (zero-filled columns, not stored).  TMA needs 16-byte rows,
 // so this route takes D a multiple of 8 and 16-byte-aligned tensors.
 //
+// MLA's head dims (deepseek-v2-lite: D 192, Dv 128) run
+// wgmma_bq128_bk128_d192_v128, the kernel templated on the q/K width (192:
+// three 64-wide column blocks, S = q K^T in 12 k-steps of 16) apart from
+// the V/o width (128).  P V keeps N = 128, so the registers a consumer
+// needs are those of the d128 instance; only shared memory grows.  At bk
+// 128 q takes 48 KB and a K/V stage 48 + 32 KB, so two stages fit (208 KB
+// of the 227 KB a block may have); bk 64 would fit four stages of 40 KB
+// but would halve the keys between two barrier waits and add an
+// instance that no deployed config names: the default 128 x 128 tile is
+// kept, as every model call takes it.
+//
 // simt_* — the SIMT kernel, a template on its tile (BQ query rows, BK
 // keys, head dims padded to DP): simt_64x64 for f32 calls that name no
 // config (the model's) and bf16 shapes TMA cannot take (D not a multiple
 // of 8), at the narrowest DP that holds D; simt_bq*_bk*_d* for f32 calls
-// with a deployed config, one instance per config's tile.  A config whose
+// with a deployed config, one instance per config's tile;
+// simt_bq64_bk64_d192_v128 for f32 calls at MLA's head dims (the model's
+// and the host comparison's; its tiles take 150 KB).  A config whose
 // f32 q, K^T, V and P tiles exceed 227 KB of shared memory runs the tile
 // the wrapper's f32_block fits to it, named after it: bk halved, then bq
 // ((128, 256, 64) runs bq128_bk128_d64, (256, 128, 64) bq256_bk64_d64,
@@ -105,30 +120,33 @@ namespace simt {
 constexpr int kThreads = 256;    // a 16 x 16 grid of threads
 constexpr float kNeg = -1e30f;   // the logit of a masked key
 
-// floats of shared memory for a BQ x BK tile at head dims padded to DP
-constexpr int smem_floats(int BQ, int BK, int DP) {
-  return BQ * (DP + 4) + DP * (BK + 1) + BK * DP + BQ * (BK + 4);
+// floats of shared memory for a BQ x BK tile at q/K head dims padded to
+// DP and V head dims padded to DV
+constexpr int smem_floats(int BQ, int BK, int DP, int DV) {
+  return BQ * (DP + 4) + DP * (BK + 1) + BK * DV + BQ * (BK + 4);
 }
 
-template <typename T, int BQ, int BK, int DP>
+template <typename T, int BQ, int BK, int DP, int DV>
 __global__ void __launch_bounds__(kThreads, BQ * BK <= 64 * 64 ? 2 : 1)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o, int H,
-                           int KH, int Sq, int Sk, int D, float scale,
-                           int causal, int window, int q_offset) {
-  static_assert(BQ % 16 == 0 && BK % 16 == 0 && DP % 16 == 0, "");
+                           int KH, int Sq, int Sk, int D, int Dv,
+                           float scale, int causal, int window,
+                           int q_offset) {
+  static_assert(BQ % 16 == 0 && BK % 16 == 0 && DP % 16 == 0 && DV % 16 == 0,
+                "");
   constexpr int QP = DP + 4;     // pitch of q rows: 16-byte aligned, and
                                  // rows 4 apart fall in other banks
   constexpr int KP = BK + 1;     // pitch of K^T rows (conflict-free stores)
   constexpr int PP = BK + 4;     // pitch of the probability rows
   constexpr int RQ = BQ / 16;    // query rows per thread
   constexpr int RK = BK / 16;    // keys per thread
-  constexpr int NC = DP / 16;    // head dims per thread in P V
+  constexpr int NC = DV / 16;    // V head dims per thread in P V
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);   // [BQ][QP]
   float* kt = qs + BQ * QP;                      // [DP][KP]
-  float* vs = kt + DP * KP;                      // [BK][DP]
-  float* ps = vs + BK * DP;                      // [BQ][PP]
+  float* vs = kt + DP * KP;                      // [BK][DV]
+  float* ps = vs + BK * DV;                      // [BQ][PP]
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int n_qt = (Sq + BQ - 1) / BQ;
@@ -138,8 +156,8 @@ __global__ void __launch_bounds__(kThreads, BQ * BK <= 64 * 64 ? 2 : 1)
   const int rows = min(BQ, Sq - q0);
   const T* qp = q + (static_cast<size_t>(bh) * Sq + q0) * D;
   const T* kp = k + static_cast<size_t>(kvh) * Sk * D;
-  const T* vp = v + static_cast<size_t>(kvh) * Sk * D;
-  T* op = o + (static_cast<size_t>(bh) * Sq + q0) * D;
+  const T* vp = v + static_cast<size_t>(kvh) * Sk * Dv;
+  T* op = o + (static_cast<size_t>(bh) * Sq + q0) * Dv;
 
   for (int i = tid; i < BQ * DP; i += kThreads) {
     const int r = i / DP, d = i % DP;
@@ -172,10 +190,15 @@ __global__ void __launch_bounds__(kThreads, BQ * BK <= 64 * 64 ? 2 : 1)
     __syncthreads();   // the previous tile's K, V and P are read
     for (int i = tid; i < BK * DP; i += kThreads) {
       const int c = i / DP, d = i % DP;
-      const bool in = k0 + c < Sk && d < D;
-      const size_t g = static_cast<size_t>(k0 + c) * D + d;
-      kt[d * KP + c] = in ? to_f32(kp[g]) : 0.f;
-      vs[c * DP + d] = in ? to_f32(vp[g]) : 0.f;
+      kt[d * KP + c] = k0 + c < Sk && d < D
+                           ? to_f32(kp[static_cast<size_t>(k0 + c) * D + d])
+                           : 0.f;
+    }
+    for (int i = tid; i < BK * DV; i += kThreads) {
+      const int c = i / DV, d = i % DV;
+      vs[c * DV + d] = k0 + c < Sk && d < Dv
+                           ? to_f32(vp[static_cast<size_t>(k0 + c) * Dv + d])
+                           : 0.f;
     }
     __syncthreads();
 
@@ -249,7 +272,7 @@ __global__ void __launch_bounds__(kThreads, BQ * BK <= 64 * 64 ? 2 : 1)
 #pragma unroll
       for (int i = 0; i < RQ; ++i) pv[i] = ps[(RQ * ty + i) * PP + key];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = vs[key * DP + tx + 16 * c];
+      for (int c = 0; c < NC; ++c) vv[c] = vs[key * DV + tx + 16 * c];
 #pragma unroll
       for (int i = 0; i < RQ; ++i)
 #pragma unroll
@@ -265,49 +288,52 @@ __global__ void __launch_bounds__(kThreads, BQ * BK <= 64 * 64 ? 2 : 1)
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = tx + 16 * c;
-      if (d < D) op[static_cast<size_t>(r) * D + d] = from_f32<T>(acc[i][c] / ell);
+      if (d < Dv) op[static_cast<size_t>(r) * Dv + d] = from_f32<T>(acc[i][c] / ell);
     }
   }
 }
 
-template <typename T, int BQ, int BK, int DP>
+template <typename T, int BQ, int BK, int DP, int DV = DP>
 cudaError_t launch_dp(const void* q, const void* k, const void* v, void* o,
-                      int B, int H, int KH, int Sq, int Sk, int D,
+                      int B, int H, int KH, int Sq, int Sk, int D, int Dv,
                       float scale, int causal, int window, int q_offset,
                       cudaStream_t stream) {
-  constexpr int smem = smem_floats(BQ, BK, DP) * static_cast<int>(sizeof(float));
+  constexpr int smem =
+      smem_floats(BQ, BK, DP, DV) * static_cast<int>(sizeof(float));
   static_assert(smem <= 227 * 1024, "the f32 tile must fit a block");
-  if (D > DP) return cudaErrorInvalidValue;
-  auto kernel = flash_attention_kernel<T, BQ, BK, DP>;
+  if (D > DP || Dv > DV) return cudaErrorInvalidValue;
+  auto kernel = flash_attention_kernel<T, BQ, BK, DP, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, KH, Sq, Sk, D, scale,
-      causal, window, q_offset);
+      static_cast<const T*>(v), static_cast<T*>(o), H, KH, Sq, Sk, D, Dv,
+      scale, causal, window, q_offset);
   return cudaGetLastError();
 }
 
 // simt_64x64: 64 x 64 tiles at the narrowest head-dim width that holds D
+// and Dv
 template <typename T>
 cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o,
-                        int B, int H, int KH, int Sq, int Sk, int D,
+                        int B, int H, int KH, int Sq, int Sk, int D, int Dv,
                         float scale, int causal, int window, int q_offset,
                         cudaStream_t stream) {
-  if (D <= 32)
-    return launch_dp<T, 64, 64, 32>(q, k, v, o, B, H, KH, Sq, Sk, D, scale,
-                                    causal, window, q_offset, stream);
-  if (D <= 64)
-    return launch_dp<T, 64, 64, 64>(q, k, v, o, B, H, KH, Sq, Sk, D, scale,
-                                    causal, window, q_offset, stream);
-  if (D <= 80)
-    return launch_dp<T, 64, 64, 80>(q, k, v, o, B, H, KH, Sq, Sk, D, scale,
-                                    causal, window, q_offset, stream);
-  if (D <= 128)
-    return launch_dp<T, 64, 64, 128>(q, k, v, o, B, H, KH, Sq, Sk, D, scale,
-                                     causal, window, q_offset, stream);
+  const int w = D > Dv ? D : Dv;
+  if (w <= 32)
+    return launch_dp<T, 64, 64, 32>(q, k, v, o, B, H, KH, Sq, Sk, D, Dv,
+                                    scale, causal, window, q_offset, stream);
+  if (w <= 64)
+    return launch_dp<T, 64, 64, 64>(q, k, v, o, B, H, KH, Sq, Sk, D, Dv,
+                                    scale, causal, window, q_offset, stream);
+  if (w <= 80)
+    return launch_dp<T, 64, 64, 80>(q, k, v, o, B, H, KH, Sq, Sk, D, Dv,
+                                    scale, causal, window, q_offset, stream);
+  if (w <= 128)
+    return launch_dp<T, 64, 64, 128>(q, k, v, o, B, H, KH, Sq, Sk, D, Dv,
+                                     scale, causal, window, q_offset, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -321,20 +347,22 @@ constexpr float kMasked = -1e30f;   // the logit of a masked key
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kSmemBudget = 227 * 1024 - 2048;
 
-template <int BQ, int BK, int DN>
+template <int BQ, int BK, int DQ, int DV>
 struct FaTile {
   static_assert(BQ == 128 || BQ == 256, "two consumers of 1 or 2 slices");
-  static_assert(BK % 64 == 0 && BK <= 256 && DN % 16 == 0 && DN <= 128, "");
+  static_assert(BK % 64 == 0 && BK <= 256 && DQ % 16 == 0 && DQ <= 256 &&
+                    DV % 16 == 0 && DV <= 128,
+                "");
   static constexpr int kMI = BQ / 128;            // m64 slices a consumer
   static constexpr int kThreads = 3 * 128;        // 2 consumers + producer
-  static constexpr int kDCB = (DN + 63) / 64;     // q/K column blocks
+  static constexpr int kDCB = (DQ + 63) / 64;     // q/K column blocks
   static constexpr int kQBytes = kDCB * BQ * 128;
   static constexpr int kKBytes = kDCB * BK * 128;
   // V: column blocks of the 128-byte swizzle's 64 elements where they
-  // divide DN, else of the 32-byte swizzle's 16
-  static constexpr int kVW = DN % 64 == 0 ? 64 : 16;
+  // divide DV, else of the 32-byte swizzle's 16
+  static constexpr int kVW = DV % 64 == 0 ? 64 : 16;
   static constexpr sm90::Swizzle kVSw = kVW == 64 ? sm90::kSw128 : sm90::kSw32;
-  static constexpr int kVBytes = BK * DN * 2;     // DN / kVW column blocks
+  static constexpr int kVBytes = BK * DV * 2;     // DV / kVW column blocks
   static_assert(kVBytes % 1024 == 0, "stages stay 1024-byte aligned");
   static constexpr int kStageBytes = kKBytes + kVBytes;
   static constexpr int kFit = (kSmemBudget - kQBytes) / kStageBytes;
@@ -358,15 +386,15 @@ __device__ __forceinline__ void keep_regs(const uint32_t (&a)[kN][4]) {
                  : "memory");
 }
 
-template <int BQ, int BK, int DN>
-__global__ void __launch_bounds__(FaTile<BQ, BK, DN>::kThreads, 1)
+template <int BQ, int BK, int DQ, int DV>
+__global__ void __launch_bounds__(FaTile<BQ, BK, DQ, DV>::kThreads, 1)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                                  const __grid_constant__ CUtensorMap kmap,
                                  const __grid_constant__ CUtensorMap vmap,
                                  __nv_bfloat16* __restrict__ o, int H, int KH,
-                                 int Sq, int Sk, int D, float scale,
+                                 int Sq, int Sk, int Dv, float scale,
                                  int causal, int window, int q_offset) {
-  using T = FaTile<BQ, BK, DN>;
+  using T = FaTile<BQ, BK, DQ, DV>;
   using namespace sm90;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -424,7 +452,7 @@ __global__ void __launch_bounds__(FaTile<BQ, BK, DN>::kThreads, 1)
           tma_load_3d(ks + cb * BK * 128, &kmap, &full_k[s], 64 * cb, k0, kvh);
         mbar_expect_tx(&full_v[s], T::kVBytes);
 #pragma unroll
-        for (int cb = 0; cb < DN / T::kVW; ++cb)
+        for (int cb = 0; cb < DV / T::kVW; ++cb)
           tma_load_3d(vs + cb * BK * T::kVW * 2, &vmap, &full_v[s],
                       T::kVW * cb, k0, kvh);
       }
@@ -435,11 +463,11 @@ __global__ void __launch_bounds__(FaTile<BQ, BK, DN>::kThreads, 1)
   regs_inc<240>();
   const int warp = t / 32, lane = t % 32;
   const float sl2 = scale * kLog2e;
-  float acc[T::kMI][DN / 2], m[T::kMI][2], l[T::kMI][2];
+  float acc[T::kMI][DV / 2], m[T::kMI][2], l[T::kMI][2];
 #pragma unroll
   for (int i = 0; i < T::kMI; ++i) {
 #pragma unroll
-    for (int j = 0; j < DN / 2; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < DV / 2; ++j) acc[i][j] = 0.f;
     m[i][0] = m[i][1] = kMasked;
     l[i][0] = l[i][1] = 0.f;
   }
@@ -468,7 +496,7 @@ __global__ void __launch_bounds__(FaTile<BQ, BK, DN>::kThreads, 1)
       float sacc[BK / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DN / 16; ++kk) {
+      for (int kk = 0; kk < DQ / 16; ++kk) {
         const uint64_t dq = make_desc(
             qs_addr + (kk / 4) * BQ * 128 + (wg * T::kMI + i) * 64 * 128 +
                 (kk % 4) * 32, 16, 1024, kSw128);
@@ -535,11 +563,11 @@ __global__ void __launch_bounds__(FaTile<BQ, BK, DN>::kThreads, 1)
         for (int w = 0; w < 4; ++w)
           pa[kk][w] = pack_bf16(sacc[8 * kk + 2 * w], sacc[8 * kk + 2 * w + 1]);
 #pragma unroll
-      for (int j = 0; j < DN / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][4 * j + e] *= alpha[e >> 1];
 
-      // O += P V (64 x DN)
+      // O += P V (64 x DV)
       if (!v_ready) {
         mbar_wait(&full_v[s], ph);
         v_ready = true;
@@ -551,7 +579,7 @@ __global__ void __launch_bounds__(FaTile<BQ, BK, DN>::kThreads, 1)
         const uint64_t dv = make_desc(vs + kk * 16 * T::kVW * 2,
                                       BK * T::kVW * 2, 8 * T::kVW * 2,
                                       T::kVSw);
-        WgmmaRS<DN>::template mma<1>(acc[i], pa[kk], dv, 1);
+        WgmmaRS<DV>::template mma<1>(acc[i], pa[kk], dv, 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -576,27 +604,27 @@ __global__ void __launch_bounds__(FaTile<BQ, BK, DN>::kThreads, 1)
       inv[r] = 1.f / fmaxf(ell, 1e-30f);
     }
 #pragma unroll
-    for (int j = 0; j < DN / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = r0 + 8 * r, col = 8 * j + 2 * (lane % 4);
-        if (row < Sq && col < D)
+        if (row < Sq && col < Dv)
           *reinterpret_cast<uint32_t*>(
-              o + (static_cast<size_t>(bh) * Sq + row) * D + col) =
+              o + (static_cast<size_t>(bh) * Sq + row) * Dv + col) =
               pack_bf16(acc[i][4 * j + 2 * r] * inv[r],
                         acc[i][4 * j + 2 * r + 1] * inv[r]);
       }
   }
 }
 
-template <int BQ, int BK, int DN>
+template <int BQ, int BK, int DQ, int DV = DQ>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                         int B, int H, int KH, int Sq, int Sk, int D,
+                         int B, int H, int KH, int Sq, int Sk, int D, int Dv,
                          float scale, int causal, int window, int q_offset,
                          cudaStream_t stream) {
-  using T = FaTile<BQ, BK, DN>;
-  if (D > DN || D % 8 || !aligned(q, 16) || !aligned(k, 16) ||
-      !aligned(v, 16) || !aligned(o, 4))
+  using T = FaTile<BQ, BK, DQ, DV>;
+  if (D > DQ || Dv > DV || D % 8 || Dv % 8 || !aligned(q, 16) ||
+      !aligned(k, 16) || !aligned(v, 16) || !aligned(o, 4))
     return cudaErrorInvalidValue;   // what TMA cannot take
   constexpr CUtensorMapSwizzle kVMapSw =
       T::kVW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
@@ -605,28 +633,29 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                    CU_TENSOR_MAP_SWIZZLE_128B) ||
       !make_map_3d(&kmap, k, D, Sk, static_cast<uint64_t>(B) * KH, 64, BK,
                    CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map_3d(&vmap, v, D, Sk, static_cast<uint64_t>(B) * KH, T::kVW,
+      !make_map_3d(&vmap, v, Dv, Sk, static_cast<uint64_t>(B) * KH, T::kVW,
                    BK, kVMapSw))
     return cudaErrorInvalidValue;
-  auto kernel = flash_attention_wgmma_kernel<BQ, BK, DN>;
+  auto kernel = flash_attention_wgmma_kernel<BQ, BK, DQ, DV>;
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   kernel<<<grid, T::kThreads, T::kSmem, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), H, KH, Sq, Sk, D,
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), H, KH, Sq, Sk, Dv,
       scale, causal, window, q_offset);
   return cudaGetLastError();
 }
 
 using Launcher = cudaError_t (*)(const void*, const void*, const void*, void*,
-                                 int, int, int, int, int, int, float, int, int,
-                                 int, cudaStream_t);
+                                 int, int, int, int, int, int, int, float, int,
+                                 int, int, cudaStream_t);
 
 // The tilings a call may name, by id (kernels/flash_attention.py::TILINGS
 // lists the same names in the same order), with the launcher of each type
 // that has one: id 0 the SIMT kernel at 64 x 64, in f32 and bf16; the
-// bf16 wgmma instances; the f32 SIMT instances of the deployed configs.
+// bf16 wgmma instances; the f32 SIMT instances of the deployed configs;
+// then MLA's (D 192, Dv 128) in bf16 (wgmma) and f32 (SIMT).
 struct Tiling {
   const char* name;
   Launcher f32;
@@ -643,23 +672,27 @@ const Tiling kTilings[] = {
     {"simt_bq128_bk128_d64", &simt::launch_dp<float, 128, 128, 64>, nullptr},
     {"simt_bq256_bk64_d64", &simt::launch_dp<float, 256, 64, 64>, nullptr},
     {"simt_bq128_bk64_d128", &simt::launch_dp<float, 128, 64, 128>, nullptr},
+    {"wgmma_bq128_bk128_d192_v128", nullptr,
+     &launch_wgmma<128, 128, 192, 128>},
+    {"simt_bq64_bk64_d192_v128", &simt::launch_dp<float, 64, 64, 192, 128>,
+     nullptr},
 };
 constexpr int kNumTilings = sizeof(kTilings) / sizeof(kTilings[0]);
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int B, int H, int KH, int Sq, int Sk, int D, float scale,
-                     int causal, int window, int q_offset, int tiling,
-                     int dtype, cudaStream_t stream) {
+                     int B, int H, int KH, int Sq, int Sk, int D, int Dv,
+                     float scale, int causal, int window, int q_offset,
+                     int tiling, int dtype, cudaStream_t stream) {
   if (tiling < 0 || tiling >= kNumTilings) return cudaErrorInvalidValue;
   if (B == 0 || H == 0 || Sq == 0) return cudaSuccess;
-  if (KH <= 0 || H % KH != 0 || Sk <= 0 || D <= 0 || window < 1 ||
+  if (KH <= 0 || H % KH != 0 || Sk <= 0 || D <= 0 || Dv <= 0 || window < 1 ||
       q_offset < 0 || B * H > 65535)
     return cudaErrorInvalidValue;
   const Launcher fn = dtype == kF32 ? kTilings[tiling].f32
                     : dtype == kBF16 ? kTilings[tiling].bf16 : nullptr;
   if (fn == nullptr) return cudaErrorInvalidValue;   // no such instance
-  return fn(q, k, v, o, B, H, KH, Sq, Sk, D, scale, causal, window, q_offset,
-            stream);
+  return fn(q, k, v, o, B, H, KH, Sq, Sk, D, Dv, scale, causal, window,
+            q_offset, stream);
 }
 
 }  // namespace
@@ -681,16 +714,16 @@ extern "C" const char* repro_flash_attention_tilings() {
   return names;
 }
 
-// q, o: (B, H, Sq, D); k, v: (B, KH, Sk, D); all contiguous, one dtype; run
-// by the kernel of `tiling` (an id of repro_flash_attention_tilings()).
-// Returns a cudaError_t.
+// q: (B, H, Sq, D); k: (B, KH, Sk, D); v: (B, KH, Sk, Dv); o: (B, H, Sq,
+// Dv); all contiguous, one dtype; run by the kernel of `tiling` (an id of
+// repro_flash_attention_tilings()).  Returns a cudaError_t.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int H,
-                                     int KH, int Sq, int Sk, int D,
+                                     int KH, int Sq, int Sk, int D, int Dv,
                                      float scale, int causal, int window,
                                      int q_offset, int tiling, int dtype,
                                      void* stream) {
   return static_cast<int>(repro::dispatch(
-      q, k, v, o, B, H, KH, Sq, Sk, D, scale, causal, window, q_offset,
+      q, k, v, o, B, H, KH, Sq, Sk, D, Dv, scale, causal, window, q_offset,
       tiling, dtype, static_cast<cudaStream_t>(stream)));
 }

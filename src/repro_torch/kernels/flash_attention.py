@@ -43,19 +43,23 @@ launches_by_tiling: collections.Counter = collections.Counter()
 # bf16 that TMA cannot take), the bf16 wgmma instances by (bq, bk,
 # head-dim width): one per CONFIGS entry, and the training path's default
 # at stablelm-3b's D = 80; then the f32 SIMT instances by the tile they
-# run: one per CONFIGS entry, after fitting (``f32_block``).
+# run: one per CONFIGS entry, after fitting (``f32_block``); then MLA's
+# head dims (q and k 192, v 128: deepseek-v2-lite) at the default tile, in
+# bf16 on wgmma and in f32 on the SIMT kernel.
 SIMT = "simt_64x64"
 WGMMA = ((128, 128, 64), (128, 256, 64), (256, 128, 64), (128, 128, 80),
          (128, 128, 128))
 SIMT_F32 = ((128, 128, 64), (256, 64, 64), (128, 64, 128))
+MLA_WGMMA, MLA_SIMT = "wgmma_bq128_bk128_d192_v128", "simt_bq64_bk64_d192_v128"
 TILINGS = ((SIMT,) + tuple(f"wgmma_bq{bq}_bk{bk}_d{w}" for bq, bk, w in WGMMA)
-           + tuple(f"simt_bq{bq}_bk{bk}_d{w}" for bq, bk, w in SIMT_F32))
+           + tuple(f"simt_bq{bq}_bk{bk}_d{w}" for bq, bk, w in SIMT_F32)
+           + (MLA_WGMMA, MLA_SIMT))
 # The tiling of a call that names no bq / bk (the model's call through
 # nn.attention.chunked_attention): 128 query rows, 128 keys a tile.
 DEFAULT_BQ = DEFAULT_BK = 128
-# head-dim widths of the instances: a head dim runs on the narrowest
-# width that holds it (the paper's 32 on 64, zero-filled by TMA)
-_WIDTHS = (64, 80, 128)
+# (q/k, v) head-dim widths of the instances: a call runs on the first
+# pair that holds its (D, Dv) (the paper's 32 on 64, zero-filled by TMA)
+_WIDTHS = ((64, 64), (80, 80), (128, 128), (192, 128))
 # shared memory a block may have (the f32 tile's q, K^T, V and P)
 _SMEM_BYTES = 227 * 1024
 
@@ -75,18 +79,19 @@ def f32_block(bq: int, bk: int, width: int):
         bq //= 2
     return bq, bk
 
-MAX_HEAD_DIM = 128
 # (query heads x Sq x Sk) f32 entries per recompute in the backward: each
 # of the plain version's (heads, Sq, Sk) tensors stays under 512 MB.
 _BACKWARD_ENTRIES = 1 << 27
 
 
 def _check_shapes(q, k, v, window, q_offset):
-    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape \
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 \
+            or v.shape[:3] != k.shape[:3] or v.shape[-1] == 0 \
             or k.shape[0] != q.shape[0] or k.shape[-1] != q.shape[-1]:
-        raise ValueError(f"flash_attention: need q (B, H, Sq, D) and k, v "
-                         f"(B, KH, Sk, D), got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+        raise ValueError(f"flash_attention: need q (B, H, Sq, D), k (B, KH, "
+                         f"Sk, D) and v (B, KH, Sk, Dv), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     if k.shape[1] == 0 or q.shape[1] % k.shape[1]:
         raise ValueError(f"flash_attention: H={q.shape[1]} is not a "
                          f"multiple of KH={k.shape[1]}")
@@ -97,41 +102,58 @@ def _check_shapes(q, k, v, window, q_offset):
                          f">= 0, got {window} and {q_offset}")
 
 
+def _no_instance(what: str) -> ValueError:
+    return ValueError(f"flash_attention: no kernel instance {what}; "
+                      f"compiled: {', '.join(TILINGS)}")
+
+
 def select_tiling(dtype: torch.dtype, q_shape: Sequence[int], *,
                   bq: Optional[int] = None, bk: Optional[int] = None,
-                  d: Optional[int] = None, aligned: bool = True) -> str:
+                  d: Optional[int] = None, dv: Optional[int] = None,
+                  aligned: bool = True) -> str:
     """The kernel instance (a name of ``TILINGS``) that a call with q of
-    ``q_shape`` (B, H, Sq, D) in ``dtype`` and the deployed keywords
-    launches.  bf16 runs the wgmma instance of (``bq``, ``bk``, the
-    narrowest width >= D), with ``DEFAULT_BQ`` / ``DEFAULT_BK`` for
-    keywords that are None; a head dim that is not a multiple of 8, or
-    tensors not 16-byte aligned (``aligned``), run ``SIMT``.  f32 runs
-    ``SIMT`` for a call that names neither bq nor bk (the model's), else
-    the SIMT instance of the tile :func:`f32_block` fits to the config.
-    A config with no compiled instance raises, listing the instances."""
+    ``q_shape`` (B, H, Sq, D), v of head dim ``dv`` (None: D) in
+    ``dtype`` and the deployed keywords launches.  The head dims run at
+    the first (q/k, v) width pair of ``_WIDTHS`` that holds (D, Dv).
+    bf16 runs the wgmma instance of (``bq``, ``bk``, those widths), with
+    ``DEFAULT_BQ`` / ``DEFAULT_BK`` for keywords that are None; a head
+    dim that is not a multiple of 8, or tensors not 16-byte aligned
+    (``aligned``), run ``SIMT``.  f32 runs ``SIMT`` for a call that names
+    neither bq nor bk (the model's), else the SIMT instance of the tile
+    :func:`f32_block` fits to the config.  MLA's widths (192, 128) have
+    the default tile only: ``MLA_WGMMA`` in bf16, ``MLA_SIMT`` in f32.  A
+    call with no compiled instance raises, listing the instances."""
     D = q_shape[-1]
+    Dv = D if dv is None else dv
     if d is not None and d != D:
         raise ValueError(f"flash_attention: the config's d={d} is not the "
                          f"head dim {D}")
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: the kernel takes D <= "
-                         f"{MAX_HEAD_DIM}, got D={D}")
-    width = next(w for w in _WIDTHS if D <= w)
+    widths = next(((wq, wv) for wq, wv in _WIDTHS if D <= wq and Dv <= wv),
+                  None)
+    if widths is None:
+        raise _no_instance(f"holds head dims D={D}, Dv={Dv}")
     bq_, bk_ = (DEFAULT_BQ if bq is None else bq,
                 DEFAULT_BK if bk is None else bk)
-    if dtype == torch.bfloat16:
-        if D % 8 or not aligned:
-            return SIMT
-        name = f"wgmma_bq{bq_}_bk{bk_}_d{width}"
-    elif bq is None and bk is None:
+    simt_ok = widths[0] == widths[1]       # SIMT at 64 x 64 and D = Dv
+    if dtype == torch.bfloat16 and (D % 8 or Dv % 8 or not aligned):
+        if not simt_ok:
+            raise _no_instance(f"takes D={D}, Dv={Dv} in bf16 where TMA "
+                               f"cannot (unaligned, or not a multiple of 8)")
         return SIMT
+    if dtype == torch.bfloat16:
+        name = f"wgmma_bq{bq_}_bk{bk_}_d{widths[0]}"
+    elif bq is None and bk is None:
+        if simt_ok:
+            return SIMT
+        name = f"simt_bq64_bk64_d{widths[0]}"
     else:
-        fq, fk = f32_block(bq_, bk_, width)
-        name = f"simt_bq{fq}_bk{fk}_d{width}"
+        fq, fk = f32_block(bq_, bk_, widths[0])
+        name = f"simt_bq{fq}_bk{fk}_d{widths[0]}"
+    if not simt_ok:
+        name += f"_v{widths[1]}"
     if name not in TILINGS:
-        raise ValueError(f"flash_attention: no kernel instance {name} for "
-                         f"bq={bq}, bk={bk}, D={D} in {dtype}; compiled: "
-                         f"{', '.join(TILINGS)}")
+        raise _no_instance(f"{name} for bq={bq}, bk={bk}, D={D}, Dv={Dv} in "
+                           f"{dtype}")
     return name
 
 
@@ -140,9 +162,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0, scale: float = None,
                     bq: Optional[int] = None, bk: Optional[int] = None,
                     d: Optional[int] = None) -> torch.Tensor:
-    """q: (B, H, Sq, D); k, v: (B, KH, Sk, D) -> (B, H, Sq, D) in q's
-    type.  ``v``'s head dim must equal ``D`` (MLA's Dv != D is not
-    taken).
+    """q: (B, H, Sq, D); k: (B, KH, Sk, D); v: (B, KH, Sk, Dv) ->
+    (B, H, Sq, Dv) in q's type.  Dv may differ from D (MLA: 192 and 128)
+    where an instance holds the pair (:func:`select_tiling`).
 
     ``bq``/``bk`` are the reference's query and key block sizes: Sq and
     Sk must be multiples of those given, as the reference asserts.  ``d``
@@ -178,19 +200,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_attention: q, k and v must be contiguous")
     B, H, Sq, D = q.shape
-    KH, Sk = k.shape[1], k.shape[2]
-    if D > MAX_HEAD_DIM or B * H > 65535:
-        raise ValueError(f"flash_attention: the kernel takes D <= "
-                         f"{MAX_HEAD_DIM} and B*H <= 65535, got D={D}, "
-                         f"B*H={B * H}")
-    tiling = select_tiling(q.dtype, q.shape, bq=bq, bk=bk, d=d,
+    KH, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if B * H > 65535:
+        raise ValueError(f"flash_attention: the kernel takes B*H <= 65535, "
+                         f"got B*H={B * H}")
+    tiling = select_tiling(q.dtype, q.shape, bq=bq, bk=bk, d=d, dv=Dv,
                            aligned=all(t.data_ptr() % 16 == 0
                                        for t in tensors))
-    out = torch.empty_like(q)
+    out = q.new_empty((B, H, Sq, Dv))
     lib = _build.library()
     err = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KH,
-        Sq, Sk, D, float(scale), int(bool(causal)),
+        Sq, Sk, D, Dv, float(scale), int(bool(causal)),
         int(min(window, 2 ** 31 - 1)), int(q_offset),
         _build.tiling_ids("repro_flash_attention_tilings", TILINGS)[tiling],
         _build.DTYPE_CODES[q.dtype],

@@ -93,7 +93,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = ref.NO_WINDOW,
                     q_offset: int = 0, scale: Optional[float] = None,
                     impl: Impl = None) -> torch.Tensor:
-    """q: (B, H, Sq, D); k, v: (B, KH, Sk, D) -> (B, H, Sq, D)."""
+    """q: (B, H, Sq, D); k: (B, KH, Sk, D); v: (B, KH, Sk, Dv) ->
+    (B, H, Sq, Dv)."""
     if _use_ref(impl, "flash_attention", q, k, v):
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, scale=scale)

@@ -30,12 +30,17 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     2560x6912), while every product with two or more rows agrees bit for
     bit.  A decode lane must compute the same bits alone (``generate``
     at batch 1) as beside other lanes (the engine's fixed-width pass), so
-    on the CPU a one-row product is padded to two rows."""
-    if x.device.type == "cpu" and x.ndim >= 2 and x.numel() == x.shape[-1]:
-        lead = x.shape[:-1]
-        x2 = x.reshape(1, x.shape[-1])
-        y = (torch.cat([x2, x2]) @ w)[:1]
-        return y.reshape(*lead, w.shape[-1])
+    on the CPU a one-row product is padded to two rows.  Where ``w`` is
+    batched (an MoE layer's experts, ``(E, K, N)``), each batch entry's
+    product is padded where it has one row."""
+    if x.device.type == "cpu" and x.ndim >= 2:
+        if w.ndim > 2 and x.shape[-2] == 1:
+            return (torch.cat([x, x], dim=-2) @ w)[..., :1, :]
+        if x.numel() == x.shape[-1]:
+            lead = x.shape[:-1]
+            x2 = x.reshape(1, x.shape[-1])
+            y = (torch.cat([x2, x2]) @ w)[:1]
+            return y.reshape(*lead, w.shape[-1])
     return x @ w
 
 

@@ -1,5 +1,5 @@
-"""Model assembly for the ported architecture families (the dense, ssm
-and hybrid forwards so far)."""
+"""Model assembly for the ported architecture families (the dense, moe,
+ssm and hybrid forwards; the encoder-decoder waits for ROADMAP D4)."""
 
 from repro_torch.models import lm
 from repro_torch.models.lm import require_family

@@ -1,12 +1,12 @@
-"""Decoder LM assembly, dense, ssm and hybrid families: parameter specs,
+"""Decoder LM assembly, dense (GQA, sliding-window), moe (MoE, with MLA
+or GQA attention), ssm and hybrid families: parameter specs,
 initialisation, the per-layer window schedule, the embedding and head,
 and the full-sequence forward of training and prefill (decode passes run
 their layers in :mod:`repro_torch.serve.decode`).
 
-The other families of the reference (moe, encdec) raise
-``NotImplementedError`` naming their ROADMAP item, and so do the
-reference's distribution hooks (``mesh``, ``tp_axis``, ``seq_parallel``:
-ROADMAP A14).
+The encoder-decoder family (whisper) raises ``NotImplementedError``
+naming its ROADMAP item (D4), and so do the reference's distribution
+hooks (``mesh``, ``tp_axis``, ``seq_parallel``: ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -22,17 +22,18 @@ from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.nn.attention import NO_WINDOW
 from repro_torch.nn.core import init_params, stack_specs, torch_dtype
+from repro_torch.nn.mla import MLAConfig
+from repro_torch.nn.moe import MoEConfig
 from repro_torch.nn.ssm import SSMConfig
 from repro_torch.utils.tree import tree_leaves
 
 _FAMILY_ITEM = {
-    "moe": "ROADMAP D2 (MoE and MLA)",
     "encdec": "ROADMAP D4 (encoder-decoder)",
 }
 _DIST_ITEM = "ROADMAP A14 (distribution)"
 # the families whose full-sequence forward (training, prefill) and decode
 # (serving) are ported
-FORWARD_FAMILIES = ("dense", "ssm", "hybrid")
+FORWARD_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def require_family(cfg: ModelConfig, what: str) -> None:
@@ -43,6 +44,22 @@ def require_family(cfg: ModelConfig, what: str) -> None:
         raise NotImplementedError(
             f"{what}: family {cfg.family!r} ({cfg.name}) is not ported yet; "
             f"see {item}")
+
+
+def mla_config(cfg: ModelConfig) -> MLAConfig:
+    return MLAConfig(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                     kv_lora_rank=cfg.kv_lora_rank,
+                     qk_nope_dim=cfg.qk_nope_dim,
+                     qk_rope_dim=cfg.qk_rope_dim,
+                     v_head_dim=cfg.v_head_dim,
+                     rope_theta=cfg.rope_theta)
+
+
+def moe_config(cfg: ModelConfig) -> MoEConfig:
+    return MoEConfig(n_experts=cfg.n_experts, top_k=cfg.top_k,
+                     d_model=cfg.d_model, d_ff=cfg.moe_d_ff,
+                     n_shared=cfg.n_shared_experts,
+                     shared_d_ff=cfg.n_shared_experts * cfg.moe_d_ff)
 
 
 def ssm_config(cfg: ModelConfig) -> SSMConfig:
@@ -73,6 +90,8 @@ def _apply_mlp(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def attn_spec(cfg: ModelConfig) -> Dict:
+    if cfg.mla:
+        return nn.mla_spec(mla_config(cfg))
     spec = nn.gqa_spec(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.qkv_bias)
     if cfg.qk_norm:
@@ -88,6 +107,13 @@ def dense_block_spec(cfg: ModelConfig) -> Dict:
             "mlp": _mlp_spec(cfg)}
 
 
+def moe_block_spec(cfg: ModelConfig) -> Dict:
+    return {"ln1": _norm_spec(cfg, cfg.d_model),
+            "attn": attn_spec(cfg),
+            "ln2": _norm_spec(cfg, cfg.d_model),
+            "moe": nn.moe_spec(moe_config(cfg))}
+
+
 def ssm_block_spec(cfg: ModelConfig) -> Dict:
     return {"ln1": _norm_spec(cfg, cfg.d_model),
             "ssm": nn.ssm_spec(ssm_config(cfg))}
@@ -95,10 +121,18 @@ def ssm_block_spec(cfg: ModelConfig) -> Dict:
 
 def model_spec(cfg: ModelConfig) -> Dict:
     require_family(cfg, "model_spec")
-    block = dense_block_spec if cfg.family == "dense" else ssm_block_spec
     spec: Dict = {"embed": nn.embedding_spec(cfg.vocab, cfg.d_model),
-                  "final_norm": _norm_spec(cfg, cfg.d_model),
-                  "layers": stack_specs(block(cfg), cfg.n_layers)}
+                  "final_norm": _norm_spec(cfg, cfg.d_model)}
+    if cfg.family == "dense":
+        spec["layers"] = stack_specs(dense_block_spec(cfg), cfg.n_layers)
+    elif cfg.family == "moe":      # deepseek: leading dense layers first
+        if cfg.first_dense_layers:
+            spec["dense_layers"] = stack_specs(dense_block_spec(cfg),
+                                               cfg.first_dense_layers)
+        spec["layers"] = stack_specs(moe_block_spec(cfg),
+                                     cfg.n_layers - cfg.first_dense_layers)
+    else:
+        spec["layers"] = stack_specs(ssm_block_spec(cfg), cfg.n_layers)
     if cfg.family == "hybrid":     # zamba2: one unstacked shared block
         spec["shared_block"] = dense_block_spec(cfg)
     if not cfg.tie_embeddings:
@@ -156,11 +190,12 @@ def apply_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
                causal: bool = True, tp_axis: Optional[str] = None
                ) -> torch.Tensor:
     """Self-attention over the whole sequence: projections, optional
-    qk-norm, rope at ``q_offset + arange(S)``, ``chunked_attention``."""
+    qk-norm, rope at ``q_offset + arange(S)``, ``chunked_attention``; or
+    MLA (:func:`repro_torch.nn.apply_mla`)."""
     _no_dist("apply_attn", tp_axis=tp_axis)
     if cfg.mla:
-        raise NotImplementedError(f"apply_attn: MLA ({cfg.name}) is not "
-                                  f"ported yet; see {_FAMILY_ITEM['moe']}")
+        return nn.apply_mla(p, x, mla_config(cfg), causal=causal,
+                            q_offset=q_offset, chunk=cfg.attn_chunk)
     S = x.shape[1]
     q, k, v = nn.qkv_project(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
@@ -181,6 +216,17 @@ def dense_block(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
     x = x + apply_attn(cfg, p["attn"], _apply_norm(cfg, p["ln1"], x),
                        window=window)
     x = x + _apply_mlp(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x))
+    return x
+
+
+def moe_block(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
+              window: int = NO_WINDOW, mesh=None,
+              tp_axis: Optional[str] = None) -> torch.Tensor:
+    _no_dist("moe_block", mesh, tp_axis)
+    x = x + apply_attn(cfg, p["attn"], _apply_norm(cfg, p["ln1"], x),
+                       window=window)
+    x = x + nn.apply_moe(p["moe"], _apply_norm(cfg, p["ln2"], x),
+                         moe_config(cfg))
     return x
 
 
@@ -258,14 +304,21 @@ def _hybrid_forward(params: Dict, x: torch.Tensor,
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
             mesh=None) -> torch.Tensor:
-    """tokens (B, S) -> f32 logits (B, S, vocab), dense, ssm and hybrid
-    families."""
+    """tokens (B, S) -> f32 logits (B, S, vocab), dense, moe, ssm and
+    hybrid families."""
     require_family(cfg, "forward")
     _no_dist("forward", mesh)
     x = embed_forward(params, tokens, cfg)
     if cfg.family == "dense":
         x = _scan_layers(cfg, dense_block, params["layers"], x,
                          windows=window_schedule(cfg))
+    elif cfg.family == "moe":
+        head = cfg.first_dense_layers
+        if head:
+            x = _scan_layers(cfg, dense_block, params["dense_layers"], x,
+                             windows=window_schedule(cfg)[:head])
+        x = _scan_layers(cfg, moe_block, params["layers"], x,
+                         windows=window_schedule(cfg)[head:])
     elif cfg.family == "ssm":
         x = _scan_layers(cfg, ssm_block, params["layers"], x)
     else:

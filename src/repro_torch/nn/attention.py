@@ -103,6 +103,14 @@ def masked_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(B, 1, H, Dv).to(q.dtype)
 
 
+def decode_positions(pos, batch: int, device) -> torch.Tensor:
+    """(B, 1) positions of a decode step from an int (every row at one
+    position) or a per-row ``(B,)`` tensor."""
+    if isinstance(pos, torch.Tensor) and pos.ndim >= 1:
+        return pos.long()[:, None]
+    return torch.full((batch, 1), int(pos), dtype=torch.long, device=device)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: int, *,
                      window: int = NO_WINDOW,

@@ -1,19 +1,22 @@
-"""Serving: KV caches + single-token decode steps, dense, ssm and
+"""Serving: KV caches + single-token decode steps, dense, moe, ssm and
 hybrid families.
 
 Decode is unrolled over layers: each layer owns its cache dict, so
 per-layer cache shapes can differ — gemma's local layers keep a bounded
 ``window``-sized ring buffer while its global layers keep the full
-sequence; mamba layers keep an O(1) recurrent state and conv tail; the
+sequence; MLA layers (deepseek) keep the compressed latent and the rope
+key; mamba layers keep an O(1) recurrent state and conv tail; the
 hybrid (zamba2) keeps one per Mamba-2 layer, then one attention cache
-per application of its shared block.
+per application of its shared block.  An moe model's leading dense
+layers (``first_dense_layers``) come from ``dense_layers``, the rest
+from ``layers``, whose MLP is the MoE.
 
 Absolute caches and pages are written in place (the reference's
 functional update copies); a ring buffer is rebuilt by its
 shift-and-append, and a recurrent cache by its step, which are copies
 either way.  Each step returns the cache list it updated, as the
-reference does.  The moe and encdec families raise
-``NotImplementedError`` naming their ROADMAP item.
+reference does.  The encdec family raises ``NotImplementedError``
+naming its ROADMAP item (D4).
 """
 
 from __future__ import annotations
@@ -25,12 +28,17 @@ import torch
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import (_apply_mlp, _apply_norm, embed_forward,
-                                   head_forward, require_family, ssm_config,
+                                   head_forward, mla_config, moe_config,
+                                   require_family, ssm_config,
                                    window_schedule)
-from repro_torch.nn.attention import (NO_WINDOW, masked_decode_attention,
+from repro_torch.nn.attention import (NO_WINDOW, decode_positions,
+                                      masked_decode_attention,
                                       paged_decode_attention,
                                       paged_update_cache)
 from repro_torch.nn.core import torch_dtype
+from repro_torch.nn.mla import (apply_mla_decode, apply_mla_paged_decode,
+                                init_mla_cache)
+from repro_torch.nn.moe import apply_moe
 from repro_torch.nn.ssm import apply_ssm_decode, init_ssm_cache
 
 
@@ -48,8 +56,12 @@ def _device(params: Dict) -> torch.device:
 # ---------------------------------------------------------------------------
 
 def _attn_cache(cfg: ModelConfig, batch: int, length: int, device) -> Dict:
-    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+    """A K/V cache of ``length`` positions a row (pages: ``batch`` pages
+    of ``length`` positions); for MLA the latent and rope-key cache."""
     dtype = torch_dtype(cfg.dtype)
+    if cfg.mla:
+        return init_mla_cache(mla_config(cfg), batch, length, dtype, device)
+    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -68,13 +80,14 @@ def _n_shared(cfg: ModelConfig) -> int:
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 device="cpu") -> List:
     """One cache dict per layer: ``max_seq`` positions for global layers,
-    ``min(window, max_seq)`` for windowed (ring-buffer) layers; for ssm
-    and hybrid one recurrent cache per Mamba-2 layer, then (hybrid) one
-    ``max_seq`` attention cache per application of the shared block."""
+    ``min(window, max_seq)`` for windowed (ring-buffer) layers (an MLA
+    layer's latent cache holds ``max_seq``); for ssm and hybrid one
+    recurrent cache per Mamba-2 layer, then (hybrid) one ``max_seq``
+    attention cache per application of the shared block."""
     require_family(cfg, "init_caches")
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return [_attn_cache(cfg, batch,
-                            max_seq if w >= NO_WINDOW
+                            max_seq if w >= NO_WINDOW or cfg.mla
                             else min(int(w), max_seq), device)
                 for w in window_schedule(cfg)]
     return ([_ssm_cache(cfg, batch, device) for _ in range(cfg.n_layers)]
@@ -85,11 +98,11 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
 def paged_cache_kinds(cfg: ModelConfig) -> List[str]:
     """Per-cache-entry layout under paging, parallel to the cache list:
     ``"paged"`` — block-major physical pages addressed through the block
-    table (attention K/V); ``"slot"`` — per-slot rows gathered and
-    scattered by slot index (recurrent SSM/conv state has no sequence
-    dimension to page)."""
+    table (attention K/V, MLA latent); ``"slot"`` — per-slot rows
+    gathered and scattered by slot index (recurrent SSM/conv state has no
+    sequence dimension to page)."""
     require_family(cfg, "paged_cache_kinds")
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return ["paged"] * cfg.n_layers
     return ["slot"] * cfg.n_layers + ["paged"] * _n_shared(cfg)
 
@@ -111,13 +124,6 @@ def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int,
 # ---------------------------------------------------------------------------
 # per-layer decode attention
 # ---------------------------------------------------------------------------
-
-def _positions(pos, batch: int, device) -> torch.Tensor:
-    """(B, 1) rope positions from an int or per-row ``(B,)`` pos."""
-    if isinstance(pos, torch.Tensor) and pos.ndim >= 1:
-        return pos.long()[:, None]
-    return torch.full((batch, 1), int(pos), dtype=torch.long, device=device)
-
 
 def _project_qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                  positions: torch.Tensor):
@@ -141,7 +147,7 @@ def _attn_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor, cache: Dict,
     a ``(B,)`` tensor (ragged rows — continuous batching), in which case
     the key mask becomes per-row ``(B, S)``."""
     B = x.shape[0]
-    positions = _positions(pos, B, x.device)
+    positions = decode_positions(pos, B, x.device)
     q, k, v = _project_qkv(cfg, p, x, positions)
 
     ragged = isinstance(pos, torch.Tensor) and pos.ndim >= 1
@@ -176,7 +182,7 @@ def _attn_decode_paged(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     gather whose width matches the dense layer's cache length — so the
     outputs are bit-identical to the slot path's."""
     B = x.shape[0]
-    positions = _positions(pos, B, x.device)
+    positions = decode_positions(pos, B, x.device)
     q, k, v = _project_qkv(cfg, p, x, positions)
     k_pages = paged_update_cache(cache["k"], k, block_table, pos,
                                  write_rows=write_rows)
@@ -198,12 +204,16 @@ def _as_tokens(token, device) -> torch.Tensor:
 
 def _attn_mlp(cfg: ModelConfig, p: Dict, x: torch.Tensor, caches: List,
               ci: int, window: int, attend) -> torch.Tensor:
-    """A dense block's decode: attention through ``attend`` on cache
-    ``ci`` (updated in ``caches``), then the MLP."""
+    """A dense or moe block's decode: attention through ``attend`` on
+    cache ``ci`` (updated in ``caches``), then the MLP, or the MoE where
+    the block has one."""
     a, caches[ci] = attend(p["attn"], _apply_norm(cfg, p["ln1"], x),
                            caches[ci], window)
     x = x + a
-    return x + _apply_mlp(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x))
+    h = _apply_norm(cfg, p["ln2"], x)
+    if "moe" in p:
+        return x + apply_moe(p["moe"], h, moe_config(cfg))
+    return x + _apply_mlp(cfg, p["mlp"], h)
 
 
 def _decode_layers(params: Dict, caches: List, x: torch.Tensor,
@@ -212,12 +222,15 @@ def _decode_layers(params: Dict, caches: List, x: torch.Tensor,
     giving an attention layer's output and its updated cache.  SSM layers
     carry no position: they advance one step per call, whatever ``pos``
     their attention layers see.  The hybrid's shared block writes cache
-    ``n_layers + g`` after group ``g``, unwindowed."""
+    ``n_layers + g`` after group ``g``, unwindowed.  An moe model's
+    first ``first_dense_layers`` layers come from ``dense_layers``."""
     new = list(caches)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
+        head = cfg.first_dense_layers if cfg.family == "moe" else 0
         for li, win in enumerate(window_schedule(cfg)):
-            x = _attn_mlp(cfg, _layer_params(params["layers"], li), x, new,
-                          li, int(win), attend)
+            p = (_layer_params(params["dense_layers"], li) if li < head
+                 else _layer_params(params["layers"], li - head))
+            x = _attn_mlp(cfg, p, x, new, li, int(win), attend)
         return x, new
     scfg = ssm_config(cfg)
     for li in range(cfg.n_layers):
@@ -247,6 +260,8 @@ def decode_step(params: Dict, caches: List, token, pos,
     x = embed_forward(params, _as_tokens(token, device), cfg)
 
     def attend(p, h, cache, window):
+        if cfg.mla:
+            return apply_mla_decode(p, h, cache, pos, mla_config(cfg))
         return _attn_decode(cfg, p, h, cache, pos, window)
 
     x, new_caches = _decode_layers(params, caches, x, cfg, attend)
@@ -278,6 +293,10 @@ def paged_decode_step(params: Dict, caches: List, block_table, token, pos,
     x = embed_forward(params, _as_tokens(token, device), cfg)
 
     def attend(p, h, cache, window):
+        if cfg.mla:
+            return apply_mla_paged_decode(p, h, cache, block_table, pos,
+                                          mla_config(cfg), width=max_seq,
+                                          write_rows=write_rows)
         return _attn_decode_paged(cfg, p, h, cache, block_table, pos,
                                   window, max_seq, write_rows)
 

@@ -373,8 +373,9 @@ def test_flash_attention_function_gradients(causal, window, q_offset,
 
 
 def test_flash_attention_dispatch():
-    """CPU tensors take the plain version; other devices launch or raise;
-    malformed inputs raise before either."""
+    """CPU tensors take the plain version (v's head dim may differ from
+    q's, as MLA's); other devices launch or raise; malformed inputs raise
+    before either."""
     q = torch.randn(1, 4, 8, 16)
     kv = torch.randn(1, 2, 8, 16)
     assert torch.equal(fa_mod.flash_attention(q, kv, kv),
@@ -384,8 +385,12 @@ def test_flash_attention_dispatch():
         fa_mod.flash_attention(*meta)
     with pytest.raises(ValueError):     # H not a multiple of KH
         fa_mod.flash_attention(torch.randn(1, 3, 8, 16), kv, kv)
-    with pytest.raises(ValueError):     # Dv != D
-        fa_mod.flash_attention(q, kv, torch.randn(1, 2, 8, 8))
+    v8 = torch.randn(1, 2, 8, 8)        # Dv != D (MLA) is taken
+    out = fa_mod.flash_attention(q, kv, v8)
+    assert out.shape == (1, 4, 8, 8)
+    assert torch.equal(out, ref.flash_attention(q, kv, v8))
+    with pytest.raises(ValueError):     # v's keys are not k's
+        fa_mod.flash_attention(q, kv, torch.randn(1, 2, 7, 16))
     with pytest.raises(ValueError):
         fa_mod.flash_attention(q, kv, kv, window=0)
     with pytest.raises(ValueError):     # forced onto the kernel on the CPU

@@ -367,13 +367,21 @@ def test_train_step_matches_jax():
 
 
 def test_families_without_a_forward_raise():
-    """moe and encdec still raise, naming their ROADMAP items; serving an
-    moe model raises naming D2."""
+    """encdec still raises, naming its ROADMAP item (D4), in the model and
+    in serving; the moe family's forward is ported (D2), but its
+    expert-parallel dispatch, a mesh, raises naming A14."""
     from repro_torch.serve import init_caches
-    for arch, item in (("olmoe-1b-7b", "D2"),
-                       ("deepseek-v2-lite-16b", "D2"),
-                       ("whisper-large-v3", "D4")):
-        with pytest.raises(NotImplementedError, match=item):
-            lm.model_spec(get_config(arch, reduced=True))
-    with pytest.raises(NotImplementedError, match="D2"):
-        init_caches(get_config("olmoe-1b-7b", reduced=True), 1, 8)
+    whisper = get_config("whisper-large-v3", reduced=True)
+    with pytest.raises(NotImplementedError, match="D4"):
+        lm.model_spec(whisper)
+    with pytest.raises(NotImplementedError, match="D4"):
+        init_caches(whisper, 1, 8)
+    cfg = get_config("olmoe-1b-7b", reduced=True)
+    params = lm.init_model(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="A14"):
+        lm.forward(params, torch.zeros((1, 4), dtype=torch.long), cfg,
+                   mesh=object())
+    with pytest.raises(NotImplementedError, match="A14"):
+        nn.apply_moe(lm._unstack(params["layers"], cfg.n_layers)[0]["moe"],
+                     torch.zeros((1, 4, cfg.d_model)), lm.moe_config(cfg),
+                     mesh=object())

@@ -181,6 +181,36 @@ def test_flash_attention_config_head_dim_must_match():
         fa_mod.select_tiling(BF16, (1, 4, 512, 160))
 
 
+@pytest.mark.parametrize("dtype,want", [(BF16, "wgmma_bq128_bk128_d192_v128"),
+                                        (F32, "simt_bq64_bk64_d192_v128")])
+def test_flash_attention_mla_head_dims_select_their_instance(dtype, want):
+    """MLA's call (deepseek-v2-lite: q and k of 192 = 128 + 64 rope, v of
+    128) names no bq / bk: the (D 192, Dv 128) instance of each type,
+    the same for the default tile named explicitly in bf16."""
+    shape = (4, 16, 2048, 192)
+    assert fa_mod.select_tiling(dtype, shape, dv=128) == want
+    assert want in fa_mod.TILINGS
+    if dtype == BF16:
+        assert fa_mod.select_tiling(dtype, shape, dv=128, bq=128, bk=128,
+                                    d=192) == want
+
+
+@pytest.mark.parametrize("dtype,shape,kw", [
+    (BF16, (1, 4, 512, 192), {}),                      # Dv = D = 192
+    (F32, (1, 4, 512, 192), {"dv": 192}),
+    (BF16, (1, 4, 512, 256), {"dv": 128}),             # D past 192
+    (BF16, (1, 4, 512, 192), {"dv": 160}),             # Dv past 128
+    (BF16, (1, 4, 512, 192), {"dv": 128, "aligned": False}),
+    (BF16, (1, 4, 512, 192), {"dv": 128, "bq": 256, "bk": 128}),
+    (F32, (1, 4, 512, 192), {"dv": 128, "bq": 128, "bk": 128}),
+])
+def test_flash_attention_head_dims_with_no_instance_raise(dtype, shape, kw):
+    """A (D, Dv) pair, or a tile at MLA's widths, that no instance holds
+    raises, listing the instances; it never falls back."""
+    with pytest.raises(ValueError, match="compiled: simt"):
+        fa_mod.select_tiling(dtype, shape, **kw)
+
+
 def _table(source):
     """The entries of a .cu's kTilings table, in id order: (name, [the
     launchers]), each launcher (function, its template arguments) or None
