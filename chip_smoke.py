@@ -25,7 +25,12 @@ Phases, each printed on lines of its own:
    ``flash_attention`` in f32 and bf16 at the training paths' shapes
    (stablelm-3b's and zamba2-2.7b's, olmoe-1b-7b's head dim 128, and
    deepseek-v2-lite-16b's MLA: q and k 192, v 128), a ragged GQA shape
-   with a window, non-causal shapes and query offsets; K3 ``matmul_leakyrelu`` and K4
+   with a window, non-causal shapes and query offsets, and in bf16 at
+   whisper-large-v3's (20 heads of 64 on ``wgmma_bq128_bk128_d64``:
+   training's (4, 20, 2048, 64) non-causal and causal, serving's encoder
+   (8, 20, 1536, 64) and the published 448-token context over 1500
+   frames, the last also in f32 on ``simt_64x64``), each timed beside
+   SDPA with its own causal flag; K3 ``matmul_leakyrelu`` and K4
    ``bmm`` in f32 and bf16 at ``tests/test_kernels.py``'s shapes, a ragged
    shape and the optimizer path's shapes; K5 ``softmax`` in f32 and bf16
    at ``tests/test_kernels.py``'s shape (512 x 4096, br 8), at 8192
@@ -68,7 +73,14 @@ Phases, each printed on lines of its own:
    cut to 12 (two groups: the shared block's gradient sums two
    applications), f32: one train step's loss and grad-norm agree (the
    grad-norm within a bound set by the host's own f32 error against an
-   f64 evaluation);
+   f64 evaluation); whisper-large-v3 cut to 2 encoder and 2 decoder
+   layers: forward logits, then 8 decode passes over cross caches each
+   device writes from its own encoding of 1536 frames, in f32 on the
+   kernels, on weights at each layer's own fan-in (the init's stacked
+   fan-in makes this cut chaotic), within 1e-5 of the logit scale of
+   the host's (or, where the host's own f32 error exceeds that, no
+   further from the host's f64 evaluation than the host plus 1e-5 of
+   the scale); and its train step as above;
 4. serving main paths — qwen1.5-4b, mamba2-1.3b, zamba2-2.7b,
    olmoe-1b-7b and deepseek-v2-lite-16b at full width, bf16, seeded
    random weights, each 16 loadgen requests from 2 tenants through the
@@ -85,7 +97,12 @@ Phases, each printed on lines of its own:
    request complete; then deepseek-v2-lite-16b's fork run: a donor
    prefills a 100-token prompt, 7 identical prompts map its MLA pages
    (latent and rope key) and fork the partial block copy-on-write (at
-   least 7 prefix hits and 7 forks), and all 8 streams are equal;
+   least 7 prefix hits and 7 forks), and all 8 streams are equal; then
+   whisper-large-v3 at full width and depth (32 + 32 layers), bf16, 8
+   rows: encode 1536 seeded frames (K6 exactly 32 times), write every
+   decoder layer's cross caches from the encoder's output, greedy-decode
+   a 4-token prompt and 124 new tokens through ``decode_step`` (no launch
+   a pass), and one ``generate()`` call over zero cross caches;
 5. training main paths — stablelm-3b, mamba2-1.3b, then zamba2-2.7b, at
    full width, bf16, remat, seq 2048, global batch 4, 3 steps of
    ``Trainer`` each; every loss and grad-norm is finite, step 0's loss
@@ -101,7 +118,11 @@ Phases, each printed on lines of its own:
    (``TRAIN_LAYERS``: 8 and 6, the latter its dense layer and 5 moe
    layers), with (8L + 1) (rmsnorm: 65) and 2L (flash_attention: 16),
    and (6L + 1) (rmsnorm: 37), 2L (fused_ff, flash_attention: 12), each
-   with its peak memory;
+   with its peak memory; then whisper-large-v3 at full width and depth
+   (1.54 B parameters) on the pipeline's stub frames, K6 alone at 2 (E +
+   2D) = 192 a step (each encoder layer's self-attention and each
+   decoder layer's self- and cross-attention, in the forward and in
+   remat's recompute);
 6. optimizer main paths — (a) ``python -m repro_torch.launch.optimize
    matmul_leakyrelu bmm --strategy greedy`` into a fresh schedule cache
    must print the reference's cycles (8294 -> 8289, 8275 -> 8271), then
@@ -158,8 +179,9 @@ Phases, each printed on lines of its own:
    launches K1 passes x 97 times;
 7. the ``{"kernels": [...]}`` line (K1-K7, with their launches by path
    — serve, serve_ssm, serve_hybrid, serve_hybrid_spill, serve_moe,
-   serve_mla, serve_mla_fork, train, train_ssm, train_hybrid, train_moe,
-   train_mla and the optimizer paths — and by path and tiling),
+   serve_mla, serve_mla_fork, serve_encdec, train, train_ssm,
+   train_hybrid, train_moe, train_mla, train_encdec and the optimizer
+   paths — and by path and tiling),
    then the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line.  No phase catches its
@@ -272,6 +294,23 @@ TRAIN_LAYERS = {MOE_ARCH: 8, MLA_ARCH: 6}
 # of 16 and a partial seventh), then this many identical prompts map its
 # pages and fork the partial block on their first write
 FORK_PROMPT, FORK_SHARERS, FORK_NEW_TOKENS = 100, 7, 32
+# The encoder-decoder, whisper-large-v3 (32 encoder and 32 decoder layers,
+# d_model 1280, 20 heads of 64, vocab 51866): trained at full width and
+# depth on the pipeline's stub frames (frames = tokens = 2048), served by
+# encoding ENC_LEN_DECODE frames for 8 rows, writing every decoder
+# layer's cross caches from the encoder's output and decoding greedily.
+# K6 runs on every attention of the forward at D 64: the encoder's
+# (non-causal), the decoder's self-attention (causal) and its
+# cross-attention (non-causal, Sq tokens against Sk frames).
+ENCDEC_ARCH = "whisper-large-v3"
+ENCDEC_HEADS, ENCDEC_HEAD_DIM = 20, 64
+ENCDEC_TILINGS = {"bfloat16": "wgmma_bq128_bk128_d64",
+                  "float32": "simt_64x64"}
+# whisper's published decoder context (448 tokens) over the 1500 encoder
+# frames of 30 s of audio: Sq != Sk, and Sk a ragged multiple of the tile
+ENCDEC_CONTEXT, ENCDEC_AUDIO_FRAMES = 448, 1500
+# phase 4: a prompt of this many tokens, then this many greedy ones
+ENCDEC_PROMPT, ENCDEC_NEW_TOKENS = 4, 124
 SSM_FLEET_TAIL = ("[optimize] campaign: 16 succeeded (0 degraded), 0 failed",
                   "[optimize] shared memo: 7399 entries, 30017/37416 hits "
                   "(80.2%), 0 cross-kernel")
@@ -654,9 +693,10 @@ def fused_ff_checks(gen, records):
     torch.cuda.empty_cache()
 
 
-def sdpa_backends(q, k, v):
-    """The SDPA backends that take (q, k, v) causal, in PyTorch's own
-    order of preference (the one a plain call runs is the first)."""
+def sdpa_backends(q, k, v, causal=True):
+    """The SDPA backends that take (q, k, v) with ``causal``, in
+    PyTorch's own order of preference (the one a plain call runs is the
+    first)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     ok = []
@@ -664,11 +704,27 @@ def sdpa_backends(q, k, v):
                  "MATH"):
         try:
             with sdpa_kernel([getattr(SDPBackend, name)]):
-                F.scaled_dot_product_attention(q, k, v, is_causal=True)
+                F.scaled_dot_product_attention(q, k, v, is_causal=causal)
             ok.append(name)
         except RuntimeError:
             pass
     return ok
+
+
+def _k_tile_dropped(q, k, v, causal, lo, hi):
+    """Plain attention of (q, k, v) (as many KV heads as query heads, no
+    window or offset) in f32 with keys ``lo:hi`` left out, cast to q's
+    type: a planted fault, one K tile skipped, that a case's bound must
+    fail.  ``lo`` > 0, so that every row keeps a key."""
+    import torch
+    Sq, Sk = q.shape[2], k.shape[2]
+    s = (q.float() * q.shape[-1] ** -0.5) @ k.float().transpose(-1, -2)
+    keep = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    keep[:, lo:hi] = False
+    if causal:
+        keep &= torch.ones_like(keep).tril()
+    s = s.masked_fill(~keep, float("-inf"))
+    return (torch.softmax(s, -1) @ v.float()).to(q.dtype)
 
 
 def flash_attention_checks(gen, records):
@@ -677,35 +733,65 @@ def flash_attention_checks(gen, records):
     (4, 16, 2048, q and k 192, v 128), causal, a ragged GQA shape with a
     window, a non-causal shape and a query offset, in f32 and bf16, each
     launching the instance ``select_tiling`` names (bf16 path shapes on
-    wgmma); the path shapes timed beside SDPA (the backend PyTorch picks;
-    those that take MLA's Dv != D printed)."""
+    wgmma); whisper-large-v3's, in bf16 on ``ENCDEC_TILINGS``: training's
+    (4, 20, 2048, 64) non-causal (the encoder; cross-attention at frames
+    = tokens) and causal (the decoder), serving's encoder over
+    ``ENC_LEN_DECODE`` frames (8, 20, 1536, 64) non-causal, and the
+    published 448-token context against 1500 frames, also in f32; the
+    path shapes timed beside SDPA with the same causal flag (the backend
+    PyTorch picks; those that take MLA's Dv != D printed)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.configs.whisper_large_v3 import ENC_LEN_DECODE
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ops
     from repro_torch.nn.attention import NO_WINDOW
 
     # tests/test_kernels.py's tolerances for this kernel: atol 2e-4 in f32
-    # (:91), 3e-2 in bf16 (:104, one bf16 rounding of outputs near 1).
-    tol = {"float32": (2e-4, 0.0), "bfloat16": (3e-2, 0.0)}
-    cases = [  # B, H, KH, Sq, Sk, D, Dv, causal, window, q_offset, path
+    # (:91), 3e-2 in bf16 (:104, one bf16 rounding of outputs near 1).  In
+    # bf16 a case is held to 2^-6 of its largest plain output where that
+    # is less (2 to 4 roundings of it): a non-causal output over Sk keys
+    # is of size sqrt(e / Sk), under 3e-2 at whisper's Sk, so 3e-2 would
+    # pass a skipped K tile there.  Whisper's cases also show that their
+    # bound fails such a fault (``_k_tile_dropped``).
+    def atol_for(dname, want):
+        if dname == "float32":
+            return 2e-4
+        return min(3e-2, 2 ** -6 * want.abs().max().item())
+    both, bf16 = ("float32", "bfloat16"), ("bfloat16",)
+    wh, wd = ENCDEC_HEADS, ENCDEC_HEAD_DIM
+    cases = [  # B, H, KH, Sq, Sk, D, Dv, causal, window, q_offset, path,
+        #        the types checked in, the types timed in
         (BATCH, HEADS, HEADS, SEQ, SEQ, HEAD_DIM, HEAD_DIM, True, NO_WINDOW,
-         0, "train"),
+         0, "train", both, bf16),
         (BATCH, MOE_HEADS, MOE_HEADS, SEQ, SEQ, MOE_HEAD_DIM, MOE_HEAD_DIM,
-         True, NO_WINDOW, 0, "train_moe"),
+         True, NO_WINDOW, 0, "train_moe", both, bf16),
         (BATCH, MOE_HEADS, MOE_HEADS, SEQ, SEQ, MLA_QK_DIM, MLA_V_DIM, True,
-         NO_WINDOW, 0, "train_mla"),
-        (2, 8, 2, 1000, 1000, HEAD_DIM, HEAD_DIM, True, 256, 0, None),
-        (2, 8, 8, 1000, 1000, HEAD_DIM, HEAD_DIM, False, NO_WINDOW, 0, None),
-        (1, 4, 2, 100, 300, 64, 64, True, NO_WINDOW, 200, None),
+         NO_WINDOW, 0, "train_mla", both, bf16),
+        (BATCH, wh, wh, SEQ, SEQ, wd, wd, False, NO_WINDOW, 0,
+         "train_encdec", bf16, bf16),
+        (BATCH, wh, wh, SEQ, SEQ, wd, wd, True, NO_WINDOW, 0,
+         "train_encdec", bf16, bf16),
+        (LANES, wh, wh, ENC_LEN_DECODE, ENC_LEN_DECODE, wd, wd, False,
+         NO_WINDOW, 0, "serve_encdec", bf16, bf16),
+        (BATCH, wh, wh, ENCDEC_CONTEXT, ENCDEC_AUDIO_FRAMES, wd, wd, False,
+         NO_WINDOW, 0, "encdec_cross", both, both),
+        (2, 8, 2, 1000, 1000, HEAD_DIM, HEAD_DIM, True, 256, 0, None, both,
+         ()),
+        (2, 8, 8, 1000, 1000, HEAD_DIM, HEAD_DIM, False, NO_WINDOW, 0, None,
+         both, ()),
+        (1, 4, 2, 100, 300, 64, 64, True, NO_WINDOW, 200, None, both, ()),
         (2, 4, 4, 300, 300, MLA_QK_DIM, MLA_V_DIM, False, NO_WINDOW, 0,
-         None),
+         None, both, ()),
         (1, 4, 2, 100, 300, MLA_QK_DIM, MLA_V_DIM, True, NO_WINDOW, 200,
-         None),
+         None, both, ()),
     ]
     for dname, dt in (("float32", torch.float32),
                       ("bfloat16", torch.bfloat16)):
-        for B, H, KH, Sq, Sk, D, Dv, causal, window, q_offset, path in cases:
+        for (B, H, KH, Sq, Sk, D, Dv, causal, window, q_offset, path,
+             checked, timed_in) in cases:
+            if dname not in checked:
+                continue
             q = torch.randn(B, H, Sq, D, device="cuda", generator=gen).to(dt)
             k = torch.randn(B, KH, Sk, D, device="cuda", generator=gen).to(dt)
             v = torch.randn(B, KH, Sk, Dv, device="cuda",
@@ -720,21 +806,43 @@ def flash_attention_checks(gen, records):
             got, ran = launched(
                 fa_mod, lambda: fa_mod.flash_attention(q, k, v, **kw))
             want = fa_mod.select_tiling(dt, q.shape, dv=Dv)
+            if path is not None and "encdec" in path \
+                    and want != ENCDEC_TILINGS[dname]:
+                fail(f"flash_attention {shape} would run {want}, not "
+                     f"{ENCDEC_TILINGS[dname]}")
             tiling = expect_tiling(f"flash_attention {shape}", ran, want)
             if path is not None and dname == "bfloat16" \
                     and not tiling.startswith("wgmma_"):
                 fail(f"flash_attention {shape} ran {tiling}, not wgmma")
-            err = check_close(f"flash_attention {shape} {ran}", got,
-                              ops.flash_attention(q, k, v, impl="ref", **kw),
-                              *tol[dname])
+            plain = ops.flash_attention(q, k, v, impl="ref", **kw)
+            atol = atol_for(dname, plain)
+            err = check_close(f"flash_attention {shape} {ran}", got, plain,
+                              atol, 0.0)
             del got
-            if path is None or dname != "bfloat16":
+            planted = {}
+            if path is not None and "encdec" in path:
+                # the instance's K tile: wgmma's bk 128, SIMT's 64
+                bk = 128 if dname == "bfloat16" else 64
+                last = (Sk - 1) // bk * bk
+                for name, lo in (("middle", Sk // bk // 2 * bk),
+                                 ("last", last)):
+                    planted[name] = (_k_tile_dropped(
+                        q, k, v, causal, lo, min(lo + bk, Sk)).float()
+                        - plain.float()).abs().max().item()
+                print(f"  a K tile of {bk} dropped moves {shape} by "
+                      f"{planted} (bound {atol:.3e})", flush=True)
+                if not min(planted.values()) > atol:
+                    fail(f"flash_attention {shape}: its bound {atol:.3e} "
+                         f"passes a dropped K tile")
+            del plain
+            if dname not in timed_in:
                 continue
             el = q.element_size()
             # the (query, key) pairs this run's mask keeps: each a D-wide
             # and a Dv-wide product
-            pairs = sum(min(q_offset + i + 1, Sk) for i in range(Sq))
-            backends = sdpa_backends(q, k, v)
+            pairs = (sum(min(q_offset + i + 1, Sk) for i in range(Sq))
+                     if causal else Sq * Sk)
+            backends = sdpa_backends(q, k, v, causal)
             print(f"  SDPA backends that take {shape}: {backends}",
                   flush=True)
             extra = ({"note": "also zamba2-2.7b's training shape "
@@ -748,8 +856,10 @@ def flash_attention_checks(gen, records):
                 (B * H * Sq * (D + Dv) + B * KH * Sk * (D + Dv)) * el,
                 2 * B * H * (D + Dv) * pairs, dname,
                 timed(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True), 20), tiling=tiling,
-                sdpa_backends=backends, **extra))
+                    q, k, v, is_causal=causal), 20), tiling=tiling,
+                sdpa_backends=backends, atol=atol,
+                **({"dropped_k_tile_err": planted} if planted else {}),
+                **extra))
             del q, k, v
     torch.cuda.empty_cache()
     # bf16 at each CONFIGS entry (bq, bk, d): a causal shape, and grouped
@@ -773,9 +883,9 @@ def flash_attention_checks(gen, records):
             expect_tiling(f"flash_attention {shape}", ran,
                           fa_mod.select_tiling(torch.bfloat16, q.shape,
                                                **cfg))
-            check_close(f"flash_attention {shape} bfloat16", got,
-                        ops.flash_attention(q, k, v, impl="ref", **kw),
-                        *tol["bfloat16"])
+            plain = ops.flash_attention(q, k, v, impl="ref", **kw)
+            check_close(f"flash_attention {shape} bfloat16", got, plain,
+                        atol_for("bfloat16", plain), 0.0)
 
 
 def _f64_tolerance(plain, exact, floor):
@@ -1266,12 +1376,15 @@ def device_host_phase(arch, f64_witness=False):
         fail(f"device and host decode logits of {arch} disagree")
 
 
-def device_host_train_step(arch, n_layers=2):
+def device_host_train_step(arch, **cut):
     """One train step of ``arch`` (stablelm-3b, mamba2-1.3b, olmoe-1b-7b,
     deepseek-v2-lite-16b: its dense layer and one moe layer; zamba2-2.7b
     cut to 12 layers: two groups, so that the shared block's gradient
-    sums two applications) at full width cut to ``n_layers`` layers, f32,
-    on the card and on the host from the same parameters and batch.
+    sums two applications; whisper-large-v3 cut to 2 encoder and 2
+    decoder layers, over the pipeline's stub frames, on weights at each
+    layer's own fan-in as ``device_host_encdec`` holds it) at full width
+    cut in depth by ``cut`` (default: 2 layers), f32, on the card and on
+    the host from the same parameters and batch.
 
     The loss agrees within 1e-4 relative.  The grad-norm cannot: with the
     reference's initialisation (a tied N(0, 1) embedding at width 2560,
@@ -1284,14 +1397,17 @@ def device_host_train_step(arch, n_layers=2):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_data
-    from repro_torch.models import lm
+    from repro_torch.models import for_config
     from repro_torch.optim import adamw
     from repro_torch.train import TrainState, compute_grads, make_train_step
     from repro_torch.utils.tree import global_norm
 
-    cfg = get_config(arch).replace(n_layers=n_layers, dtype="float32")
+    cfg = get_config(arch).replace(**(cut or {"n_layers": 2}),
+                                   dtype="float32")
     batch = make_data(cfg, 128, 2, seed=0).batch_at(0)
-    params = lm.init_model(cfg, torch.Generator().manual_seed(0))
+    params = for_config(cfg).init_model(cfg, torch.Generator().manual_seed(0))
+    if cfg.family == "encdec":     # chaotic as drawn: device_host_encdec
+        params = per_layer_fan_in(params)
     metrics = {}
     for device in ("cpu", "cuda"):
         opt = adamw(3e-4, weight_decay=0.1, max_grad_norm=1.0)
@@ -1320,13 +1436,135 @@ def device_host_train_step(arch, n_layers=2):
         fail(f"device and host train steps of {arch} disagree")
 
 
+def _hold_to_host(what, host, card, exact):
+    """Card logits against the host's within 1e-5 of the logit scale; or,
+    where the host's own f32 logits lie farther than that from ``exact``
+    (its f64 evaluation), against ``exact``: max|card - f64| within
+    max|host - f64| plus 1e-5 of the scale (deepseek-v2-lite-16b's route,
+    ROADMAP §C).  Returns the held quantity over the scale."""
+    scale = host.abs().max().item()
+    d = (card - host).abs().max().item()
+    h_err = (host.double() - exact).abs().max().item()
+    c_err = (card.double() - exact).abs().max().item()
+    f64_route = h_err > 1e-5 * scale
+    held = (c_err - h_err if f64_route else d) / scale
+    print(f"  {what}: max|card - host| {d:.3e} of max|logit| {scale:.1f}; "
+          f"against f64: card {c_err:.3e}, host {h_err:.3e}; held "
+          f"{'(card - host against f64)' if f64_route else '|card - host|'}"
+          f" / scale {held:.3e} (bound 1e-5)", flush=True)
+    if not held <= 1e-5:
+        fail(f"{what}: the card disagrees with the host")
+    return held
+
+
+def per_layer_fan_in(params):
+    """``params`` (a tree of dicts of numpy arrays or tensors) with every
+    stacked layer matrix (L, d_in, d_out) rescaled from the init's std
+    1/sqrt(L) to 1/sqrt(d_in).  ``ParamSpec.make`` reads a stacked leaf's
+    first axis, the layer count, as its fan-in (the reference's init does
+    the same).  ``tests/test_torch_encdec.py`` and
+    ``tools/encdec_parity_witness.py`` use it too."""
+    import math
+    return {k: per_layer_fan_in(v) if isinstance(v, dict)
+            else v * math.sqrt(v.shape[0] / v.shape[1]) if v.ndim == 3
+            else v for k, v in params.items()}
+
+
+def fill_cross(cfg, layers, enc_out, caches, apply_dense):
+    """``caches`` (``init_caches``'s, zero cross caches) with each decoder
+    layer's ``ck`` / ``cv`` written from ``enc_out``: its cross-attention's
+    biased k and v projections, as the forward computes them (the
+    caller's side of the reference's contract; neither package has a
+    function for it).  ``layers`` are the decoder layers' parameters and
+    ``apply_dense`` the package's dense product, so that the tests fill
+    either package's caches through this one function."""
+    B, Se, _ = enc_out.shape
+    shape = (B, Se, cfg.n_kv_heads, cfg.head_dim)
+    return [dict(cache, **{
+        key: apply_dense(layer["cross"][w], enc_out).reshape(shape)
+        for key, w in (("ck", "wk"), ("cv", "wv"))})
+        for layer, cache in zip(layers, caches)]
+
+
+def _encdec_outputs(params, cfg, device, inputs):
+    """[forward logits, then each decode pass's] of the encoder-decoder on
+    ``device``, on the host: the forward over ``inputs``' frames and
+    tokens, then decode passes over cross caches written from
+    ``device``'s own encoding of ``inputs``' 1536 frames."""
+    import torch
+    from repro_torch.models import encdec, lm
+    from repro_torch.nn.core import apply_dense
+    from repro_torch.serve import decode_step, init_caches
+
+    frames, tokens, enc_frames, steps = (torch.from_numpy(a).to(device)
+                                         for a in inputs)
+    params = _tree_to(params, device, torch.float64
+                      if cfg.dtype == "float64" else None)
+    with torch.no_grad():
+        out = [encdec.forward(params, frames, tokens, cfg).cpu()]
+        enc_out = encdec.encode(params, enc_frames, cfg)
+        caches = fill_cross(
+            cfg, lm._unstack(params["dec_layers"], cfg.dec_layers), enc_out,
+            init_caches(cfg, steps.shape[1], len(steps), device), apply_dense)
+        for t in range(len(steps)):
+            logits, caches = decode_step(params, caches, steps[t], t, cfg)
+            out.append(logits.cpu())
+    return out
+
+
+def device_host_encdec(arch):
+    """``arch`` (whisper-large-v3) at full width cut to 2 encoder and 2
+    decoder layers, on the card and on the host from the same parameters
+    and inputs: the forward logits of 2 rows of 128 seeded frames and
+    tokens, then 8 decode passes of 2 rows over cross caches that each
+    device writes from its own encoding of ``ENC_LEN_DECODE`` seeded
+    frames (the caller's side of the reference's contract).
+
+    Each is held by ``_hold_to_host`` (1e-5 of the logit scale, or
+    deepseek's f64 route), in f32 on the kernels, on weights drawn at
+    each layer's own fan-in (``per_layer_fan_in``).  With the init's
+    own weights (variance 1/2 at 2 stacked layers) this cut is chaotic:
+    two host f32 evaluations that differ only in their products'
+    summation order lie 0.2 of the logit scale apart, and a one-ulp move
+    of the f32 rope table (f32 in both packages, and computed by each
+    device's own ``pow``) moves even the f64 logits by as much
+    (``tools/encdec_parity_witness.py --full-width-cut``, ROADMAP §C), so
+    no bound on the card against the host holds on them."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.whisper_large_v3 import ENC_LEN_DECODE
+    from repro_torch.models import encdec
+
+    cfg = get_config(arch).replace(n_layers=4, enc_layers=2, dec_layers=2,
+                                   dtype="float32")
+    cfg64 = cfg.replace(dtype="float64")
+    init = encdec.init_model(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    inputs = (rng.standard_normal((2, 128, cfg.d_model)).astype(np.float32),
+              rng.integers(0, cfg.vocab, (2, 128)),
+              rng.standard_normal((2, ENC_LEN_DECODE, cfg.d_model)).astype(
+                  np.float32),
+              rng.integers(0, cfg.vocab, (8, 2, 1)))
+    names = ["forward logits"] + [f"decode pass {t}" for t in range(8)]
+    params = per_layer_fan_in(init)
+    worst = max(_hold_to_host(f"{arch} {what}", host, card, exact)
+                for what, host, card, exact in zip(
+                    names, _encdec_outputs(params, cfg, "cpu", inputs),
+                    _encdec_outputs(params, cfg, "cuda", inputs),
+                    _encdec_outputs(params, cfg64, "cpu", inputs)))
+    print(f"  {arch}: worst held / max|logit| {worst:.3e} (bound 1e-5)",
+          flush=True)
+
+
 def _tree_to(tree, device, dtype=None):
     return {k: _tree_to(v, device, dtype) if isinstance(v, dict)
             else v.to(device, dtype) for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the serving main path — full-width qwen1.5-4b through ServeEngine
+# phase 4: the serving main paths — the paged engine, and whisper's encoder
+# and decode steps
 # ---------------------------------------------------------------------------
 
 def _kernel_modules():
@@ -1567,6 +1805,136 @@ def preempt_phase(arch):
     return launches
 
 
+def encdec_serve_phase(arch, profile_dir):
+    """``arch`` (whisper-large-v3) at full width and depth, bf16, seeded
+    random weights, 8 rows: encode ``ENC_LEN_DECODE`` seeded frames (K6
+    once an encoder layer), write every decoder layer's cross caches
+    ``ck`` / ``cv`` from the encoder's output (the caller's side of the
+    reference's contract), then greedy-decode a prompt of
+    ``ENCDEC_PROMPT`` tokens and ``ENCDEC_NEW_TOKENS`` new ones through
+    ``decode_step`` (``generate()``'s loop, the prompt teacher-forced):
+    a decode pass launches no kernel (layernorm, the GELU MLP and decode
+    attention are plain in both packages).  Then one ``generate()`` call
+    over zero cross caches, the reference's own contract.  The counts
+    are exact: K6 once an encoder layer, nothing else.  With
+    ``profile_dir``, 8 more decode passes under torch.profiler
+    (``profile_decode_ARCH.txt``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.whisper_large_v3 import ENC_LEN_DECODE
+    from repro_torch.models import encdec, lm
+    from repro_torch.nn.core import apply_dense
+    from repro_torch.serve import decode_step, generate, init_caches
+    from repro_torch.utils.tree import param_count
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = encdec.init_model(cfg, gen)
+    torch.cuda.synchronize()
+    print(f"  {cfg.name}: {cfg.enc_layers} + {cfg.dec_layers} layers, "
+          f"{param_count(params) / 1e9:.3f} B parameters in {cfg.dtype}, "
+          f"made in {time.perf_counter() - t0:.1f} s", flush=True)
+    frames = torch.randn((LANES, ENC_LEN_DECODE, cfg.d_model), device="cuda",
+                         generator=gen)
+    prompt = torch.randint(0, cfg.vocab, (LANES, ENCDEC_PROMPT),
+                           device="cuda", generator=gen)
+    total = ENCDEC_PROMPT + ENCDEC_NEW_TOKENS
+    with torch.inference_mode():
+        encdec.encode(params, frames, cfg)      # warm-up: cuBLAS etc.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        enc_out = encdec.encode(params, frames, cfg)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        encode_launches = _read_launches()
+        caches = fill_cross(
+            cfg, lm._unstack(params["dec_layers"], cfg.dec_layers), enc_out,
+            init_caches(cfg, LANES, total + PROFILED_PASSES, "cuda"),
+            apply_dense)
+        cross_bytes = sum(c[k].numel() * c[k].element_size()
+                          for c in caches for k in ("ck", "cv"))
+        del enc_out
+        tokens = torch.zeros((LANES, total), dtype=torch.long, device="cuda")
+        tokens[:, :ENCDEC_PROMPT] = prompt
+        finite = torch.ones((), dtype=torch.bool, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(total - 1):
+            logits, caches = decode_step(params, caches,
+                                         tokens[:, pos:pos + 1], pos, cfg)
+            finite &= torch.isfinite(logits).all()
+            if pos + 1 >= ENCDEC_PROMPT:
+                tokens[:, pos + 1] = logits.argmax(dim=-1)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        finite = bool(finite)
+        if profile_dir:
+            _profile_encdec_passes(params, caches, tokens[:, -1:], total - 1,
+                                   cfg, profile_dir)
+        del caches
+        generated = generate(params, cfg, prompt, ENCDEC_NEW_TOKENS)
+        torch.cuda.synchronize()
+    launches = _read_launches()
+    passes = total - 1
+    want = _expected_launches(flash_attention=cfg.enc_layers)
+    print(f"  encode launches {encode_launches}; encode, {passes} decode "
+          f"passes and a generate() call: {launches}; expected {want}; by "
+          f"tiling {launches.tilings}", flush=True)
+    if encode_launches != want or launches != want:
+        fail(f"the {arch} serving path did not launch K6 once an encoder "
+             f"layer and nothing a decode pass")
+    for name, toks in (("decode over the encoder's caches", tokens),
+                       ("generate() over zero caches", generated)):
+        if toks.shape != (LANES, total) or not finite or not bool(
+                ((toks >= 0) & (toks < cfg.vocab)).all()):
+            fail(f"{arch} {name}: tokens of shape {tuple(toks.shape)} or "
+                 f"out of vocab, or logits not finite")
+    stats = {
+        "rows": LANES, "frames": ENC_LEN_DECODE, "encode_ms": encode_s * 1e3,
+        "passes": passes, "ms_per_pass": decode_s * 1e3 / passes,
+        "tokens_per_s": LANES * ENCDEC_NEW_TOKENS / decode_s,
+        "cross_cache_bytes": cross_bytes,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "sample": tokens[0, :16].tolist(),
+    }
+    print(f"  serving main path ({arch}) " + json.dumps(stats), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+PROFILED_PASSES = 8
+
+
+def _profile_encdec_passes(params, caches, token, pos, cfg, out_dir):
+    """torch.profiler over ``PROFILED_PASSES`` decode passes from ``pos``
+    on: device busy share and time by kernel, written to
+    ``out_dir``/profile_decode_ARCH.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import decode_step
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(PROFILED_PASSES):
+            logits, caches = decode_step(params, caches, token, pos + i, cfg)
+            token = logits.argmax(dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    lines, busy_us = _kernel_breakdown(prof)
+    _write_profile(out_dir, f"profile_decode_{cfg.name}.txt", lines, prof)
+    print(f"  profile: {PROFILED_PASSES} passes in {wall * 1e3:.1f} ms wall "
+          f"(profiler on), device busy {busy_us / 1e3:.1f} ms = "
+          f"{busy_us / 1e6 / wall:.1%} of wall; kernel time by name:",
+          flush=True)
+    print("\n".join("    " + line for line in lines[:20]), flush=True)
+
+
 def _kernel_breakdown(prof):
     """(lines of device time by kernel name, device-busy microseconds) —
     from the kernels' own events (an op's row in key_averages() repeats
@@ -1627,7 +1995,7 @@ def profile_passes(engine, cfg, out_dir: str, n_passes: int = 8):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the training main paths — full-width stablelm-3b and mamba2-1.3b
+# phase 5: the training main paths — Trainer at full width
 # ---------------------------------------------------------------------------
 
 TRAIN_STEPS = 3
@@ -1639,7 +2007,13 @@ def train_sites(cfg):
     the forward and in the recompute of remat (per layer, or per group of
     Mamba-2 layers and the shared block that follows it), and the final
     norm once; K6 at each attention, K7 at each Mamba-2 layer, likewise
-    twice."""
+    twice.  The encoder-decoder's norms are layernorms and its MLP GELU,
+    plain in both packages: it launches K6 alone, at each encoder layer's
+    self-attention and each decoder layer's self- and cross-attention, in
+    the forward and again in remat's recompute of the layer."""
+    if cfg.family == "encdec":
+        return {"rmsnorm": 0, "fused_ff": 0, "ssd": 0,
+                "flash_attention": 2 * (cfg.enc_layers + 2 * cfg.dec_layers)}
     sites = serve_sites(cfg)
     attn = {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
             "hybrid": sites["fused_ff"]}[cfg.family]
@@ -2539,6 +2913,9 @@ def main() -> int:
     device_host_train_step(HYBRID_ARCH, n_layers=12)
     device_host_train_step(MOE_ARCH)
     device_host_train_step(MLA_ARCH)
+    device_host_encdec(ENCDEC_ARCH)
+    device_host_train_step(ENCDEC_ARCH, n_layers=4, enc_layers=2,
+                           dec_layers=2)
 
     phase("4 serving main paths")
     launches = {"serve": serve_phase("qwen1.5-4b", args.profile),
@@ -2547,7 +2924,9 @@ def main() -> int:
                 "serve_hybrid_spill": preempt_phase(HYBRID_ARCH),
                 "serve_moe": serve_phase(MOE_ARCH, args.profile),
                 "serve_mla": serve_phase(MLA_ARCH, args.profile),
-                "serve_mla_fork": fork_phase(MLA_ARCH)}
+                "serve_mla_fork": fork_phase(MLA_ARCH),
+                "serve_encdec": encdec_serve_phase(ENCDEC_ARCH,
+                                                   args.profile)}
 
     phase("5 training main paths")
     launches["train"] = train_phase("stablelm-3b", args.profile)
@@ -2555,6 +2934,7 @@ def main() -> int:
     launches["train_hybrid"] = train_phase(HYBRID_ARCH, args.profile)
     launches["train_moe"] = train_phase(MOE_ARCH, args.profile)
     launches["train_mla"] = train_phase(MLA_ARCH, args.profile)
+    launches["train_encdec"] = train_phase(ENCDEC_ARCH, args.profile)
 
     phase("6 optimizer main paths")
     launches["optimize"], pair_configs = optimize_phase()

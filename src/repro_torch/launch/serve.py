@@ -10,7 +10,9 @@ fairness table, and with ``--schedule-cache`` the resolved
 autotune at serve time; ``--strict-schedules`` refuses to serve a kernel
 without a cached schedule).  Without ``--qps`` it runs the one-shot
 static-batch :func:`repro_torch.serve.generate` path.  Weights are
-seeded random (seed 0, as the reference's ``PRNGKey(0)``).
+seeded random (seed 0, as the reference's ``PRNGKey(0)``).  The
+encoder-decoder family (whisper-large-v3) exits before anything is
+built, as the reference's launcher does: it decodes through ``generate``.
 """
 
 from __future__ import annotations
@@ -184,6 +186,9 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, reduced=not args.full)
+    if cfg.family == "encdec":
+        raise SystemExit(f"launch.serve: {cfg.name} is an encoder-decoder; "
+                         f"decode it with repro_torch.serve.generate")
     device = resolve_device(args.device)
     model = for_config(cfg)
     params = model.init_model(

@@ -1,15 +1,14 @@
 """Training launcher:
 ``python -m repro_torch.launch.train --arch stablelm-3b --full``.
 
-Trains a model of a family whose forward is ported (dense, e.g.
-stablelm-3b; moe, olmoe-1b-7b and deepseek-v2-lite-16b; ssm,
-mamba2-1.3b; hybrid, zamba2-2.7b) on ``--device`` (the card by default;
-it refuses to start when there is none) with the reference's flags:
-``--device cpu`` trains the reduced config on the CPU, ``--full`` takes
-the published widths and depths (card only, in practice; the moe
-models' AdamW state at full depth exceeds one card).  The
-encoder-decoder family raises ``NotImplementedError`` naming its ROADMAP
-item.  It prints the reference's
+Trains a model of any family (dense, e.g. stablelm-3b; moe,
+olmoe-1b-7b and deepseek-v2-lite-16b; ssm, mamba2-1.3b; hybrid,
+zamba2-2.7b; encdec, whisper-large-v3, over the data pipeline's stub
+audio frames) on ``--device`` (the card by default; it refuses to start
+when there is none) with the reference's flags: ``--device cpu`` trains
+the reduced config on the CPU, ``--full`` takes the published widths
+and depths (card only, in practice; the moe models' AdamW state at full
+depth exceeds one card).  It prints the reference's
 ``[train] step=... loss=... gnorm=... ms`` lines.  The reference's
 ``--pipe``, ``--model`` and ``--pods`` meshes wait for the port's
 distribution slice (ROADMAP A14): above their defaults they raise.

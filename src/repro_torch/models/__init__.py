@@ -1,10 +1,9 @@
-"""Model assembly for the ported architecture families (the dense, moe,
-ssm and hybrid forwards; the encoder-decoder waits for ROADMAP D4)."""
+"""Model assembly for the ported architecture families: the decoder LMs
+(dense, moe, ssm, hybrid) in :mod:`lm`, the encoder-decoder in
+:mod:`encdec`."""
 
-from repro_torch.models import lm
-from repro_torch.models.lm import require_family
+from repro_torch.models import encdec, lm
 
 
 def for_config(cfg):
-    require_family(cfg, "for_config")
-    return lm
+    return encdec if cfg.family == "encdec" else lm

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import model_spec
+from repro_torch.models import for_config
 from repro_torch.nn.core import ParamSpec, torch_dtype
 
 
@@ -34,9 +34,9 @@ def _tensor(a, dtype: torch.dtype) -> torch.Tensor:
 def params_from_jax(tree: Dict, cfg: ModelConfig) -> Dict:
     """The JAX parameter tree (numpy leaves) as the port's parameters.
 
-    Every leaf is checked against :func:`repro_torch.models.lm.model_spec`
-    — a missing, extra or misshapen leaf raises — and converted to
-    ``cfg.dtype`` on the CPU."""
+    Every leaf is checked against the family's ``model_spec``
+    (:func:`repro_torch.models.for_config`) — a missing, extra or
+    misshapen leaf raises — and converted to ``cfg.dtype`` on the CPU."""
     dtype = torch_dtype(cfg.dtype)
 
     def walk(spec, node, path):
@@ -52,4 +52,4 @@ def params_from_jax(tree: Dict, cfg: ModelConfig) -> Dict:
                              f"{got}, the spec wants {sorted(spec)}")
         return {k: walk(spec[k], node[k], f"{path}/{k}") for k in sorted(spec)}
 
-    return walk(model_spec(cfg), tree, "")
+    return walk(for_config(cfg).model_spec(cfg), tree, "")

@@ -4,9 +4,11 @@ initialisation, the per-layer window schedule, the embedding and head,
 and the full-sequence forward of training and prefill (decode passes run
 their layers in :mod:`repro_torch.serve.decode`).
 
-The encoder-decoder family (whisper) raises ``NotImplementedError``
-naming its ROADMAP item (D4), and so do the reference's distribution
-hooks (``mesh``, ``tp_axis``, ``seq_parallel``: ROADMAP A14).
+The encoder-decoder family (whisper) is built by
+:mod:`repro_torch.models.encdec` from this module's pieces; this
+module's ``model_spec`` and ``forward`` refuse it, as the reference's
+do.  The reference's distribution hooks (``mesh``, ``tp_axis``,
+``seq_parallel``) raise ``NotImplementedError`` naming ROADMAP A14.
 """
 
 from __future__ import annotations
@@ -27,23 +29,15 @@ from repro_torch.nn.moe import MoEConfig
 from repro_torch.nn.ssm import SSMConfig
 from repro_torch.utils.tree import tree_leaves
 
-_FAMILY_ITEM = {
-    "encdec": "ROADMAP D4 (encoder-decoder)",
-}
 _DIST_ITEM = "ROADMAP A14 (distribution)"
-# the families whose full-sequence forward (training, prefill) and decode
-# (serving) are ported
-FORWARD_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
-def require_family(cfg: ModelConfig, what: str) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item unless
-    ``cfg``'s family is one of ``FORWARD_FAMILIES``."""
-    if cfg.family not in FORWARD_FAMILIES:
-        item = _FAMILY_ITEM.get(cfg.family, "ROADMAP D")
-        raise NotImplementedError(
-            f"{what}: family {cfg.family!r} ({cfg.name}) is not ported yet; "
-            f"see {item}")
+def decoder_only(cfg: ModelConfig, what: str) -> None:
+    """Raise ``ValueError`` for the encoder-decoder family, which
+    :mod:`repro_torch.models.encdec` builds and runs."""
+    if cfg.family == "encdec":
+        raise ValueError(f"{what}: {cfg.name} is an encoder-decoder; its "
+                         f"model is repro_torch.models.encdec")
 
 
 def mla_config(cfg: ModelConfig) -> MLAConfig:
@@ -120,7 +114,7 @@ def ssm_block_spec(cfg: ModelConfig) -> Dict:
 
 
 def model_spec(cfg: ModelConfig) -> Dict:
-    require_family(cfg, "model_spec")
+    decoder_only(cfg, "model_spec")
     spec: Dict = {"embed": nn.embedding_spec(cfg.vocab, cfg.d_model),
                   "final_norm": _norm_spec(cfg, cfg.d_model)}
     if cfg.family == "dense":
@@ -306,7 +300,7 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
             mesh=None) -> torch.Tensor:
     """tokens (B, S) -> f32 logits (B, S, vocab), dense, moe, ssm and
     hybrid families."""
-    require_family(cfg, "forward")
+    decoder_only(cfg, "forward")
     _no_dist("forward", mesh)
     x = embed_forward(params, tokens, cfg)
     if cfg.family == "dense":

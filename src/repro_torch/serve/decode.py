@@ -1,5 +1,4 @@
-"""Serving: KV caches + single-token decode steps, dense, moe, ssm and
-hybrid families.
+"""Serving: KV caches + single-token decode steps for every family.
 
 Decode is unrolled over layers: each layer owns its cache dict, so
 per-layer cache shapes can differ — gemma's local layers keep a bounded
@@ -9,14 +8,17 @@ key; mamba layers keep an O(1) recurrent state and conv tail; the
 hybrid (zamba2) keeps one per Mamba-2 layer, then one attention cache
 per application of its shared block.  An moe model's leading dense
 layers (``first_dense_layers``) come from ``dense_layers``, the rest
-from ``layers``, whose MLP is the MoE.
+from ``layers``, whose MLP is the MoE.  The encoder-decoder (whisper)
+keeps per decoder layer a self-attention cache and the cross caches
+``ck``/``cv`` of ``ENC_LEN_DECODE`` encoder frames, zeros until a caller
+writes the encoder's keys and values there (the reference's contract:
+nothing in serving runs the encoder); paged serving refuses it.
 
 Absolute caches and pages are written in place (the reference's
 functional update copies); a ring buffer is rebuilt by its
 shift-and-append, and a recurrent cache by its step, which are copies
 either way.  Each step returns the cache list it updated, as the
-reference does.  The encdec family raises ``NotImplementedError``
-naming its ROADMAP item (D4).
+reference does.
 """
 
 from __future__ import annotations
@@ -29,13 +31,12 @@ from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.lm import (_apply_mlp, _apply_norm, embed_forward,
                                    head_forward, mla_config, moe_config,
-                                   require_family, ssm_config,
-                                   window_schedule)
+                                   ssm_config, window_schedule)
 from repro_torch.nn.attention import (NO_WINDOW, decode_positions,
                                       masked_decode_attention,
                                       paged_decode_attention,
                                       paged_update_cache)
-from repro_torch.nn.core import torch_dtype
+from repro_torch.nn.core import apply_dense, torch_dtype
 from repro_torch.nn.mla import (apply_mla_decode, apply_mla_paged_decode,
                                 init_mla_cache)
 from repro_torch.nn.moe import apply_moe
@@ -83,8 +84,17 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
     ``min(window, max_seq)`` for windowed (ring-buffer) layers (an MLA
     layer's latent cache holds ``max_seq``); for ssm and hybrid one
     recurrent cache per Mamba-2 layer, then (hybrid) one ``max_seq``
-    attention cache per application of the shared block."""
-    require_family(cfg, "init_caches")
+    attention cache per application of the shared block; for encdec one
+    ``max_seq`` cache per decoder layer with the cross caches ``ck`` and
+    ``cv`` of ``ENC_LEN_DECODE`` frames, zero-filled."""
+    if cfg.family == "encdec":
+        from repro_torch.configs.whisper_large_v3 import ENC_LEN_DECODE
+        shape = (batch, ENC_LEN_DECODE, cfg.n_kv_heads, cfg.head_dim)
+        dtype = torch_dtype(cfg.dtype)
+        return [{**_attn_cache(cfg, batch, max_seq, device),
+                 "ck": torch.zeros(shape, dtype=dtype, device=device),
+                 "cv": torch.zeros(shape, dtype=dtype, device=device)}
+                for _ in range(cfg.dec_layers)]
     if cfg.family in ("dense", "moe"):
         return [_attn_cache(cfg, batch,
                             max_seq if w >= NO_WINDOW or cfg.mla
@@ -95,13 +105,19 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                for _ in range(_n_shared(cfg))])
 
 
+def _paged_family(cfg: ModelConfig) -> None:
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"paged serving does not support family {cfg.family!r}")
+
+
 def paged_cache_kinds(cfg: ModelConfig) -> List[str]:
     """Per-cache-entry layout under paging, parallel to the cache list:
     ``"paged"`` — block-major physical pages addressed through the block
     table (attention K/V, MLA latent); ``"slot"`` — per-slot rows
     gathered and scattered by slot index (recurrent SSM/conv state has no
     sequence dimension to page)."""
-    require_family(cfg, "paged_cache_kinds")
+    _paged_family(cfg)
     if cfg.family in ("dense", "moe"):
         return ["paged"] * cfg.n_layers
     return ["slot"] * cfg.n_layers + ["paged"] * _n_shared(cfg)
@@ -194,6 +210,19 @@ def _attn_decode_paged(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     return nn.out_project(p, o), {"k": k_pages, "v": v_pages}
 
 
+def _cross_decode(cfg: ModelConfig, p: Dict, h: torch.Tensor,
+                  cache: Dict) -> torch.Tensor:
+    """One query of each row against all of its cache's ``ck`` / ``cv``
+    frames: the biased q projection (no rope), then the decode softmax
+    under an all-ones mask."""
+    B = h.shape[0]
+    q = apply_dense(p["wq"], h).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+    mask = torch.ones(cache["ck"].shape[1], dtype=torch.bool,
+                      device=h.device)
+    return nn.out_project(p, masked_decode_attention(q, cache["ck"],
+                                                     cache["cv"], mask))
+
+
 # ---------------------------------------------------------------------------
 # decode step
 # ---------------------------------------------------------------------------
@@ -223,8 +252,20 @@ def _decode_layers(params: Dict, caches: List, x: torch.Tensor,
     carry no position: they advance one step per call, whatever ``pos``
     their attention layers see.  The hybrid's shared block writes cache
     ``n_layers + g`` after group ``g``, unwindowed.  An moe model's
-    first ``first_dense_layers`` layers come from ``dense_layers``."""
+    first ``first_dense_layers`` layers come from ``dense_layers``.  An
+    encdec decoder layer attends to itself, then to its cache's ``ck`` /
+    ``cv`` under an all-ones mask, then runs its MLP."""
     new = list(caches)
+    if cfg.family == "encdec":
+        for li in range(cfg.dec_layers):
+            p = _layer_params(params["dec_layers"], li)
+            a, new[li] = attend(p["attn"], _apply_norm(cfg, p["ln1"], x),
+                                caches[li], NO_WINDOW)
+            x = x + a
+            x = x + _cross_decode(cfg, p["cross"],
+                                  _apply_norm(cfg, p["ln_x"], x), caches[li])
+            x = x + _apply_mlp(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x))
+        return x, new
     if cfg.family in ("dense", "moe"):
         head = cfg.first_dense_layers if cfg.family == "moe" else 0
         for li, win in enumerate(window_schedule(cfg)):
@@ -253,7 +294,6 @@ def decode_step(params: Dict, caches: List, token, pos,
     generate path) or a ``(B,)`` int tensor of per-row positions (the
     continuous-batching ragged path; each row reads/writes its own cache
     position)."""
-    require_family(cfg, "decode_step")
     device = _device(params)
     if isinstance(pos, torch.Tensor) and pos.ndim >= 1:
         pos = pos.to(device)
@@ -284,7 +324,7 @@ def paged_decode_step(params: Dict, caches: List, block_table, token, pos,
     write avoids a spurious copy-on-write fork).  The mask becomes lane
     indices on the host once per pass (a host sync if it lies on the
     card; the engine hands it over from the host)."""
-    require_family(cfg, "paged_decode_step")
+    _paged_family(cfg)
     device = _device(params)
     block_table = torch.as_tensor(block_table, device=device)
     pos = torch.as_tensor(pos, device=device)

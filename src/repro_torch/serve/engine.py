@@ -586,7 +586,9 @@ def generate(params: Dict, cfg: ModelConfig, prompt, max_new_tokens: int,
     :class:`ServeEngine`, which drives the *same* decode step per row and
     matches this function token for token under greedy decoding (pass
     the engine's ``max_seq`` here so the cache geometry — and hence the
-    float summation order — is identical)."""
+    float summation order — is identical).  An encoder-decoder decodes
+    over its caches' cross keys and values, zeros here, as in the
+    reference; the engine refuses it."""
     device = params["embed"]["table"].device
     prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
     B, P = prompt.shape

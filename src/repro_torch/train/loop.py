@@ -24,7 +24,7 @@ import torch
 from repro_torch.ckpt import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import make_data
-from repro_torch.models import lm
+from repro_torch.models import for_config
 from repro_torch.optim import adamw as adamw_fn
 from repro_torch.optim import linear_warmup_cosine
 from repro_torch.utils.device import resolve_device
@@ -73,7 +73,7 @@ class Trainer:
         self._ckpt = checkpoint.AsyncCheckpointer()
 
         gen = torch.Generator(self.device).manual_seed(tcfg.seed)
-        params = lm.init_model(cfg, gen)
+        params = for_config(cfg).init_model(cfg, gen)
         state = TrainState(params=params, opt_state=self.opt.init(params),
                            step=torch.zeros((), dtype=torch.int32,
                                             device=self.device))

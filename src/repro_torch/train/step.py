@@ -6,8 +6,9 @@ reference's mesh-less step.  Gradients come from autograd over the port's
 forward, where the kernels' ``autograd.Function``s stand in for XLA's
 autodiff of the reference's jnp code.  The reference's sharded step
 (``make_sharded_train_step``, ``init_ef_state``, the ``ef`` residuals) and
-a ``mesh`` wait for the port's distribution slice (ROADMAP A14); the
-encoder-decoder loss waits for ROADMAP D4.
+a ``mesh`` wait for the port's distribution slice (ROADMAP A14).  The
+encoder-decoder's loss runs :func:`repro_torch.models.encdec.forward`
+over the batch's ``frames``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import wide
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.optim.adamw import Optimizer, apply_updates
 from repro_torch.utils.tree import global_norm, tree_leaves, tree_unflatten
 
@@ -42,9 +43,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def loss_fn(params: Dict, batch: Dict, cfg: ModelConfig,
             mesh=None) -> Tuple[torch.Tensor, Dict]:
     if cfg.family == "encdec":
-        raise NotImplementedError(f"loss_fn: {cfg.name} is an encoder-"
-                                  f"decoder; see ROADMAP D4")
-    logits = lm.forward(params, batch["tokens"], cfg, mesh=mesh)
+        logits = encdec.forward(params, batch["frames"], batch["tokens"],
+                                cfg, mesh=mesh)
+    else:
+        logits = lm.forward(params, batch["tokens"], cfg, mesh=mesh)
     loss = cross_entropy(logits, batch["labels"])
     return loss, {"loss": loss}
 

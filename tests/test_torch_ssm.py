@@ -367,15 +367,13 @@ def test_train_step_matches_jax():
 
 
 def test_families_without_a_forward_raise():
-    """encdec still raises, naming its ROADMAP item (D4), in the model and
-    in serving; the moe family's forward is ported (D2), but its
-    expert-parallel dispatch, a mesh, raises naming A14."""
-    from repro_torch.serve import init_caches
+    """``lm``'s model refuses the encoder-decoder, naming the module that
+    builds it (``models.encdec``), as the reference's ``lm`` refuses it;
+    the moe family's forward is ported (D2), but its expert-parallel
+    dispatch, a mesh, raises naming A14."""
     whisper = get_config("whisper-large-v3", reduced=True)
-    with pytest.raises(NotImplementedError, match="D4"):
+    with pytest.raises(ValueError, match="models.encdec"):
         lm.model_spec(whisper)
-    with pytest.raises(NotImplementedError, match="D4"):
-        init_caches(whisper, 1, 8)
     cfg = get_config("olmoe-1b-7b", reduced=True)
     params = lm.init_model(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="A14"):
