@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port's main paths on one NVIDIA card.
 
-    python3 chip_smoke.py                  # the seven phases below
+    python3 chip_smoke.py                  # the phases below
     python3 chip_smoke.py --profile DIR    # also: torch.profiler
                                            # breakdowns of decode passes
                                            # and of train steps, in DIR
@@ -20,11 +20,14 @@ Phases, each printed on lines of its own:
    in bf16 and f32 at the serving path's 8 x 2560 . 2560 x 6912, the
    decode threshold's neighbours (M 1, 3, 9, 16, 32), ragged shapes, the
    training path's 8192 rows, zamba2-2.7b's shared MLP (8 and 8192 rows .
-   2560 x 10240) and deepseek-v2-lite-16b's dense layer and shared
-   experts (8 and 8192 rows . 2048 x 10944 and 2048 x 2816); K6
+   2560 x 10240), deepseek-v2-lite-16b's dense layer and shared
+   experts (8 and 8192 rows . 2048 x 10944 and 2048 x 2816) and the
+   pipeline step's tensor-parallel shard (2048 and 8192 rows . 2560 x
+   3456); K6
    ``flash_attention`` in f32 and bf16 at the training paths' shapes
    (stablelm-3b's and zamba2-2.7b's, olmoe-1b-7b's head dim 128, and
-   deepseek-v2-lite-16b's MLA: q and k 192, v 128), a ragged GQA shape
+   deepseek-v2-lite-16b's MLA: q and k 192, v 128; the pipeline step's
+   16 tensor-parallel heads of one sequence), a ragged GQA shape
    with a window, non-causal shapes and query offsets, and in bf16 at
    whisper-large-v3's (20 heads of 64 on ``wgmma_bq128_bk128_d64``:
    training's (4, 20, 2048, 64) non-causal and causal, serving's encoder
@@ -123,6 +126,24 @@ Phases, each printed on lines of its own:
    2D) = 192 a step (each encoder layer's self-attention and each
    decoder layer's self- and cross-attention, in the forward and in
    remat's recompute);
+5b. the pipeline train step — stablelm-3b at full width on 4 ranks
+   spawned on the one card (``launch.mesh.run_ranks``: gloo, every
+   collective staged through the host; NCCL refuses two ranks on one
+   device), global batch 4 x seq 2048 in 4 microbatches: (a) parity in
+   f32 at 4 layers with deterministic algorithms, 2 steps each of
+   (pipe=2, model=2) under gpipe and 1f1b and of (pod=2, pipe=2) with
+   the compressed pod reduction (overlapped and monolithic) and in f32,
+   against the mesh-less step on the card from the same seeded parameters
+   and batches: loss within 1e-4 and grad-norm within 1e-3 relative
+   (compressed runs: step 0, and the last loss within 2e-2 of the f32
+   run's), 1f1b equal to gpipe and overlapped equal to monolithic
+   exactly, the error-feedback residual non-zero; (b) 3 ``Trainer``
+   steps in bf16 at 8 layers on (pipe=2, model=2): seconds a step, each
+   rank's peak memory, the transport, and each rank's launches of K1, K2
+   and K6 held to ``pipe_sites`` (the schedule's rows x the stage's
+   layers, forward and recompute, + the final norm: 81 / 40 / 40 a step),
+   K2 at the d_ff / 2 column shard and K6 at n_heads / 2 heads on the
+   tilings ``select_tiling`` names;
 6. optimizer main paths — (a) ``python -m repro_torch.launch.optimize
    matmul_leakyrelu bmm --strategy greedy`` into a fresh schedule cache
    must print the reference's cycles (8294 -> 8289, 8275 -> 8271), then
@@ -180,8 +201,8 @@ Phases, each printed on lines of its own:
 7. the ``{"kernels": [...]}`` line (K1-K7, with their launches by path
    — serve, serve_ssm, serve_hybrid, serve_hybrid_spill, serve_moe,
    serve_mla, serve_mla_fork, serve_encdec, train, train_ssm,
-   train_hybrid, train_moe, train_mla, train_encdec and the optimizer
-   paths — and by path and tiling),
+   train_hybrid, train_moe, train_mla, train_encdec, train_pipe (summed
+   over the ranks) and the optimizer paths — and by path and tiling),
    then the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line.  No phase catches its
@@ -194,6 +215,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import shutil
@@ -361,18 +383,24 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    # now and then a profile on the card comes back without its kernel
+    # events, where a profile of the same calls taken again records them:
+    # take it again, up to twice more
+    for attempt in range(3):
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        fail("torch.profiler recorded no kernel on the card")
-    return sum(e.time_range.end - e.time_range.start
-               for e in kernels) / iters / 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            return sum(e.time_range.end - e.time_range.start
+                       for e in kernels) / iters / 1e3
+        print(f"  torch.profiler recorded no kernel on the card (attempt "
+              f"{attempt + 1} of 3)", flush=True)
+    fail("torch.profiler recorded no kernel on the card")
 
 
 def timed(fn, iters: int = 30):
@@ -616,7 +644,11 @@ def fused_ff_checks(gen, records):
         (LANES, MOE_D_MODEL, MLA_D_FF, "serve_mla"),
         (LANES, MOE_D_MODEL, MLA_SHARED_D_FF, "serve_mla"),
         (ROWS, MOE_D_MODEL, MLA_D_FF, "train_mla"),
-        (ROWS, MOE_D_MODEL, MLA_SHARED_D_FF, "train_mla")]
+        (ROWS, MOE_D_MODEL, MLA_SHARED_D_FF, "train_mla"),
+        # the pipeline step's tensor-parallel column shard (d_ff / 2) at a
+        # microbatch of one sequence, and at the global batch's rows
+        (SEQ, D_MODEL, D_FF // 2, "train_pipe"),
+        (ROWS, D_MODEL, D_FF // 2, "train_pipe")]
     for dname, dt in (("bfloat16", torch.bfloat16),
                       ("float32", torch.float32)):
         for m, k, n, path in cases:
@@ -766,6 +798,10 @@ def flash_attention_checks(gen, records):
          0, "train", both, bf16),
         (BATCH, MOE_HEADS, MOE_HEADS, SEQ, SEQ, MOE_HEAD_DIM, MOE_HEAD_DIM,
          True, NO_WINDOW, 0, "train_moe", both, bf16),
+        # the pipeline step's tensor-parallel heads: n_heads / 2 of a
+        # microbatch of one sequence
+        (1, HEADS // 2, HEADS // 2, SEQ, SEQ, HEAD_DIM, HEAD_DIM, True,
+         NO_WINDOW, 0, "train_pipe", both, bf16),
         (BATCH, MOE_HEADS, MOE_HEADS, SEQ, SEQ, MLA_QK_DIM, MLA_V_DIM, True,
          NO_WINDOW, 0, "train_mla", both, bf16),
         (BATCH, wh, wh, SEQ, SEQ, wd, wd, False, NO_WINDOW, 0,
@@ -2134,6 +2170,346 @@ def profile_train_step(trainer, out_dir: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 5b: the pipeline train step — ranks on the one card
+# ---------------------------------------------------------------------------
+
+# stablelm-3b at full width cut to PIPE_LAYERS (each pipe stage a
+# contiguous block), global batch BATCH x SEQ in PIPE_MICRO microbatches,
+# on PIPE_WORLD ranks that share the card over gloo (NCCL refuses two
+# ranks on one device), every collective staged through the host.
+PIPE_ARCH, PIPE_WORLD, PIPE_LAYERS, PIPE_MICRO = "stablelm-3b", 4, 8, 4
+# (a) parity, f32, PIPE_PARITY_LAYERS, PIPE_PARITY_STEPS steps from the
+# same seeded parameters and batches as the mesh-less step on the card:
+# {mesh: (make_host_mesh keywords, {run: make_sharded_train_step
+# keywords})}
+PIPE_PARITY_LAYERS, PIPE_PARITY_STEPS = 4, 2
+PIPE_PARITY = {
+    "pipe2_model2": (dict(pipe=2, model=2),
+                     {"gpipe": dict(schedule="gpipe"),
+                      "1f1b": dict(schedule="1f1b")}),
+    "pod2_pipe2": (dict(pipe=2, pods=2),
+                   {"compressed": {},
+                    "monolithic": dict(overlap_pod_reduce=False),
+                    "f32": dict(compress_pod=False)})}
+# (b) timing: bf16, PIPE_LAYERS, 3 Trainer steps on (pipe=2, model=2)
+PIPE_TIMING_MESH = dict(pipe=2, model=2)
+# the ranks are killed, and the script fails, after this many seconds
+PIPE_DEADLINE_S = 900
+
+
+def pipe_sites(cfg, n_stages, n_micro, schedule):
+    """Kernel launches a rank makes in one pipeline train step of ``cfg``:
+    every row of the schedule's forward stream runs the stage's
+    ``n_layers / n_stages`` layers (``train_sites`` of a model that deep,
+    forward and remat's recompute), idle rows included (the SPMD form),
+    and the head's final norm runs once."""
+    from repro_torch.dist.pipeline import get_schedule
+    rows = len(get_schedule(schedule).forward_rows(n_micro, n_stages))
+    per = train_sites(cfg.replace(n_layers=cfg.n_layers // n_stages))
+    return {name: rows * (n - 1) + 1 if name == "rmsnorm" else rows * n
+            for name, n in per.items()}
+
+
+def _pipe_params(cfg, device):
+    """The seeded global parameters of the parity runs, drawn on
+    ``device`` (every rank draws the same ones, keeps its blocks and
+    frees the draw), every stacked layer matrix at its own fan-in
+    (``per_layer_fan_in``): as drawn, at 4 layers the init's stacked
+    fan-in gives the layer weights variance 1/4 and the step's f32
+    rounding moves its grad-norm by 8.3e-4 between two microbatch splits
+    of the mesh-less step alone (ROADMAP §C)."""
+    import torch
+    from repro_torch.models import lm
+    return per_layer_fan_in(lm.init_model(
+        cfg, torch.Generator(device).manual_seed(0)))
+
+
+def _pipe_batch(cfg, i):
+    import torch
+    from repro_torch.data.pipeline import make_data
+    return {k: torch.from_numpy(v).to("cuda")
+            for k, v in make_data(cfg, SEQ, BATCH).batch_at(i).items()}
+
+
+def _pipe_opt():
+    from repro_torch import optim
+    return optim.adamw(optim.constant_schedule(1e-3), weight_decay=0.1,
+                       max_grad_norm=1.0)
+
+
+def pipe_rank(rank, out_dir):
+    """One rank of phase 5b: (a) the parity runs in f32, deterministic,
+    then (b) the timed bf16 ``Trainer``; writes rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.step import (TrainState, init_ef_state,
+                                        make_sharded_train_step,
+                                        sharded_state_specs, wants_ef)
+    from repro_torch.train.loop import pipeline_microbatch_clamp
+    from repro_torch.utils.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank, "parity": {}}
+    cfg = get_config(PIPE_ARCH).replace(n_layers=PIPE_PARITY_LAYERS,
+                                        dtype="float32",
+                                        pipeline_microbatches=PIPE_MICRO)
+    torch.use_deterministic_algorithms(True)
+    t0 = time.perf_counter()
+    for name, (mesh_kw, runs) in PIPE_PARITY.items():
+        mesh = make_host_mesh(device="cuda", **mesh_kw)
+        out["mesh_" + name] = repr(mesh)
+        n_micro, _ = pipeline_microbatch_clamp(PIPE_MICRO, BATCH, mesh)
+        for label, kw in runs.items():
+            ef = kw.get("compress_pod", True) and wants_ef(cfg, mesh)
+            specs = sharded_state_specs(cfg, mesh, ef)
+            params = shd.shard_tree(_pipe_params(cfg, "cuda"), specs.params,
+                                    mesh)
+            torch.cuda.empty_cache()
+            opt = _pipe_opt()
+            state = TrainState(params, opt.init(params),
+                               torch.zeros((), dtype=torch.int32,
+                                           device="cuda"),
+                               init_ef_state(params, mesh, lm.model_spec(cfg))
+                               if ef else None)
+            step = make_sharded_train_step(cfg, opt, mesh,
+                                           num_microbatches=n_micro, **kw)
+            metrics = []
+            for i in range(PIPE_PARITY_STEPS):
+                state, m = step(state, _pipe_batch(cfg, i))
+                metrics.append({k: float(v) for k, v in m.items()})
+            out["parity"][f"{name}/{label}"] = {
+                "metrics": metrics, "n_micro": n_micro,
+                "ef_l1": (None if state.ef is None else sum(
+                    float(e.abs().sum()) for e in tree_leaves(state.ef))),
+                "param_sum": sum(float(p.double().sum())
+                                 for p in tree_leaves(state.params))}
+            del state, params, step
+            torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    out["parity_s"] = time.perf_counter() - t0
+
+    cfg = get_config(PIPE_ARCH).replace(n_layers=PIPE_LAYERS,
+                                        pipeline_microbatches=PIPE_MICRO)
+    mesh = make_host_mesh(device="cuda", **PIPE_TIMING_MESH)
+    trainer = Trainer(cfg, TrainConfig(steps=TRAIN_STEPS, seq_len=SEQ,
+                                       global_batch=BATCH), mesh=mesh)
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    log = trainer.run()
+    torch.cuda.synchronize()
+    out["timing"] = {
+        "mesh": repr(mesh), "wall_s": time.perf_counter() - t0,
+        "step_s": [r["seconds"] for r in log],
+        "loss": [r["loss"] for r in log],
+        "grad_norm": [r["grad_norm"] for r in log],
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": dict(_read_launches()),
+        "tilings": _read_launches().tilings,
+        "local_params": sum(p.numel() for p in
+                            tree_leaves(trainer.state.params))}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def pipeline_phase():
+    """Phase 5b: the pipeline train step of stablelm-3b at full width on
+    ``PIPE_WORLD`` ranks spawned on the one card (gloo, host-staged).
+
+    (a) Parity, f32, ``PIPE_PARITY_LAYERS`` layers, deterministic
+    algorithms (``torch.use_deterministic_algorithms``, cuBLAS workspace
+    ``:4096:8``), ``PIPE_PARITY_STEPS`` steps from the seeded parameters
+    and batches of the mesh-less ``make_train_step`` run here first:
+    (pipe=2, model=2) under gpipe and 1f1b, (pod=2, pipe=2) compressed
+    (overlapped and monolithic) and in f32.  Held (the reference test's
+    bounds): each step's loss within 1e-4 relative and grad-norm within
+    1e-3 relative of the mesh-less step's, for every run whose gradients
+    are not compressed (a compressed run: step 0, before any compressed
+    update, and its last loss within 2e-2 of the f32 run's); 1f1b equal
+    to gpipe and the overlapped reduction equal to the monolithic one,
+    exactly; the error-feedback residual non-zero.
+
+    (b) Timing, bf16 (the published type), ``PIPE_LAYERS`` layers,
+    ``TRAIN_STEPS`` ``Trainer`` steps on (pipe=2, model=2): seconds a
+    step, each rank's peak memory, the transport, and each rank's
+    launches of K1, K2 and K6, held to ``pipe_sites`` a step with K2's
+    and K6's tilings those ``select_tiling`` names at the shard shapes
+    (a d_ff / 2 column shard; n_heads / 2 heads).  Returns the launches
+    summed over the ranks."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import fused_ff as ff_mod
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.train import TrainState, make_train_step
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    cfg = get_config(PIPE_ARCH).replace(n_layers=PIPE_PARITY_LAYERS,
+                                        dtype="float32")
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    params = _pipe_params(cfg, "cuda")
+    opt = _pipe_opt()
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device="cuda"))
+    plain = []
+    step = make_train_step(cfg, opt)
+    for i in range(PIPE_PARITY_STEPS):
+        state, m = step(state, _pipe_batch(cfg, i))
+        plain.append({k: float(v) for k, v in m.items()})
+    # a witness of the function's own f32 sensitivity, printed, not held:
+    # the mesh-less step with the pipeline's microbatch split
+    params = _pipe_params(cfg, "cuda")
+    opt = _pipe_opt()
+    _, m = make_train_step(cfg, opt, num_microbatches=PIPE_MICRO)(
+        TrainState(params, opt.init(params),
+                   torch.zeros((), dtype=torch.int32, device="cuda")),
+        _pipe_batch(cfg, 0))
+    split = {k: float(v) for k, v in m.items()}
+    torch.use_deterministic_algorithms(False)
+    del state, params, step, opt, m
+    torch.cuda.empty_cache()
+    print(f"  mesh-less step on the card, f32, {cfg.n_layers} layers: "
+          f"{plain} in {time.perf_counter() - t0:.1f} s; with "
+          f"{PIPE_MICRO} microbatches, step 0: loss {split['loss']!r} "
+          f"grad_norm {split['grad_norm']!r} (relative to one batch: "
+          f"{_rel(split['loss'], plain[0]['loss']):.3e}, "
+          f"{_rel(split['grad_norm'], plain[0]['grad_norm']):.3e})",
+          flush=True)
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_pipe_",
+                               dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        run_ranks(pipe_rank, PIPE_WORLD, out_dir,
+                  init_method=f"file://{out_dir}/pg", device="cuda",
+                  timeout_s=PIPE_DEADLINE_S)
+        ranks_s = time.perf_counter() - t0
+        outs = []
+        for r in range(PIPE_WORLD):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                outs.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir)
+    print(f"  {PIPE_WORLD} ranks ran in {ranks_s:.1f} s (parity "
+          f"{max(o['parity_s'] for o in outs):.1f} s)", flush=True)
+    for name in PIPE_PARITY:
+        print(f"  {name}: {outs[0]['mesh_' + name]}", flush=True)
+
+    # (a) every rank sees the same replicated metrics; every line is
+    # printed before the first failure is raised
+    problems = []
+    par = outs[0]["parity"]
+    for o in outs[1:]:
+        for key, run in o["parity"].items():
+            if run["metrics"] != par[key]["metrics"]:
+                problems.append(f"pipeline parity {key}: ranks disagree on "
+                                f"the metrics")
+    for key, run in par.items():
+        rels = [{k: _rel(m[k], p[k]) for k in ("loss", "grad_norm")}
+                for m, p in zip(run["metrics"], plain)]
+        print(f"  {key} ({run['n_micro']} microbatches): {run['metrics']}; "
+              f"relative to the mesh-less step {rels}; residual L1 "
+              f"{run['ef_l1']}", flush=True)
+        compressed = key.startswith("pod2_pipe2/") \
+            and not key.endswith("/f32")
+        held = rels[:1] if compressed else rels
+        if not all(r["loss"] <= 1e-4 and r["grad_norm"] <= 1e-3
+                   for r in held):
+            problems.append(f"pipeline parity {key}: loss or grad-norm off "
+                            f"the mesh-less step's (bounds 1e-4, 1e-3 "
+                            f"relative)")
+    pairs = (("pipe2_model2/1f1b", "pipe2_model2/gpipe"),
+             ("pod2_pipe2/monolithic", "pod2_pipe2/compressed"))
+    for a, b in pairs:
+        same = (par[a]["metrics"] == par[b]["metrics"]
+                and all(o["parity"][a]["param_sum"]
+                        == o["parity"][b]["param_sum"] for o in outs))
+        print(f"  {a} equal to {b}: {same}", flush=True)
+        if not same:
+            problems.append(f"pipeline parity: {a} differs from {b}")
+    ef_l1 = sum(o["parity"]["pod2_pipe2/compressed"]["ef_l1"] for o in outs)
+    lc = par["pod2_pipe2/compressed"]["metrics"][-1]["loss"]
+    lf = par["pod2_pipe2/f32"]["metrics"][-1]["loss"]
+    print(f"  residual L1 over the ranks {ef_l1:.6g}; compressed against "
+          f"f32 loss {_rel(lc, lf):.3e} (bound 2e-2)", flush=True)
+    if not (ef_l1 > 0 and _rel(lc, lf) < 2e-2):
+        problems.append("pipeline parity: the compressed reduction left no "
+                        "residual or strayed from the f32 one")
+
+    # (b) timing and launches
+    tcfg = get_config(PIPE_ARCH).replace(n_layers=PIPE_LAYERS)
+    per_step = pipe_sites(tcfg, PIPE_TIMING_MESH["pipe"], PIPE_MICRO,
+                          tcfg.pipeline_schedule)
+    want = _expected_launches(**{k: TRAIN_STEPS * n
+                                 for k, n in per_step.items()})
+    mb = BATCH // PIPE_MICRO
+    tiling = {
+        "fused_ff": ff_mod.select_tiling(torch.bfloat16, (
+            mb * SEQ, tcfg.d_model, tcfg.d_ff // PIPE_TIMING_MESH["model"])),
+        "flash_attention": fa_mod.select_tiling(torch.bfloat16, (
+            mb, tcfg.n_heads // PIPE_TIMING_MESH["model"], SEQ,
+            tcfg.head_dim), dv=tcfg.head_dim)}
+    total = _Launches((name, 0) for name in KERNELS)
+    total.tilings = {}
+    for o in outs:
+        t = o["timing"]
+        print(f"  rank {o['rank']}: {t['mesh']}: steps {t['step_s']} s, "
+              f"peak {t['max_memory_allocated_gb']:.2f} GB, "
+              f"{t['local_params'] / 1e6:.1f} M parameters; launches "
+              f"{t['launches']} by tiling {t['tilings']}", flush=True)
+        if t["launches"] != want:
+            problems.append(f"rank {o['rank']}: pipeline launches "
+                            f"{t['launches']}, expected {want} ({per_step} "
+                            f"a step)")
+        for name, inst in tiling.items():
+            if set(t["tilings"][name]) != {inst}:
+                problems.append(f"rank {o['rank']}: {name} ran "
+                                f"{t['tilings'][name]}, not {inst}")
+        for name, n in t["launches"].items():
+            total[name] += n
+        for name, by in t["tilings"].items():
+            for inst, n in by.items():
+                total.tilings.setdefault(name, {})
+                total.tilings[name][inst] = total.tilings[name].get(inst,
+                                                                    0) + n
+    timing = outs[0]["timing"]
+    if not all(math.isfinite(x) for o in outs
+               for x in o["timing"]["loss"] + o["timing"]["grad_norm"]):
+        problems.append("a pipeline training loss or grad-norm is not "
+                        "finite")
+    steady = max(statistics.median(o["timing"]["step_s"][1:]) for o in outs)
+    stats = {"arch": PIPE_ARCH, "n_layers": PIPE_LAYERS,
+             "mesh": PIPE_TIMING_MESH, "ranks": PIPE_WORLD,
+             "microbatches": PIPE_MICRO, "transport": timing["mesh"],
+             "step_s": [max(o["timing"]["step_s"][i] for o in outs)
+                        for i in range(TRAIN_STEPS)],
+             "steady_step_s": steady, "tokens_per_s": BATCH * SEQ / steady,
+             "loss": timing["loss"], "grad_norm": timing["grad_norm"],
+             "peak_gb_by_rank": [o["timing"]["max_memory_allocated_gb"]
+                                 for o in outs],
+             "launches_per_rank_step": per_step, "tilings": tiling}
+    print(f"  pipeline training main path ({PIPE_ARCH}) "
+          + json.dumps(stats), flush=True)
+    if problems:
+        fail("; ".join(problems))
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the optimizer main path — launch.optimize, deploy, the registry
 # ---------------------------------------------------------------------------
 
@@ -2935,6 +3311,9 @@ def main() -> int:
     launches["train_moe"] = train_phase(MOE_ARCH, args.profile)
     launches["train_mla"] = train_phase(MLA_ARCH, args.profile)
     launches["train_encdec"] = train_phase(ENCDEC_ARCH, args.profile)
+
+    phase("5b pipeline train step")
+    launches["train_pipe"] = pipeline_phase()
 
     phase("6 optimizer main paths")
     launches["optimize"], pair_configs = optimize_phase()

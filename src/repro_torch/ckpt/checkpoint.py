@@ -20,8 +20,12 @@ Guarantees:
   * async: :class:`AsyncCheckpointer` copies the tree to the host, then
     writes it on a background thread while training goes on.
 
-The reference's elastic re-sharding on restore (``shardings=``) waits
-for the port's distribution slice (ROADMAP A14).
+A pipeline run (``train.loop.Trainer`` with a mesh) writes the global
+layout: rank 0 saves the gathered state and every rank restores it and
+takes its own blocks (``dist.sharding.shard_tree``), so its checkpoints
+resume in a mesh-less run and the other way round.  The reference's
+elastic re-sharding on restore (``shardings=``) belongs to the GSPMD
+path, ROADMAP A14b.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Port of the four jax-free functions of ``repro/launch/specs.py``
 (``kernel_fleet_names``, ``shape_scenario``, ``fleet_scenarios``,
 ``kernel_fleet``), over the port's ``configs/base.py::SHAPES``.  The
 reference module's lowerable half (abstract params, shardings, AOT
-steps) is ROADMAP A14.
+steps) is ROADMAP A14c.
 """
 
 from __future__ import annotations

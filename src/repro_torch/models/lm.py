@@ -7,8 +7,14 @@ their layers in :mod:`repro_torch.serve.decode`).
 The encoder-decoder family (whisper) is built by
 :mod:`repro_torch.models.encdec` from this module's pieces; this
 module's ``model_spec`` and ``forward`` refuse it, as the reference's
-do.  The reference's distribution hooks (``mesh``, ``tp_axis``,
-``seq_parallel``) raise ``NotImplementedError`` naming ROADMAP A14.
+do.
+
+``tp_axis`` (explicit tensor parallelism inside the pipeline step, a
+bound :class:`repro_torch.dist.collectives.Axis`) runs the attention and
+MLP on this rank's head / column shards and psums their partial
+projections; :func:`stage_forward` applies one pipeline stage's layers.
+The GSPMD hooks (``mesh``, ``seq_parallel``) raise
+``NotImplementedError`` naming ROADMAP A14b.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from repro_torch.nn.moe import MoEConfig
 from repro_torch.nn.ssm import SSMConfig
 from repro_torch.utils.tree import tree_leaves
 
-_DIST_ITEM = "ROADMAP A14 (distribution)"
+_DIST_ITEM = "ROADMAP A14b (the GSPMD path)"
 
 
 def decoder_only(cfg: ModelConfig, what: str) -> None:
@@ -78,9 +84,10 @@ def _mlp_spec(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict:
             else nn.swiglu_spec(cfg.d_model, d_ff))
 
 
-def _apply_mlp(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
-    return (nn.apply_gelu_mlp(p, x) if cfg.mlp == "gelu"
-            else nn.apply_swiglu(p, x))
+def _apply_mlp(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+               tp_axis=None) -> torch.Tensor:
+    return (nn.apply_gelu_mlp(p, x, tp_axis=tp_axis) if cfg.mlp == "gelu"
+            else nn.apply_swiglu(p, x, tp_axis=tp_axis))
 
 
 def attn_spec(cfg: ModelConfig) -> Dict:
@@ -173,25 +180,31 @@ def embed_forward(params: Dict, tokens: torch.Tensor,
 # full forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _no_dist(what: str, mesh=None, tp_axis=None) -> None:
-    if mesh is not None or tp_axis is not None:
-        raise NotImplementedError(f"{what}: mesh / tp_axis are not ported "
-                                  f"yet; see {_DIST_ITEM}")
+def _no_dist(what: str, mesh=None) -> None:
+    if mesh is not None:
+        raise NotImplementedError(f"{what}: a mesh (the GSPMD path) is not "
+                                  f"ported yet; see {_DIST_ITEM}")
 
 
 def apply_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
                window: int = NO_WINDOW, q_offset: int = 0,
-               causal: bool = True, tp_axis: Optional[str] = None
-               ) -> torch.Tensor:
+               causal: bool = True, tp_axis=None) -> torch.Tensor:
     """Self-attention over the whole sequence: projections, optional
     qk-norm, rope at ``q_offset + arange(S)``, ``chunked_attention``; or
-    MLA (:func:`repro_torch.nn.apply_mla`)."""
-    _no_dist("apply_attn", tp_axis=tp_axis)
+    MLA (:func:`repro_torch.nn.apply_mla`).  Under ``tp_axis`` the
+    projection weights are head shards, so the local head counts come
+    from the shard shapes and the output projection psums the
+    partials."""
     if cfg.mla:
         return nn.apply_mla(p, x, mla_config(cfg), causal=causal,
                             q_offset=q_offset, chunk=cfg.attn_chunk)
     S = x.shape[1]
-    q, k, v = nn.qkv_project(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    if tp_axis is None:
+        n_heads, n_kv = cfg.n_heads, cfg.n_kv_heads
+    else:
+        n_heads = p["wq"]["w"].shape[1] // cfg.head_dim
+        n_kv = p["wk"]["w"].shape[1] // cfg.head_dim
+    q, k, v = nn.qkv_project(p, x, n_heads, n_kv, cfg.head_dim)
     if cfg.qk_norm:
         q = nn.apply_rmsnorm(p["q_norm"], q)
         k = nn.apply_rmsnorm(p["k_norm"], k)
@@ -200,25 +213,26 @@ def apply_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
     k = nn.apply_rope(k, positions, cfg.rope_theta)
     o = nn.chunked_attention(q, k, v, causal=causal, window=window,
                              chunk=cfg.attn_chunk, q_offset=q_offset)
-    return nn.out_project(p, o)
+    return nn.out_project(p, o, tp_axis=tp_axis)
 
 
 def dense_block(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
                 window: int = NO_WINDOW, mesh=None,
-                tp_axis: Optional[str] = None) -> torch.Tensor:
-    _no_dist("dense_block", mesh, tp_axis)
+                tp_axis=None) -> torch.Tensor:
+    _no_dist("dense_block", mesh)
     x = x + apply_attn(cfg, p["attn"], _apply_norm(cfg, p["ln1"], x),
-                       window=window)
-    x = x + _apply_mlp(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x))
+                       window=window, tp_axis=tp_axis)
+    x = x + _apply_mlp(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x),
+                       tp_axis=tp_axis)
     return x
 
 
 def moe_block(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
               window: int = NO_WINDOW, mesh=None,
-              tp_axis: Optional[str] = None) -> torch.Tensor:
-    _no_dist("moe_block", mesh, tp_axis)
+              tp_axis=None) -> torch.Tensor:
+    _no_dist("moe_block", mesh)
     x = x + apply_attn(cfg, p["attn"], _apply_norm(cfg, p["ln1"], x),
-                       window=window)
+                       window=window, tp_axis=tp_axis)
     x = x + nn.apply_moe(p["moe"], _apply_norm(cfg, p["ln2"], x),
                          moe_config(cfg))
     return x
@@ -263,15 +277,45 @@ def _remat(cfg: ModelConfig, body, x: torch.Tensor) -> torch.Tensor:
 
 def _scan_layers(cfg: ModelConfig, block, stacked: Dict, x: torch.Tensor,
                  windows: Optional[np.ndarray] = None, mesh=None,
-                 tp_axis: Optional[str] = None) -> torch.Tensor:
+                 tp_axis=None) -> torch.Tensor:
     """The reference's ``lax.scan`` over the stacked layer axis, as a
     Python loop, each layer under :func:`_remat`."""
-    _no_dist("_scan_layers", mesh, tp_axis)
+    _no_dist("_scan_layers", mesh)
     n = tree_leaves(stacked)[0].shape[0]
     for i, layer_p in enumerate(_unstack(stacked, n)):
         kw = {} if windows is None else {"window": int(windows[i])}
+        if tp_axis is not None:
+            kw["tp_axis"] = tp_axis
         x = _remat(cfg, functools.partial(block, cfg, layer_p, **kw), x)
     return x
+
+
+_BLOCK_OF = {"dense": dense_block, "moe": moe_block, "ssm": ssm_block}
+
+
+def stage_forward(cfg: ModelConfig, stacked: Dict, x: torch.Tensor,
+                  windows: Optional[np.ndarray] = None,
+                  tp_axis=None) -> torch.Tensor:
+    """Apply a contiguous sub-stack of decoder blocks — one pipeline stage.
+
+    ``stacked`` holds this stage's layers with a leading layer dim (any
+    length that the leaves agree on); ``windows`` is the matching slice of
+    :func:`window_schedule` for attention families.  Runs with
+    ``mesh=None``: the pipeline step owns all collectives explicitly.
+    ``tp_axis`` is the tensor-parallel axis when the stage runs on a
+    ``pipe × model`` mesh: the attention/MLP weights are then
+    head-/column-shards and the blocks psum their partial projections over
+    it (:mod:`repro_torch.nn.layers`, :mod:`repro_torch.nn.attention`).
+    """
+    block = _BLOCK_OF.get(cfg.family)
+    if block is None:
+        raise ValueError(f"stage_forward: unsupported family {cfg.family}")
+    if cfg.family == "ssm":
+        windows = None   # ssm blocks take no attention window
+        if tp_axis is not None:
+            raise ValueError("stage_forward: ssm blocks have no TP path")
+    return _scan_layers(cfg, block, stacked, x, windows=windows,
+                        tp_axis=tp_axis)
 
 
 def _hybrid_forward(params: Dict, x: torch.Tensor,

@@ -19,6 +19,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.dist.collectives import psum
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_LOGIT, NO_WINDOW, wide
 from repro_torch.nn.core import apply_dense, dense
@@ -46,9 +47,16 @@ def qkv_project(p: Dict, x: torch.Tensor, n_heads: int, n_kv: int,
     return q, k, v
 
 
-def out_project(p: Dict, o: torch.Tensor) -> torch.Tensor:
+def out_project(p: Dict, o: torch.Tensor, tp_axis=None) -> torch.Tensor:
+    """``tp_axis`` (explicit tensor parallelism, a bound
+    :class:`repro_torch.dist.collectives.Axis`): ``o`` holds this rank's
+    head shard, ``wo`` the matching row shard, and the partial output
+    projection is assembled by a ``psum``."""
     B, S, H, D = o.shape
-    return apply_dense(p["wo"], o.reshape(B, S, H * D))
+    y = apply_dense(p["wo"], o.reshape(B, S, H * D))
+    if tp_axis is not None:
+        y = psum(y, tp_axis)
+    return y
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -13,6 +13,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.collectives import psum
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import matmul, wide
 from repro_torch.nn.core import ParamSpec, apply_dense, dense
@@ -60,14 +61,23 @@ def swiglu_spec(d_model: int, d_ff: int) -> Dict:
     }
 
 
-def apply_swiglu(p: Dict, x: torch.Tensor) -> torch.Tensor:
+def apply_swiglu(p: Dict, x: torch.Tensor, tp_axis=None) -> torch.Tensor:
     """silu(x·Wg) ⊙ (x·Wu) in one ``ops.fused_ff``, then the down
-    projection.  (The reference's ``tp_axis`` tensor-parallel variant
-    waits for the port's distribution slice.)"""
+    projection.
+
+    ``tp_axis`` (a bound :class:`repro_torch.dist.collectives.Axis`)
+    enables explicit tensor parallelism: gate/up hold a ``d_ff / TP``
+    column shard (the fused front half runs on it as it is), down holds
+    the matching row shard, and the down product's partial sum is
+    assembled by a ``psum``, whose backward is a ``psum`` of the
+    cotangent — the reference's Megatron column→row pattern."""
     d = x.shape[-1]
     h = ops.fused_ff(x.reshape(-1, d).contiguous(),
                      p["gate"]["w"].to(x.dtype), p["up"]["w"].to(x.dtype))
-    return apply_dense(p["down"], h).reshape(*x.shape[:-1], -1)
+    if tp_axis is None:
+        return apply_dense(p["down"], h).reshape(*x.shape[:-1], -1)
+    y = matmul(h, p["down"]["w"].to(h.dtype))
+    return psum(y, tp_axis).reshape(*x.shape[:-1], -1)
 
 
 def gelu_mlp_spec(d_model: int, d_ff: int, bias: bool = True) -> Dict:
@@ -77,10 +87,17 @@ def gelu_mlp_spec(d_model: int, d_ff: int, bias: bool = True) -> Dict:
     }
 
 
-def apply_gelu_mlp(p: Dict, x: torch.Tensor) -> torch.Tensor:
+def apply_gelu_mlp(p: Dict, x: torch.Tensor, tp_axis=None) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(apply_dense(p["up"], x), approximate="tanh")
-    return apply_dense(p["down"], h)
+    if tp_axis is None:
+        return apply_dense(p["down"], h)
+    # the down bias is replicated over the TP axis: add it once, after the
+    # partial-sum psum (folding it into apply_dense would count it TP times)
+    y = psum(matmul(h, p["down"]["w"].to(h.dtype)), tp_axis)
+    if "w_b" in p["down"]:
+        y = y + p["down"]["w_b"].to(y.dtype)
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,8 @@ which the reference uses on one device and as the oracle of its
 expert-parallel path.  So an MoE layer's work here is ``n_experts``
 experts' products over every token, not ``top_k``'s.  The
 expert-parallel paths (``apply_moe_ep``, ``apply_moe_ep_replicated``:
-``shard_map`` + ``all_to_all`` over the ``model`` axis) wait for the
-port's distribution slice (ROADMAP A14): with a mesh, :func:`apply_moe`
-raises.
+``shard_map`` + ``all_to_all`` over the ``model`` axis) belong to the
+GSPMD path (ROADMAP A14b): with a mesh, :func:`apply_moe` raises.
 
 The router's f32 product and the experts' three products are PyTorch
 products, as the reference computes them outside any Pallas kernel; the
@@ -28,7 +27,7 @@ from repro_torch.kernels.ref import matmul, wide
 from repro_torch.nn.core import ParamSpec
 from repro_torch.nn.layers import apply_swiglu
 
-_DIST_ITEM = "ROADMAP A14 (distribution)"
+_DIST_ITEM = "ROADMAP A14b (the GSPMD path)"
 
 
 @dataclasses.dataclass(frozen=True)

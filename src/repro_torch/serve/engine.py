@@ -41,8 +41,8 @@ convenience wrapper over the same ``decode_step``; under greedy decoding
 the engine matches it token for token per request.
 
 The engine runs on the card unless ``device`` says otherwise.  The
-reference's ``mesh`` parameter waits for the port's ``dist`` slice
-(ROADMAP A14).
+reference's ``mesh`` parameter (placement by ``kv_pool_shardings``)
+belongs to the GSPMD path, ROADMAP A14b.
 """
 
 from __future__ import annotations

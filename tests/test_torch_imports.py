@@ -23,7 +23,8 @@ SUBPACKAGES = ["repro_torch", "repro_torch.configs", "repro_torch.kernels",
                "repro_torch.core.moves", "repro_torch.sched.api",
                "repro_torch.kernels.softmax", "repro_torch.kernels.ssd",
                "repro_torch.nn.ssm", "repro_torch.costmodel",
-               "repro_torch.launch.evaluate"]
+               "repro_torch.launch.evaluate", "repro_torch.dist",
+               "repro_torch.dist.collectives", "repro_torch.launch.mesh"]
 
 
 def test_import_loads_no_jax_and_no_repro():

@@ -370,16 +370,16 @@ def test_families_without_a_forward_raise():
     """``lm``'s model refuses the encoder-decoder, naming the module that
     builds it (``models.encdec``), as the reference's ``lm`` refuses it;
     the moe family's forward is ported (D2), but its expert-parallel
-    dispatch, a mesh, raises naming A14."""
+    dispatch, a mesh, raises naming A14b (the GSPMD path)."""
     whisper = get_config("whisper-large-v3", reduced=True)
     with pytest.raises(ValueError, match="models.encdec"):
         lm.model_spec(whisper)
     cfg = get_config("olmoe-1b-7b", reduced=True)
     params = lm.init_model(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="A14b"):
         lm.forward(params, torch.zeros((1, 4), dtype=torch.long), cfg,
                    mesh=object())
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="A14b"):
         nn.apply_moe(lm._unstack(params["layers"], cfg.n_layers)[0]["moe"],
                      torch.zeros((1, 4, cfg.d_model)), lm.moe_config(cfg),
                      mesh=object())

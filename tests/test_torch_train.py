@@ -370,8 +370,12 @@ def test_launcher(capsys):
                        "--global-batch", "2"])
     out = capsys.readouterr().out
     assert out.count("[train] step=") == 3 and "[train] final loss" in out
-    with pytest.raises(NotImplementedError, match="A14"):
+    # a mesh runs one process per rank: outside torchrun it says so; a
+    # mesh without --pipe >= 2 is the GSPMD step, not ported
+    with pytest.raises(RuntimeError, match="torchrun"):
         launch_train.main(["--device", "cpu", "--pipe", "2"])
+    with pytest.raises(NotImplementedError, match="A14b"):
+        launch_train.main(["--device", "cpu", "--model", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             launch_train.main(["--steps", "1"])
