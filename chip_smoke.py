@@ -85,16 +85,17 @@ Phases, each printed on lines of its own:
    further from the host's f64 evaluation than the host plus 1e-5 of
    the scale); and its train step as above;
 4. serving main paths — qwen1.5-4b, mamba2-1.3b, zamba2-2.7b,
-   olmoe-1b-7b and deepseek-v2-lite-16b at full width, bf16, seeded
+   olmoe-1b-7b and deepseek-v2-lite-16b at full width and about half
+   depth (``SERVE_LAYERS``: 20, 24, 24, 8 and 14 layers), bf16, seeded
    random weights, each 16 loadgen requests from 2 tenants through the
    paged ``ServeEngine`` (8 lanes); every request completes with in-vocab
    tokens, and the kernels' launch counts equal engine passes x
-   ``serve_sites``: rmsnorm 2L + 1 and fused_ff L (qwen1.5-4b: 81, 40),
-   rmsnorm 2L + 1 (mamba2-1.3b: 97), rmsnorm 2L + 2G + 1 and fused_ff G
-   over G shared-block applications (zamba2-2.7b: 127, 9), rmsnorm 4L +
-   1 with the q/k norms (olmoe-1b-7b: 65), rmsnorm 3L + 1 with the latent
+   ``serve_sites``: rmsnorm 2L + 1 and fused_ff L (qwen1.5-4b: 41, 20),
+   rmsnorm 2L + 1 (mamba2-1.3b: 49), rmsnorm 2L + 2G + 1 and fused_ff G
+   over G shared-block applications (zamba2-2.7b: 57, 4), rmsnorm 4L +
+   1 with the q/k norms (olmoe-1b-7b: 33), rmsnorm 3L + 1 with the latent
    norm and fused_ff at the dense layer and each moe layer's shared
-   experts (deepseek-v2-lite-16b: 82, 27); then zamba2-2.7b with its pool
+   experts (deepseek-v2-lite-16b: 43, 14); then zamba2-2.7b with its pool
    cut to 48 blocks, the trace's first 8 requests at once: at least one
    spill of pages and recurrent slot rows and one resume by upload, every
    request complete; then deepseek-v2-lite-16b's fork run: a donor
@@ -130,7 +131,7 @@ Phases, each printed on lines of its own:
    spawned on the one card (``launch.mesh.run_ranks``: gloo, every
    collective staged through the host; NCCL refuses two ranks on one
    device), global batch 4 x seq 2048 in 4 microbatches: (a) parity in
-   f32 at 4 layers with deterministic algorithms, 2 steps each of
+   f32 at 2 layers with deterministic algorithms, 2 steps each of
    (pipe=2, model=2) under gpipe and 1f1b and of (pod=2, pipe=2) with
    the compressed pod reduction (overlapped and monolithic) and in f32,
    against the mesh-less step on the card from the same seeded parameters
@@ -138,12 +139,31 @@ Phases, each printed on lines of its own:
    (compressed runs: step 0, and the last loss within 2e-2 of the f32
    run's), 1f1b equal to gpipe and overlapped equal to monolithic
    exactly, the error-feedback residual non-zero; (b) 3 ``Trainer``
-   steps in bf16 at 8 layers on (pipe=2, model=2): seconds a step, each
+   steps in bf16 at 4 layers on (pipe=2, model=2): seconds a step, each
    rank's peak memory, the transport, and each rank's launches of K1, K2
    and K6 held to ``pipe_sites`` (the schedule's rows x the stage's
-   layers, forward and recompute, + the final norm: 81 / 40 / 40 a step),
+   layers, forward and recompute, + the final norm: 41 / 20 / 20 a step),
    K2 at the d_ff / 2 column shard and K6 at n_heads / 2 heads on the
    tilings ``select_tiling`` names;
+5c. the GSPMD train step (``make_train_step(mesh=...)``) on 4 ranks
+   spawned on the one card as in 5b: (a) f32 parity, deterministic,
+   stablelm-3b at full width and 4 layers on the draw at each layer's
+   own fan-in, 2 steps on (data=2, model=2) and on (model=4) with
+   ``seq_parallel``, against the mesh-less step on the card (loss 1e-4,
+   grad-norm 1e-3 relative); (b) olmoe-1b-7b at full width and 2 layers
+   on (model=4), f32: ``apply_moe_ep`` on each rank against the
+   one-process ``apply_moe_ep_plain`` (1e-5 of the scale) with each
+   rank's packed slots equal to the plain version's, and
+   ``apply_moe_ep_replicated`` at a sequence 4 does not divide against
+   the dense layer; 2 steps against mesh-less steps whose MoE layers
+   compute the plain version (5b's bounds); (c) 3 bf16 ``Trainer`` steps
+   of stablelm-3b at 8 layers on (data=2, model=2) and of olmoe-1b-7b at
+   4 layers on (model=4): seconds a step, each rank's peak memory, and
+   each rank's K1/K2/K6 launches held to ``gspmd_sites`` (33 / 16 / 16
+   and 33 / 0 / 8 a step), on the tilings ``select_tiling`` names, with
+   the operand shapes the calls took held to the shard shapes
+   (``gspmd_shapes``: K2 4096 x 2560 . 2560 x 3456, K6 (2, 16, 2048, 80)
+   and (4, 4, 2048, 128));
 6. optimizer main paths — (a) ``python -m repro_torch.launch.optimize
    matmul_leakyrelu bmm --strategy greedy`` into a fresh schedule cache
    must print the reference's cycles (8294 -> 8289, 8275 -> 8271), then
@@ -201,8 +221,9 @@ Phases, each printed on lines of its own:
 7. the ``{"kernels": [...]}`` line (K1-K7, with their launches by path
    — serve, serve_ssm, serve_hybrid, serve_hybrid_spill, serve_moe,
    serve_mla, serve_mla_fork, serve_encdec, train, train_ssm,
-   train_hybrid, train_moe, train_mla, train_encdec, train_pipe (summed
-   over the ranks) and the optimizer paths — and by path and tiling),
+   train_hybrid, train_moe, train_mla, train_encdec, train_pipe and
+   train_gspmd (each summed over the ranks) and the optimizer paths —
+   and by path and tiling),
    then the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line.  No phase catches its
@@ -557,7 +578,13 @@ def rmsnorm_checks(gen, records):
                                  (ROWS, MOE_D_MODEL, "train_moe"),
                                  (ROWS * MOE_HEADS, MOE_HEAD_DIM,
                                   "train_moe"),
-                                 (ROWS, MLA_LATENT, "train_mla")):
+                                 (ROWS, MLA_LATENT, "train_mla"),
+                                 # the GSPMD step's batch block on (data
+                                 # 2, model 2); olmoe's q/k norms at 4 of
+                                 # its 16 heads on (model 4)
+                                 (ROWS // 2, D_MODEL, "train_gspmd"),
+                                 (ROWS * MOE_HEADS // 4, MOE_HEAD_DIM,
+                                  "train_gspmd")):
             x = (torch.randn(rows, cols, device="cuda", generator=gen)
                  * 0.5).to(dt)
             g = (torch.randn(cols, device="cuda", generator=gen) * 0.5
@@ -648,7 +675,10 @@ def fused_ff_checks(gen, records):
         # the pipeline step's tensor-parallel column shard (d_ff / 2) at a
         # microbatch of one sequence, and at the global batch's rows
         (SEQ, D_MODEL, D_FF // 2, "train_pipe"),
-        (ROWS, D_MODEL, D_FF // 2, "train_pipe")]
+        (ROWS, D_MODEL, D_FF // 2, "train_pipe"),
+        # the GSPMD step's column shard on (data 2, model 2): the batch
+        # block of 2 sequences
+        (ROWS // 2, D_MODEL, D_FF // 2, "train_gspmd")]
     for dname, dt in (("bfloat16", torch.bfloat16),
                       ("float32", torch.float32)):
         for m, k, n, path in cases:
@@ -802,6 +832,12 @@ def flash_attention_checks(gen, records):
         # microbatch of one sequence
         (1, HEADS // 2, HEADS // 2, SEQ, SEQ, HEAD_DIM, HEAD_DIM, True,
          NO_WINDOW, 0, "train_pipe", both, bf16),
+        # the GSPMD step's heads: stablelm-3b's 16 of 32 for a batch block
+        # of 2 on (data 2, model 2), olmoe-1b-7b's 4 of 16 on (model 4)
+        (BATCH // 2, HEADS // 2, HEADS // 2, SEQ, SEQ, HEAD_DIM, HEAD_DIM,
+         True, NO_WINDOW, 0, "train_gspmd", both, bf16),
+        (BATCH, MOE_HEADS // 4, MOE_HEADS // 4, SEQ, SEQ, MOE_HEAD_DIM,
+         MOE_HEAD_DIM, True, NO_WINDOW, 0, "train_gspmd", both, bf16),
         (BATCH, MOE_HEADS, MOE_HEADS, SEQ, SEQ, MLA_QK_DIM, MLA_V_DIM, True,
          NO_WINDOW, 0, "train_mla", both, bf16),
         (BATCH, wh, wh, SEQ, SEQ, wd, wd, False, NO_WINDOW, 0,
@@ -1498,11 +1534,13 @@ def per_layer_fan_in(params):
     stacked layer matrix (L, d_in, d_out) rescaled from the init's std
     1/sqrt(L) to 1/sqrt(d_in).  ``ParamSpec.make`` reads a stacked leaf's
     first axis, the layer count, as its fan-in (the reference's init does
-    the same).  ``tests/test_torch_encdec.py`` and
+    the same); a stacked expert tensor (L, E, d_in, d_out) likewise to
+    1/sqrt(d_in).  ``tests/test_torch_encdec.py`` and
     ``tools/encdec_parity_witness.py`` use it too."""
     import math
     return {k: per_layer_fan_in(v) if isinstance(v, dict)
             else v * math.sqrt(v.shape[0] / v.shape[1]) if v.ndim == 3
+            else v * math.sqrt(v.shape[0] / v.shape[2]) if v.ndim == 4
             else v for k, v in params.items()}
 
 
@@ -1667,16 +1705,24 @@ def serve_sites(cfg):
             "fused_ff": shared}
 
 
+# Phase 4 serves at full width and these depths, about half the
+# published ones (zamba2-2.7b's in whole groups of 6), to keep the script
+# inside its time limit since phase 5c came: a pass's host time scales
+# with the layers.
+SERVE_LAYERS = {"qwen1.5-4b": 20, SSM_ARCH: 24, HYBRID_ARCH: 24,
+                MOE_ARCH: 8, MLA_ARCH: 14}
+
+
 def _serve_engine(arch, **kw):
     """(cfg, engine): the paged ``ServeEngine`` over ``arch`` at full
-    width, bf16, seeded random weights, 8 lanes of 256 positions, warmed
-    up."""
+    width and the depth of ``SERVE_LAYERS``, bf16, seeded random weights,
+    8 lanes of 256 positions, warmed up."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.serve import ServeEngine, Tenant
     from repro_torch.utils.tree import param_count
 
-    cfg = get_config(arch)
+    cfg = get_config(arch).replace(n_layers=SERVE_LAYERS[arch])
     t0 = time.perf_counter()
     engine = ServeEngine.from_config(
         cfg, max_batch=LANES, max_seq=256, block_size=16, paged=True,
@@ -2176,13 +2222,15 @@ def profile_train_step(trainer, out_dir: str):
 # stablelm-3b at full width cut to PIPE_LAYERS (each pipe stage a
 # contiguous block), global batch BATCH x SEQ in PIPE_MICRO microbatches,
 # on PIPE_WORLD ranks that share the card over gloo (NCCL refuses two
-# ranks on one device), every collective staged through the host.
-PIPE_ARCH, PIPE_WORLD, PIPE_LAYERS, PIPE_MICRO = "stablelm-3b", 4, 8, 4
+# ranks on one device), every collective staged through the host.  The
+# depths (8 and 4 layers until phase 5c came) are halved to keep the
+# script inside its time limit; a stage still holds whole layers.
+PIPE_ARCH, PIPE_WORLD, PIPE_LAYERS, PIPE_MICRO = "stablelm-3b", 4, 4, 4
 # (a) parity, f32, PIPE_PARITY_LAYERS, PIPE_PARITY_STEPS steps from the
 # same seeded parameters and batches as the mesh-less step on the card:
 # {mesh: (make_host_mesh keywords, {run: make_sharded_train_step
 # keywords})}
-PIPE_PARITY_LAYERS, PIPE_PARITY_STEPS = 4, 2
+PIPE_PARITY_LAYERS, PIPE_PARITY_STEPS = 2, 2
 PIPE_PARITY = {
     "pipe2_model2": (dict(pipe=2, model=2),
                      {"gpipe": dict(schedule="gpipe"),
@@ -2504,6 +2552,417 @@ def pipeline_phase():
              "launches_per_rank_step": per_step, "tilings": tiling}
     print(f"  pipeline training main path ({PIPE_ARCH}) "
           + json.dumps(stats), flush=True)
+    if problems:
+        fail("; ".join(problems))
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the GSPMD train step
+# ---------------------------------------------------------------------------
+
+GSPMD_WORLD = 4
+# (a) dense parity, f32, GSPMD_PARITY_LAYERS layers of PIPE_ARCH, the
+# steps and batches of 5b(a): {label: (make_host_mesh keywords, config
+# overrides)}
+GSPMD_PARITY_LAYERS = 4
+GSPMD_PARITY = {"data2_model2": (dict(model=2), {}),
+                "model4_sp": (dict(model=4), dict(seq_parallel=True))}
+# (b) the moe layer and step, f32, MOE_ARCH at this many layers on this
+# mesh; apply_moe_ep_replicated at a sequence the model axis does not
+# divide
+GSPMD_MOE_LAYERS, GSPMD_MOE_MESH = 2, dict(model=4)
+GSPMD_RAGGED_SEQ = SEQ - 2
+# (c) timing, bf16, TRAIN_STEPS Trainer steps: {arch: (layers, mesh)}
+GSPMD_TIMING = {PIPE_ARCH: (8, dict(model=2)), MOE_ARCH: (4, dict(model=4))}
+# the ranks are killed, and the script fails, after this many seconds
+GSPMD_DEADLINE_S = 900
+
+
+def gspmd_sites(cfg, n_micro=1):
+    """Kernel launches a rank makes in one GSPMD train step of ``cfg``:
+    every rank runs every layer on its batch block (its ``model`` shard
+    of the heads and columns), so each microbatch makes
+    ``train_sites``'s launches."""
+    return {name: n_micro * n for name, n in train_sites(cfg).items()}
+
+
+def gspmd_shapes(cfg, mesh_kw):
+    """The operand shapes a rank's K1, K2 and K6 calls take in a GSPMD
+    step of ``cfg`` on a mesh of ``mesh_kw`` (no ``seq_parallel``): the
+    batch block's rows, the ``model`` shard of the MLP's columns and of
+    the heads."""
+    from repro_torch.launch.mesh import host_mesh_shape
+    shape, names = host_mesh_shape(GSPMD_WORLD, **mesh_kw)
+    sizes = dict(zip(names, shape))
+    m = sizes["model"]
+    b = BATCH // (sizes.get("pod", 1) * sizes["data"])
+    h = cfg.n_heads // m
+    norms = {(b * SEQ, cfg.d_model)}
+    if cfg.qk_norm:
+        norms.add((b * SEQ * h, cfg.head_dim))
+    out = {"rmsnorm": norms,
+           "flash_attention": {(b, h, SEQ, cfg.head_dim)}}
+    if cfg.family == "dense":
+        out["fused_ff"] = {(b * SEQ, cfg.d_model, cfg.d_ff // m)}
+    return out
+
+
+def _watch_shapes():
+    """Record the operand shapes of every ``ops.rmsnorm``,
+    ``ops.fused_ff`` and ``ops.flash_attention`` call from now on: {name:
+    set of shapes} (x's for K1, (rows, d, columns) for K2, q's for
+    K6)."""
+    from repro_torch.kernels import ops
+    seen = {"rmsnorm": set(), "fused_ff": set(), "flash_attention": set()}
+
+    def watch(name, fn, shape_of):
+        def call(*a, **k):
+            seen[name].add(shape_of(*a))
+            return fn(*a, **k)
+        setattr(ops, name, call)
+
+    watch("rmsnorm", ops.rmsnorm, lambda x, *_: tuple(x.shape))
+    watch("fused_ff", ops.fused_ff,
+          lambda x, wg, *_: tuple(x.shape) + (wg.shape[1],))
+    watch("flash_attention", ops.flash_attention,
+          lambda q, *_: tuple(q.shape))
+    return seen
+
+
+def _moe_layer(cfg, device):
+    """Layer 0's MoE parameters of the seeded f32 draw of ``cfg``
+    (``_pipe_params``), and a seeded batch of its inputs."""
+    import torch
+    params = _pipe_params(cfg, device)
+    p = {k: {n: w[0] for n, w in v.items()} if isinstance(v, dict)
+         else v[0] for k, v in params["layers"]["moe"].items()}
+    gen = torch.Generator(device).manual_seed(1)
+    x = torch.randn(BATCH, SEQ, cfg.d_model, device=device, generator=gen)
+    return p, x
+
+
+def gspmd_rank(rank, out_dir):
+    """One rank of phase 5c: (a) dense parity and (b) the moe layer and
+    step, in f32 with deterministic algorithms, then (c) the timed bf16
+    ``Trainer``s; writes rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.nn import moe
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.step import (TrainState, make_train_step,
+                                        sharded_state_specs)
+    from repro_torch.utils.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank, "parity": {}}
+    torch.use_deterministic_algorithms(True)
+    t0 = time.perf_counter()
+
+    def steps(cfg, mesh):
+        specs = sharded_state_specs(cfg, mesh)
+        params = shd.shard_tree(_pipe_params(cfg, "cuda"), specs.params,
+                                mesh)
+        torch.cuda.empty_cache()
+        opt = _pipe_opt()
+        state = TrainState(params, opt.init(params),
+                           torch.zeros((), dtype=torch.int32, device="cuda"))
+        step = make_train_step(cfg, opt, mesh=mesh)
+        metrics = []
+        for i in range(PIPE_PARITY_STEPS):
+            state, m = step(state, _pipe_batch(cfg, i))
+            metrics.append({k: float(v) for k, v in m.items()})
+        del state, params, step
+        torch.cuda.empty_cache()
+        return metrics
+
+    for label, (mesh_kw, over) in GSPMD_PARITY.items():
+        cfg = get_config(PIPE_ARCH).replace(n_layers=GSPMD_PARITY_LAYERS,
+                                            dtype="float32", **over)
+        mesh = make_host_mesh(device="cuda", **mesh_kw)
+        out["mesh_" + label] = repr(mesh)
+        out["parity"][label] = steps(cfg, mesh)
+
+    # (b) the moe layer: its expert-parallel output and the slots of this
+    # rank's block against the one-process version, the replicated
+    # variant at a ragged sequence against the dense layer
+    cfg = get_config(MOE_ARCH).replace(n_layers=GSPMD_MOE_LAYERS,
+                                       dtype="float32")
+    mcfg = lm.moe_config(cfg)
+    mesh = make_host_mesh(device="cuda", **GSPMD_MOE_MESH)
+    out["mesh_moe"] = repr(mesh)
+    ax = mesh.axis("model")
+    p, x = _moe_layer(cfg, "cuda")
+    mine = {"router": p["router"],
+            "experts": {k: shd.shard_leaf(v, shd.P("model"), mesh)
+                        .contiguous() for k, v in p["experts"].items()}}
+    with torch.no_grad():
+        got = moe.apply_moe_ep(mine, x, mcfg, mesh)
+        want, slots = moe.apply_moe_ep_plain(p, x, mcfg, 1, ax.size)
+        size = SEQ // ax.size
+        block = x[:, ax.index * size:(ax.index + 1) * size]
+        my_slots = moe.dispatch(mine, block, mcfg)[1]
+        xr = x[:, :GSPMD_RAGGED_SEQ].contiguous()
+        rep = moe.apply_moe_ep_replicated(mine, xr, mcfg, mesh)
+        dense = (moe.apply_moe_dense(p, xr, mcfg) if rank == 0 else rep)
+    scale = float(want.abs().max())
+    out["moe_layer"] = {
+        "ep_err": float((got - want).abs().max()), "scale": scale,
+        "slots_equal": bool(torch.equal(my_slots, slots[ax.index])),
+        "dropped": int((slots[ax.index] == mcfg.n_experts
+                        * moe.capacity(mcfg, BATCH * size)).sum()),
+        "replicated_err": float((rep - dense).abs().max()),
+        "replicated_scale": float(dense.abs().max())}
+    del p, x, mine, got, want, rep, dense, xr
+    torch.cuda.empty_cache()
+    out["parity"]["moe"] = steps(cfg, mesh)
+    torch.use_deterministic_algorithms(False)
+    out["parity_s"] = time.perf_counter() - t0
+
+    # (c) timing, bf16: launches, tilings and operand shapes per rank
+    seen = _watch_shapes()
+    out["timing"] = {}
+    for arch, (layers, mesh_kw) in GSPMD_TIMING.items():
+        cfg = get_config(arch).replace(n_layers=layers)
+        mesh = make_host_mesh(device="cuda", **mesh_kw)
+        trainer = Trainer(cfg, TrainConfig(steps=TRAIN_STEPS, seq_len=SEQ,
+                                           global_batch=BATCH), mesh=mesh)
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        for v in seen.values():
+            v.clear()
+        t0 = time.perf_counter()
+        log = trainer.run()
+        torch.cuda.synchronize()
+        out["timing"][arch] = {
+            "mesh": repr(mesh), "wall_s": time.perf_counter() - t0,
+            "step_s": [r["seconds"] for r in log],
+            "loss": [r["loss"] for r in log],
+            "grad_norm": [r["grad_norm"] for r in log],
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "launches": dict(_read_launches()),
+            "tilings": _read_launches().tilings,
+            "shapes": {k: sorted(v) for k, v in seen.items()},
+            "local_params": sum(p.numel() for p in
+                                tree_leaves(trainer.state.params))}
+        del trainer
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _plain_ep_step(cfg, ep):
+    """``PIPE_PARITY_STEPS`` mesh-less steps of ``cfg`` on the card whose
+    MoE layers compute the expert-parallel function of a (1, ``ep``) mesh
+    in one process (``apply_moe_ep_plain``)."""
+    import torch
+    from repro_torch import nn
+    from repro_torch.nn import moe
+    from repro_torch.train import TrainState, make_train_step
+
+    def plain(p, x, mcfg, mesh=None, axis="model", seq_sharded=False):
+        return moe.apply_moe_ep_plain(p, x, mcfg, 1, ep)[0]
+
+    params = _pipe_params(cfg, "cuda")
+    opt = _pipe_opt()
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device="cuda"))
+    step = make_train_step(cfg, opt)
+    before, nn.apply_moe = nn.apply_moe, plain
+    try:
+        metrics = []
+        for i in range(PIPE_PARITY_STEPS):
+            state, m = step(state, _pipe_batch(cfg, i))
+            metrics.append({k: float(v) for k, v in m.items()})
+    finally:
+        nn.apply_moe = before
+    return metrics
+
+
+def gspmd_phase():
+    """Phase 5c: the GSPMD train step (``make_train_step(mesh=...)``) on
+    ``GSPMD_WORLD`` ranks spawned on the one card (gloo, host-staged).
+
+    (a) Dense parity, f32, ``GSPMD_PARITY_LAYERS`` layers of stablelm-3b
+    at full width on the draw at each layer's own fan-in, deterministic
+    algorithms, ``PIPE_PARITY_STEPS`` steps on (data=2, model=2) and on
+    (model=4) with ``seq_parallel``, against the mesh-less step on the
+    card: each step's loss within 1e-4 and grad-norm within 1e-3 relative
+    (5b's bounds, the reference test's).
+
+    (b) The moe family, f32, olmoe-1b-7b at ``GSPMD_MOE_LAYERS`` layers on
+    (model=4): ``apply_moe_ep`` on each rank against the one-process
+    ``apply_moe_ep_plain`` on the card (within 1e-5 of its scale), the
+    slots each rank packs equal to the plain version's for its block;
+    ``apply_moe_ep_replicated`` at a sequence of ``GSPMD_RAGGED_SEQ`` (4
+    does not divide it) against the dense layer (within 1e-5 of its
+    scale); and the GSPMD steps against mesh-less steps whose MoE layers
+    compute the plain version (the bounds of (a)).
+
+    (c) Timing, bf16 (the published type), ``TRAIN_STEPS`` ``Trainer``
+    steps of each of ``GSPMD_TIMING``: seconds a step, each rank's peak
+    memory, and each rank's launches of K1, K2 and K6, held to
+    ``gspmd_sites`` a step, on the tilings ``select_tiling`` names at the
+    shard shapes, and the operand shapes the calls took held to
+    ``gspmd_shapes`` (the batch block, d_ff / model columns, n_heads /
+    model heads: no rank computes a full-width replica of them).
+    Returns the launches summed over the ranks."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import fused_ff as ff_mod
+    from repro_torch.launch.mesh import host_mesh_shape, run_ranks
+    from repro_torch.train import TrainState, make_train_step
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    cfg = get_config(PIPE_ARCH).replace(n_layers=GSPMD_PARITY_LAYERS,
+                                        dtype="float32")
+    params = _pipe_params(cfg, "cuda")
+    opt = _pipe_opt()
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device="cuda"))
+    step = make_train_step(cfg, opt)
+    plain = []
+    for i in range(PIPE_PARITY_STEPS):
+        state, m = step(state, _pipe_batch(cfg, i))
+        plain.append({k: float(v) for k, v in m.items()})
+    del state, params, step, opt, m
+    torch.cuda.empty_cache()
+    moe_cfg = get_config(MOE_ARCH).replace(n_layers=GSPMD_MOE_LAYERS,
+                                           dtype="float32")
+    plain_moe = _plain_ep_step(moe_cfg, GSPMD_MOE_MESH["model"])
+    torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    print(f"  mesh-less steps on the card, f32: {PIPE_ARCH} "
+          f"{cfg.n_layers} layers {plain}; {MOE_ARCH} "
+          f"{moe_cfg.n_layers} layers with the one-process EP of (1, "
+          f"{GSPMD_MOE_MESH['model']}) {plain_moe}, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_gspmd_",
+                               dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        run_ranks(gspmd_rank, GSPMD_WORLD, out_dir,
+                  init_method=f"file://{out_dir}/pg", device="cuda",
+                  timeout_s=GSPMD_DEADLINE_S)
+        ranks_s = time.perf_counter() - t0
+        outs = []
+        for r in range(GSPMD_WORLD):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                outs.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir)
+    print(f"  {GSPMD_WORLD} ranks ran in {ranks_s:.1f} s (parity "
+          f"{max(o['parity_s'] for o in outs):.1f} s)", flush=True)
+
+    # (a), (b): every rank sees the same metrics; every line is printed
+    # before the first failure is raised
+    problems = []
+    par = outs[0]["parity"]
+    for o in outs[1:]:
+        for key, run in o["parity"].items():
+            if run != par[key]:
+                problems.append(f"GSPMD parity {key}: ranks disagree on "
+                                f"the metrics")
+    for key, run in par.items():
+        mesh = outs[0]["mesh_" + ("moe" if key == "moe" else key)]
+        base = plain_moe if key == "moe" else plain
+        rels = [{k: _rel(m[k], p[k]) for k in ("loss", "grad_norm")}
+                for m, p in zip(run, base)]
+        print(f"  {key} {mesh}: {run}; relative to the mesh-less step "
+              f"{rels}", flush=True)
+        if not all(r["loss"] <= 1e-4 and r["grad_norm"] <= 1e-3
+                   for r in rels):
+            problems.append(f"GSPMD parity {key}: loss or grad-norm off "
+                            f"the mesh-less step's (bounds 1e-4, 1e-3 "
+                            f"relative)")
+    for o in outs:
+        ml = o["moe_layer"]
+        print(f"  rank {o['rank']} moe layer: {ml}", flush=True)
+        if not (ml["slots_equal"]
+                and ml["ep_err"] <= 1e-5 * ml["scale"]
+                and ml["replicated_err"] <= 1e-5 * ml["replicated_scale"]):
+            problems.append(f"rank {o['rank']}: the expert-parallel layer "
+                            f"disagrees with its one-process version or "
+                            f"the dense layer")
+
+    # (c) timing, launches, tilings and shapes
+    total = _Launches((name, 0) for name in KERNELS)
+    total.tilings = {}
+    stats = {}
+    for arch, (layers, mesh_kw) in GSPMD_TIMING.items():
+        tcfg = get_config(arch).replace(n_layers=layers)
+        per_step = gspmd_sites(tcfg)
+        want = _expected_launches(**{k: TRAIN_STEPS * n
+                                     for k, n in per_step.items()})
+        shapes = gspmd_shapes(tcfg, mesh_kw)
+        shape, names = host_mesh_shape(GSPMD_WORLD, **mesh_kw)
+        b = BATCH // (GSPMD_WORLD // dict(zip(names, shape))["model"])
+        m = mesh_kw["model"]
+        tiling = {"flash_attention": fa_mod.select_tiling(
+            torch.bfloat16, (b, tcfg.n_heads // m, SEQ, tcfg.head_dim),
+            dv=tcfg.head_dim)}
+        if tcfg.family == "dense":
+            tiling["fused_ff"] = ff_mod.select_tiling(
+                torch.bfloat16, (b * SEQ, tcfg.d_model, tcfg.d_ff // m))
+        for o in outs:
+            t = o["timing"][arch]
+            print(f"  rank {o['rank']} {arch} ({layers} layers): "
+                  f"{t['mesh']}: steps {t['step_s']} s, peak "
+                  f"{t['max_memory_allocated_gb']:.2f} GB, "
+                  f"{t['local_params'] / 1e6:.1f} M parameters; launches "
+                  f"{t['launches']} by tiling {t['tilings']}; operand "
+                  f"shapes {t['shapes']}", flush=True)
+            if t["launches"] != want:
+                problems.append(f"rank {o['rank']} {arch}: GSPMD launches "
+                                f"{t['launches']}, expected {want} "
+                                f"({per_step} a step)")
+            for name, inst in tiling.items():
+                if set(t["tilings"][name]) != {inst}:
+                    problems.append(f"rank {o['rank']} {arch}: {name} ran "
+                                    f"{t['tilings'][name]}, not {inst}")
+            for name, want_shapes in shapes.items():
+                got = {tuple(s) for s in t["shapes"][name]}
+                if got != want_shapes:
+                    problems.append(f"rank {o['rank']} {arch}: {name} took "
+                                    f"{sorted(got)}, not the shard shapes "
+                                    f"{sorted(want_shapes)}")
+            for name, n in t["launches"].items():
+                total[name] += n
+            for name, by in t["tilings"].items():
+                for inst, n in by.items():
+                    total.tilings.setdefault(name, {})
+                    total.tilings[name][inst] = \
+                        total.tilings[name].get(inst, 0) + n
+            if not all(math.isfinite(x) for x in t["loss"] + t["grad_norm"]):
+                problems.append(f"{arch}: a GSPMD training loss or "
+                                f"grad-norm is not finite")
+        timing = outs[0]["timing"][arch]
+        steady = max(statistics.median(o["timing"][arch]["step_s"][1:])
+                     for o in outs)
+        stats[arch] = {
+            "n_layers": layers, "mesh": mesh_kw, "ranks": GSPMD_WORLD,
+            "transport": timing["mesh"],
+            "step_s": [max(o["timing"][arch]["step_s"][i] for o in outs)
+                       for i in range(TRAIN_STEPS)],
+            "steady_step_s": steady, "tokens_per_s": BATCH * SEQ / steady,
+            "loss": timing["loss"], "grad_norm": timing["grad_norm"],
+            "peak_gb_by_rank": [o["timing"][arch]["max_memory_allocated_gb"]
+                                for o in outs],
+            "launches_per_rank_step": per_step, "tilings": tiling}
+    print("  GSPMD training main path " + json.dumps(stats), flush=True)
     if problems:
         fail("; ".join(problems))
     return total
@@ -3314,6 +3773,9 @@ def main() -> int:
 
     phase("5b pipeline train step")
     launches["train_pipe"] = pipeline_phase()
+
+    phase("5c GSPMD train step")
+    launches["train_gspmd"] = gspmd_phase()
 
     phase("6 optimizer main paths")
     launches["optimize"], pair_configs = optimize_phase()

@@ -20,12 +20,12 @@ Guarantees:
   * async: :class:`AsyncCheckpointer` copies the tree to the host, then
     writes it on a background thread while training goes on.
 
-A pipeline run (``train.loop.Trainer`` with a mesh) writes the global
-layout: rank 0 saves the gathered state and every rank restores it and
-takes its own blocks (``dist.sharding.shard_tree``), so its checkpoints
-resume in a mesh-less run and the other way round.  The reference's
-elastic re-sharding on restore (``shardings=``) belongs to the GSPMD
-path, ROADMAP A14b.
+A run on a mesh (``train.loop.Trainer`` with one, pipeline or GSPMD)
+writes the global layout: rank 0 saves the gathered state, and every
+rank restores it and takes its own blocks — :func:`restore`'s
+``shardings`` (a tree of ``dist.sharding.NamedSharding``), the
+reference's elastic re-sharding.  So one checkpoint moves between
+mesh-less, pipeline and GSPMD runs, on any mesh shape.
 """
 
 from __future__ import annotations
@@ -142,11 +142,14 @@ def latest_step(directory: str) -> Optional[int]:
     return int(name.split("_")[-1])
 
 
-def restore(directory: str, like_tree,
-            step: Optional[int] = None) -> Tuple[object, int]:
-    """Restore into the structure of ``like_tree`` as CPU tensors; a leaf
-    count or a leaf shape that differs from ``like_tree``'s raises
-    ``ValueError``."""
+def restore(directory: str, like_tree, step: Optional[int] = None,
+            shardings=None) -> Tuple[object, int]:
+    """Restore into the structure of ``like_tree`` (global shapes) as CPU
+    tensors; a leaf count or a leaf shape that differs from
+    ``like_tree``'s raises ``ValueError``.  ``shardings`` (a matching
+    tree of ``dist.sharding.NamedSharding``) re-shards: each leaf becomes
+    this rank's block on its mesh's device — the elastic-resize path
+    (the mesh may differ from the saving run's)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -172,4 +175,7 @@ def restore(directory: str, like_tree,
                              f"{step_dir}, the tree wants "
                              f"{tuple(np.shape(want))}")
         flat.append(_from_numpy(leaves[i], manifest["dtypes"][i], shape))
-    return tree_unflatten(like_tree, flat), step
+    tree = tree_unflatten(like_tree, flat)
+    if shardings is not None:
+        tree = tree_map(lambda x, s: s.shard(x), tree, shardings)
+    return tree, step

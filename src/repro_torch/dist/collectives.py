@@ -18,6 +18,16 @@ is the inverse permutation.  Every rank must issue the same collectives
 in the same order in forward and in backward; the callers keep the
 reference's SPMD form for that (see :mod:`repro_torch.dist.pipeline`).
 
+:func:`all_gather`, :func:`psum_scatter` and :func:`all_to_all` are
+the GSPMD step's collectives (``make_train_step(mesh=...)``), each
+differentiable with JAX's transpose for its backward: an all-gather's
+is a ``psum_scatter`` of the cotangent (so a parameter gathered over
+``data`` before use gets its gradient summed and scattered back to its
+shard, FSDP's reduce-scatter), a ``psum_scatter``'s an all-gather, and
+an all-to-all's the all-to-all that swaps its split and concat
+dimensions.  A ``psum_scatter`` is an all-reduce followed by this
+rank's block (gloo has no reduce-scatter on every build).
+
 Transport: when the mesh runs the ``gloo`` backend on CUDA tensors (ranks
 that share one card, which NCCL refuses), every collective stages its
 tensor through the host explicitly (gloo takes no CUDA tensor for a
@@ -153,15 +163,110 @@ def ppermute(x: torch.Tensor, axis: Axis, perm) -> torch.Tensor:
     return _PPermute.apply(x, axis, tuple(tuple(p) for p in perm))
 
 
-def all_gather(x: torch.Tensor, axis: Axis) -> torch.Tensor:
-    """The ``axis.size`` blocks ``x`` of every rank along ``axis``,
-    concatenated on a new leading dimension in coordinate order (not
-    differentiable: checkpoints and tests gather with it)."""
-    if axis.size == 1:
-        return x[None].clone()
+def _gather_parts(x: torch.Tensor, axis: Axis):
+    """Every rank's ``x`` along ``axis``, in coordinate order."""
     buf = _wire(x, axis)
     parts = [torch.empty_like(buf) for _ in range(axis.size)]
     dist.all_gather(parts, buf, group=axis.group)
     # parts come in the group's rank order; put them in coordinate order
-    return torch.stack([parts[dist.get_group_rank(axis.group, r)]
-                        for r in axis.ranks]).to(x.device)
+    return [parts[dist.get_group_rank(axis.group, r)].to(x.device)
+            for r in axis.ranks]
+
+
+def block_of(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` split ``axis.size`` ways along ``dim``
+    (a view)."""
+    n = x.shape[dim]
+    if n % axis.size:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"{axis.size} ways over {axis.name!r}")
+    size = n // axis.size
+    return x.narrow(dim, axis.index * size, size)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, tiled):
+        ctx.axis, ctx.dim, ctx.tiled = axis, dim, tiled
+        if axis.size == 1:
+            return x.unsqueeze(dim).clone() if not tiled else x.clone()
+        parts = _gather_parts(x, axis)
+        return torch.cat(parts, dim) if tiled else torch.stack(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.tiled:
+            return _PSumScatter.apply(g, ctx.axis, ctx.dim), None, None, None
+        block = _PSumScatter.apply(g, ctx.axis, ctx.dim)
+        return block.squeeze(ctx.dim), None, None, None
+
+
+class _PSumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return block_of(_all_reduce(x, (axis,)), axis, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllGather.apply(g, ctx.axis, ctx.dim, True), None, None
+
+
+def _exchange(x: torch.Tensor, axis: Axis, split: int,
+              concat: int) -> torch.Tensor:
+    """``jax.lax.all_to_all(tiled=False)``: block ``j`` of ``x`` along
+    ``split`` (whose size is ``axis.size``) goes to coordinate ``j``, and
+    the blocks received, by source coordinate, stack on a new dimension
+    ``concat`` of the result."""
+    if x.shape[split] != axis.size:
+        raise ValueError(f"all_to_all: dim {split} of {tuple(x.shape)} is "
+                         f"not the size of {axis!r}")
+    if axis.size == 1:
+        return x.squeeze(split).unsqueeze(concat).clone()
+    # blocks in the group's rank order, as all_to_all_single sends them
+    order = [dist.get_group_rank(axis.group, r) for r in axis.ranks]
+    blocks = x.unbind(split)
+    send = torch.stack([blocks[order.index(g)] for g in range(axis.size)])
+    buf = _wire(send, axis)
+    out = torch.empty_like(buf)
+    dist.all_to_all_single(out, buf, group=axis.group)
+    out = out.to(x.device)
+    return torch.stack([out[order[j]] for j in range(axis.size)], concat)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, split, concat):
+        ctx.axis, ctx.split, ctx.concat = axis, split, concat
+        return _exchange(x, axis, split, concat)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_AllToAll.apply(g, ctx.axis, ctx.concat, ctx.split), None,
+                None, None)
+
+
+def all_gather(x: torch.Tensor, axis: Axis, dim: int = 0,
+               tiled: bool = False) -> torch.Tensor:
+    """``jax.lax.all_gather``: the blocks ``x`` of every rank along
+    ``axis`` in coordinate order, stacked on a new dimension ``dim``, or
+    with ``tiled`` concatenated along ``dim``; differentiable, its
+    backward a :func:`psum_scatter` of the cotangent."""
+    return _AllGather.apply(x, axis, dim, tiled)
+
+
+def psum_scatter(x: torch.Tensor, axis: Axis, dim: int = 0) -> torch.Tensor:
+    """``jax.lax.psum_scatter(tiled=True)``: the sum of ``x`` over
+    ``axis``, of which this rank keeps its block along ``dim``;
+    differentiable, its backward a tiled :func:`all_gather`."""
+    return _PSumScatter.apply(x, axis, dim)
+
+
+def all_to_all(x: torch.Tensor, axis: Axis, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, split_axis, concat_axis,
+    tiled=False)``: ``x.shape[split_axis]`` is the axis size; block ``j``
+    along it goes to coordinate ``j``, and the blocks received stack on
+    ``concat_axis`` by source.  Differentiable: the backward is the
+    all-to-all with the two dimensions swapped."""
+    return _AllToAll.apply(x, axis, split_axis, concat_axis)

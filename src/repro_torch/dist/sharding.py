@@ -19,11 +19,15 @@ entries, each a mesh-axis name, a tuple of names or ``None``, equal
 entry for entry to the reference's ``PartitionSpec`` on the same mesh
 shape.  Where the reference returns ``NamedSharding``s
 (:func:`param_shardings`, :func:`decode_cache_shardings`,
-:func:`kv_pool_shardings`) the port returns the spec tree: placing
-tensors by it is the GSPMD path (ROADMAP A14b).  The explicit-collective
-pipeline step places its tensors itself, with :func:`shard_tree` (this
-rank's block of a global tree) and :func:`gather_tree` (the global tree
-back from every rank's blocks).
+:func:`kv_pool_shardings`) the port returns the spec tree; a rank
+places tensors by it with :func:`shard_tree` (this rank's block of a
+global tree) and :func:`gather_tree` (the global tree back from every
+rank's blocks), and :class:`NamedSharding` binds one spec to a mesh
+(:func:`named_shardings`: what ``ckpt.checkpoint.restore(shardings=)``
+takes).  Inside the GSPMD step, :func:`gather_for_use` assembles a
+parameter from its blocks differentiably, and :func:`replicated_axes` /
+:func:`sharded_axes` say over which axes its gradient is summed and its
+squared norm counted.
 """
 
 from __future__ import annotations
@@ -169,8 +173,10 @@ def logical_specs(spec_tree, mesh):
 
 def param_shardings(spec_tree, mesh):
     """The reference returns a ``NamedSharding`` tree here; the port
-    returns the :class:`P` tree (:func:`logical_specs`).  Placing
-    parameters by it is the GSPMD path, ROADMAP A14b."""
+    returns the :class:`P` tree (:func:`logical_specs`), by which the
+    GSPMD step (``train.step.make_train_step(mesh=...)``) places each
+    parameter and its AdamW moments (:func:`named_shardings` binds it
+    to the mesh)."""
     return logical_specs(spec_tree, mesh)
 
 
@@ -309,7 +315,8 @@ def decode_cache_shardings(cfg, caches, mesh):
     """:class:`P` tree for a decode-cache tree (any model family); leaves
     (tensors or anything with a ``shape``) are classified by rank and
     shape the way ``serve.decode.init_caches`` builds them.  The
-    reference returns ``NamedSharding``s (ROADMAP A14b)."""
+    reference returns ``NamedSharding``s; placing caches by them is
+    serving with a mesh (ROADMAP A14b-serve)."""
     return tree_map(lambda x: decode_cache_leaf_spec(cfg, tuple(x.shape),
                                                       mesh), caches)
 
@@ -330,7 +337,7 @@ def kv_pool_shardings(cfg, caches, mesh, kinds=None):
     decode-cache rules) or paged (``kinds`` =
     ``serve.decode.paged_cache_kinds(cfg)``: ``"slot"`` entries keep the
     decode-cache rules, paged ones :func:`paged_leaf_spec`).  The
-    reference returns ``NamedSharding``s (ROADMAP A14b)."""
+    reference returns ``NamedSharding``s (ROADMAP A14b-serve)."""
     if kinds is None:
         return decode_cache_shardings(cfg, caches, mesh)
     return [decode_cache_shardings(cfg, c, mesh) if kind == "slot"
@@ -395,9 +402,63 @@ def gather_leaf(x: torch.Tensor, spec: P, mesh) -> torch.Tensor:
         for a in reversed(_entry_axes(spec[dim])):
             if mesh.shape[a] == 1:
                 continue
-            parts = all_gather(x, mesh.axis(a))
-            x = torch.cat(list(parts.unbind(0)), dim=dim)
+            x = all_gather(x, mesh.axis(a), dim, tiled=True)
     return x
+
+
+def gather_for_use(x: torch.Tensor, spec: P, mesh,
+                   keep: Sequence[str] = ()) -> torch.Tensor:
+    """``x``, this rank's block under ``spec``, all-gathered over every
+    axis of ``spec`` except those in ``keep`` (differentiable: the
+    gradient comes back summed over those axes and scattered to the
+    block, FSDP's reduce-scatter)."""
+    for dim in reversed(range(len(spec))):
+        for a in reversed(_entry_axes(spec[dim])):
+            if a in keep or mesh.shape[a] == 1:
+                continue
+            x = all_gather(x, mesh.axis(a), dim, tiled=True)
+    return x
+
+
+def sharded_axes(spec: P, mesh) -> Tuple[str, ...]:
+    """The axes of ``mesh`` (of size > 1) that ``spec`` shards a dimension
+    over, in mesh order."""
+    used = {a for entry in spec for a in _entry_axes(entry)}
+    return tuple(a for a in mesh.axis_names
+                 if a in used and mesh.shape[a] > 1)
+
+
+def replicated_axes(spec: P, mesh) -> Tuple[str, ...]:
+    """The axes of ``mesh`` (of size > 1) over which a tensor placed by
+    ``spec`` is replicated: every rank along them holds the same block."""
+    used = set(sharded_axes(spec, mesh))
+    return tuple(a for a in mesh.axis_names
+                 if a not in used and mesh.shape[a] > 1)
+
+
+class NamedSharding:
+    """A :class:`P` bound to a mesh, the reference's
+    ``jax.sharding.NamedSharding``: :meth:`shard` gives this rank's block
+    of a global tensor on the mesh's device, :meth:`gather` the global
+    tensor back (a collective)."""
+
+    def __init__(self, mesh, spec: P):
+        self.mesh, self.spec = mesh, spec
+
+    def shard(self, x: torch.Tensor) -> torch.Tensor:
+        return shard_leaf(x, self.spec, self.mesh).contiguous().to(
+            self.mesh.device)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return gather_leaf(x, self.spec, self.mesh)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.spec!r})"
+
+
+def named_shardings(specs, mesh):
+    """A :class:`NamedSharding` tree from a :class:`P` tree."""
+    return tree_map(lambda s: NamedSharding(mesh, s), specs)
 
 
 def gather_tree(local, specs, mesh):

@@ -14,19 +14,23 @@ depth exceeds one card).  It prints the reference's
 ``--pipe S`` (or ``pipeline_stages`` on the config) builds a mesh with a
 ``pipe`` axis and switches the Trainer onto the pipeline step
 (``--pipe-schedule gpipe|1f1b`` picks the micro-op timetable);
-``--model M`` composes a tensor-parallel ``model`` axis into the
-pipeline stages; ``--pods P`` adds a ``pod`` axis whose gradient
-reduction runs compressed (bf16 + error feedback) unless
-``--no-compress-pod-grads``.  A mesh runs one process per rank::
+``--model M`` adds a tensor-parallel ``model`` axis (composed into the
+pipeline stages, or alone the GSPMD step's tensor and expert
+parallelism); ``--pods P`` adds a ``pod`` axis whose gradient reduction
+runs compressed (bf16 + error feedback) in the pipeline step unless
+``--no-compress-pod-grads``, and in f32 in the GSPMD step.  ``--model``
+or ``--pods`` without ``--pipe`` >= 2 trains with the GSPMD step
+(``make_train_step(mesh=...)``; the data axis takes the ranks left).  A
+mesh runs one process per rank::
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --pipe 2 --model 2 --device cpu
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
+        --device cpu --model 2 --steps 2 --seq-len 16 --global-batch 4
 
 (the world of N ranks plays the reference's device count; without
 ``--device`` each rank takes ``cuda:(local_rank % device_count)``).
-Only rank 0 prints.  A mesh without ``--pipe`` >= 2 (``--model`` or
-``--pods`` alone) is the reference's GSPMD path, ROADMAP A14b: it
-raises.
+Only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -59,8 +63,8 @@ def main(argv=None) -> None:
                     help="pipeline micro-op schedule: gpipe | 1f1b "
                          "(default cfg.pipeline_schedule)")
     ap.add_argument("--model", type=int, default=1,
-                    help="tensor-parallel `model` axis size (> 1 composes "
-                         "TP into the pipeline stages)")
+                    help="tensor-parallel `model` axis size (> 1: TP in "
+                         "the pipeline stages, or the GSPMD step)")
     ap.add_argument("--pods", type=int, default=1,
                     help="pod axis size (> 1 = multi-pod gradient reduction)")
     ap.add_argument("--no-compress-pod-grads", action="store_true",
@@ -95,38 +99,42 @@ def main(argv=None) -> None:
     mesh = None
     say = print
     if pipe > 1 or args.pods > 1 or args.model > 1:
-        if pipe < 2:
-            raise NotImplementedError(
-                f"--model {args.model} / --pods {args.pods} without --pipe "
-                f">= 2 is the GSPMD step, not ported yet; see ROADMAP A14b "
-                f"(the GSPMD path)")
         import torch.distributed as dist
         from repro_torch.launch.mesh import init_distributed, make_host_mesh
         if not dist.is_initialized():
             init_distributed(args.device)
             atexit.register(dist.destroy_process_group)
-        mesh = make_host_mesh(model=args.model, pipe=pipe, pods=args.pods,
-                              device=args.device)
+        mesh = make_host_mesh(model=args.model, pipe=max(pipe, 1),
+                              pods=args.pods, device=args.device)
         if mesh.rank != 0:
             def say(*_a, **_k):
                 return None
         note = ""
         if args.pods > 1:
-            pod_grads = ("fp32 psum" if args.no_compress_pod_grads
-                         else "bf16+EF compressed")
+            # the compressed reduction lives in the pipeline step, which
+            # the Trainer only selects for pipe >= 2 — say so instead of
+            # claiming compression the GSPMD step won't do
+            if args.no_compress_pod_grads:
+                pod_grads = "fp32 psum"
+            elif pipe > 1:
+                pod_grads = "bf16+EF compressed"
+            else:
+                pod_grads = ("fp32 psum — compressed reduction needs the "
+                             "shard_map step, pass --pipe >= 2")
             note = f" (pod grads: {pod_grads})"
         say(f"[train] mesh: {dict(mesh.shape)}{note}")
         say(f"[train] {mesh!r}")
-        # surface the gcd clamp the Trainer will apply instead of letting
-        # a non-dividing --pipe-microbatches remap silently
-        from repro_torch.train.loop import pipeline_microbatch_clamp
-        n_micro, local_b = pipeline_microbatch_clamp(
-            cfg.pipeline_microbatches, args.global_batch, mesh)
-        if n_micro != cfg.pipeline_microbatches and mesh.rank == 0:
-            warnings.warn(
-                f"--pipe-microbatches {cfg.pipeline_microbatches} does "
-                f"not divide the per-shard batch {local_b}; the Trainer "
-                f"will clamp it to {n_micro}", stacklevel=1)
+        if pipe > 1:
+            # surface the gcd clamp the Trainer will apply instead of
+            # letting a non-dividing --pipe-microbatches remap silently
+            from repro_torch.train.loop import pipeline_microbatch_clamp
+            n_micro, local_b = pipeline_microbatch_clamp(
+                cfg.pipeline_microbatches, args.global_batch, mesh)
+            if n_micro != cfg.pipeline_microbatches and mesh.rank == 0:
+                warnings.warn(
+                    f"--pipe-microbatches {cfg.pipeline_microbatches} "
+                    f"does not divide the per-shard batch {local_b}; the "
+                    f"Trainer will clamp it to {n_micro}", stacklevel=1)
 
     tcfg = TrainConfig(steps=args.steps, seq_len=args.seq_len,
                        global_batch=args.global_batch, lr=args.lr,

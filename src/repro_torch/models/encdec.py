@@ -19,9 +19,11 @@ import torch
 
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import sharding as shd
 from repro_torch.models.lm import (_apply_mlp, _apply_norm, _mlp_spec,
-                                   _no_dist, _norm_spec, _remat, _unstack,
+                                   _norm_spec, _remat, _unstack,
                                    apply_attn, embed_forward, head_forward)
+from repro_torch.utils.tree import tree_map
 from repro_torch.nn.core import (apply_dense, init_params, stack_specs,
                                  torch_dtype)
 
@@ -114,6 +116,14 @@ def decode_train(params: Dict, tokens: torch.Tensor, enc_out: torch.Tensor,
 def forward(params: Dict, frames: torch.Tensor, tokens: torch.Tensor,
             cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """frames (B, S_enc, d_model), tokens (B, S) -> f32 logits
-    (B, S, vocab)."""
-    _no_dist("encdec.forward", mesh)
+    (B, S, vocab).  With ``mesh`` (the GSPMD step, run by every rank)
+    ``params`` holds this rank's blocks by ``param_shardings`` and the
+    inputs its batch block: the reference only places the parameters,
+    and the port all-gathers every leaf before the forward (the gather's
+    backward reduce-scatters the gradient to the block) and computes
+    replicated over ``model``."""
+    if mesh is not None:
+        specs = shd.param_shardings(model_spec(cfg), mesh)
+        params = tree_map(lambda x, s: shd.gather_for_use(x, s, mesh),
+                          params, specs)
     return decode_train(params, tokens, encode(params, frames, cfg), cfg)

@@ -13,8 +13,24 @@ do.
 bound :class:`repro_torch.dist.collectives.Axis`) runs the attention and
 MLP on this rank's head / column shards and psums their partial
 projections; :func:`stage_forward` applies one pipeline stage's layers.
-The GSPMD hooks (``mesh``, ``seq_parallel``) raise
-``NotImplementedError`` naming ROADMAP A14b.
+
+``mesh`` (the GSPMD step, a :class:`repro_torch.launch.mesh.Mesh` whose
+every rank runs :func:`forward`): ``params`` holds this rank's blocks by
+``dist.sharding.param_shardings`` and ``tokens`` its batch block.  Each
+layer's parameters are all-gathered before use, inside the layer's
+remat unit (FSDP over ``data``; the gather's backward reduce-scatters
+the gradient to the block), over ``model`` too except where a block
+computes on its ``model`` shard: the GQA attention's heads and the
+MLP's columns (their row-parallel outputs psum) and the experts
+(dispatched by all-to-all, :func:`repro_torch.nn.moe.apply_moe_ep`).
+The blocks with no such body compute replicated over ``model``: the SSM
+layers, the hybrid's Mamba-2 layers, MLA, the moe family's shared
+experts, and the encoder-decoder; so do the embedding and the head.
+``cfg.seq_parallel`` keeps the dense and moe residual stream sharded on
+the sequence over ``model`` between blocks (Megatron-SP: all-gathered
+at a sublayer's entry, reduce-scattered after its row-parallel output;
+the same numbers as without it); with no ``model`` axis, or none at
+all, it changes nothing, as the reference's ``_sp_constraint``.
 """
 
 from __future__ import annotations
@@ -28,14 +44,14 @@ import torch.utils.checkpoint
 
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import collectives as col
+from repro_torch.dist import sharding as shd
 from repro_torch.nn.attention import NO_WINDOW
 from repro_torch.nn.core import init_params, stack_specs, torch_dtype
 from repro_torch.nn.mla import MLAConfig
 from repro_torch.nn.moe import MoEConfig
 from repro_torch.nn.ssm import SSMConfig
-from repro_torch.utils.tree import tree_leaves
-
-_DIST_ITEM = "ROADMAP A14b (the GSPMD path)"
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 def decoder_only(cfg: ModelConfig, what: str) -> None:
@@ -59,7 +75,8 @@ def moe_config(cfg: ModelConfig) -> MoEConfig:
     return MoEConfig(n_experts=cfg.n_experts, top_k=cfg.top_k,
                      d_model=cfg.d_model, d_ff=cfg.moe_d_ff,
                      n_shared=cfg.n_shared_experts,
-                     shared_d_ff=cfg.n_shared_experts * cfg.moe_d_ff)
+                     shared_d_ff=cfg.n_shared_experts * cfg.moe_d_ff,
+                     capacity_factor=cfg.capacity_factor)
 
 
 def ssm_config(cfg: ModelConfig) -> SSMConfig:
@@ -85,9 +102,10 @@ def _mlp_spec(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict:
 
 
 def _apply_mlp(cfg: ModelConfig, p: Dict, x: torch.Tensor,
-               tp_axis=None) -> torch.Tensor:
-    return (nn.apply_gelu_mlp(p, x, tp_axis=tp_axis) if cfg.mlp == "gelu"
-            else nn.apply_swiglu(p, x, tp_axis=tp_axis))
+               tp_axis=None, sp: bool = False) -> torch.Tensor:
+    return (nn.apply_gelu_mlp(p, x, tp_axis=tp_axis, sp=sp)
+            if cfg.mlp == "gelu"
+            else nn.apply_swiglu(p, x, tp_axis=tp_axis, sp=sp))
 
 
 def attn_spec(cfg: ModelConfig) -> Dict:
@@ -180,21 +198,17 @@ def embed_forward(params: Dict, tokens: torch.Tensor,
 # full forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _no_dist(what: str, mesh=None) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"{what}: a mesh (the GSPMD path) is not "
-                                  f"ported yet; see {_DIST_ITEM}")
-
-
 def apply_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
                window: int = NO_WINDOW, q_offset: int = 0,
-               causal: bool = True, tp_axis=None) -> torch.Tensor:
+               causal: bool = True, tp_axis=None,
+               sp: bool = False) -> torch.Tensor:
     """Self-attention over the whole sequence: projections, optional
     qk-norm, rope at ``q_offset + arange(S)``, ``chunked_attention``; or
     MLA (:func:`repro_torch.nn.apply_mla`).  Under ``tp_axis`` the
     projection weights are head shards, so the local head counts come
-    from the shard shapes and the output projection psums the
-    partials."""
+    from the shard shapes (a single KV head stays whole) and the output
+    projection psums the partials (``sp``: reduce-scatters them over the
+    sequence)."""
     if cfg.mla:
         return nn.apply_mla(p, x, mla_config(cfg), causal=causal,
                             q_offset=q_offset, chunk=cfg.attn_chunk)
@@ -213,29 +227,56 @@ def apply_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
     k = nn.apply_rope(k, positions, cfg.rope_theta)
     o = nn.chunked_attention(q, k, v, causal=causal, window=window,
                              chunk=cfg.attn_chunk, q_offset=q_offset)
-    return nn.out_project(p, o, tp_axis=tp_axis)
+    return nn.out_project(p, o, tp_axis=tp_axis, sp=sp)
+
+
+def _sublayer_in(cfg: ModelConfig, norm_p: Dict, x: torch.Tensor, tp_axis,
+                 sp: bool) -> torch.Tensor:
+    """The normed input of a sublayer: under sequence parallelism the
+    norm runs on this rank's block and the result is all-gathered."""
+    h = _apply_norm(cfg, norm_p, x)
+    return col.all_gather(h, tp_axis, 1, tiled=True) if sp else h
+
+
+def _attn_sub(cfg: ModelConfig, p: Dict, x: torch.Tensor, window: int,
+              tp_axis, sp: bool) -> torch.Tensor:
+    h = _sublayer_in(cfg, p["ln1"], x, tp_axis, sp)
+    sharded = (tp_axis is not None and not cfg.mla and
+               p["attn"]["wq"]["w"].shape[1] < cfg.n_heads * cfg.head_dim)
+    y = apply_attn(cfg, p["attn"], h, window=window,
+                   tp_axis=tp_axis if sharded else None, sp=sp)
+    return col.block_of(y, tp_axis, 1) if sp and not sharded else y
+
+
+def _mlp_sub(cfg: ModelConfig, p: Dict, x: torch.Tensor, tp_axis,
+             sp: bool) -> torch.Tensor:
+    h = _sublayer_in(cfg, p["ln2"], x, tp_axis, sp)
+    w = p["mlp"]["up" if cfg.mlp == "gelu" else "gate"]["w"]
+    sharded = tp_axis is not None and w.shape[1] < cfg.d_ff
+    y = _apply_mlp(cfg, p["mlp"], h, tp_axis=tp_axis if sharded else None,
+                   sp=sp)
+    return col.block_of(y, tp_axis, 1) if sp and not sharded else y
 
 
 def dense_block(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
-                window: int = NO_WINDOW, mesh=None,
-                tp_axis=None) -> torch.Tensor:
-    _no_dist("dense_block", mesh)
-    x = x + apply_attn(cfg, p["attn"], _apply_norm(cfg, p["ln1"], x),
-                       window=window, tp_axis=tp_axis)
-    x = x + _apply_mlp(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x),
-                       tp_axis=tp_axis)
-    return x
+                window: int = NO_WINDOW, mesh=None, tp_axis=None,
+                sp: bool = False) -> torch.Tensor:
+    """Attention then MLP, each residual.  ``tp_axis``: the sublayers
+    whose weights are ``model`` shards compute on them; ``sp``: ``x`` is
+    this rank's sequence block, and so is the result."""
+    x = x + _attn_sub(cfg, p, x, window, tp_axis, sp)
+    return x + _mlp_sub(cfg, p, x, tp_axis, sp)
 
 
 def moe_block(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
-              window: int = NO_WINDOW, mesh=None,
-              tp_axis=None) -> torch.Tensor:
-    _no_dist("moe_block", mesh)
-    x = x + apply_attn(cfg, p["attn"], _apply_norm(cfg, p["ln1"], x),
-                       window=window, tp_axis=tp_axis)
-    x = x + nn.apply_moe(p["moe"], _apply_norm(cfg, p["ln2"], x),
-                         moe_config(cfg))
-    return x
+              window: int = NO_WINDOW, mesh=None, tp_axis=None,
+              sp: bool = False) -> torch.Tensor:
+    """Attention then the MoE layer, each residual; with ``mesh`` the
+    layer takes the reference's expert-parallel dispatch
+    (:func:`repro_torch.nn.apply_moe`)."""
+    x = x + _attn_sub(cfg, p, x, window, tp_axis, sp)
+    return x + nn.apply_moe(p["moe"], _apply_norm(cfg, p["ln2"], x),
+                            moe_config(cfg), mesh=mesh, seq_sharded=sp)
 
 
 def ssm_block(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -262,9 +303,6 @@ def _remat(cfg: ModelConfig, body, x: torch.Tensor) -> torch.Tensor:
     (non-reentrant): only ``x`` is kept and ``body`` is recomputed in the
     backward pass, the counterpart of
     ``jax.checkpoint(policy=nothing_saveable)``."""
-    if cfg.seq_parallel:
-        raise NotImplementedError(f"seq_parallel ({cfg.name}) needs a mesh; "
-                                  f"see {_DIST_ITEM}")
     if not cfg.remat:
         return body(x)
     if cfg.remat_policy != "nothing":
@@ -275,18 +313,89 @@ def _remat(cfg: ModelConfig, body, x: torch.Tensor) -> torch.Tensor:
         body, x, use_reentrant=False, preserve_rng_state=False)
 
 
+class Placement:
+    """What :func:`forward` needs of a mesh: the mesh, its parameter
+    specs (``param_shardings`` of the model's spec tree), the ``model``
+    axis (None when it is absent or of size 1) and whether the residual
+    stream is sequence-sharded (``sp``: ``cfg.seq_parallel``, a
+    ``model`` axis dividing the sequence, the dense or moe family)."""
+
+    def __init__(self, cfg: ModelConfig, mesh, seq_len: int, spec_tree):
+        self.cfg, self.mesh = cfg, mesh
+        self.specs = shd.param_shardings(spec_tree, mesh)
+        m = shd.model_size(mesh)
+        self.tp = mesh.axis("model") if m > 1 else None
+        self.sp = bool(cfg.seq_parallel and self.tp is not None
+                       and cfg.family in ("dense", "moe")
+                       and seq_len % m == 0)
+
+    def _keeps_model(self, path, spec) -> bool:
+        """Whether a block computes on this leaf's ``model`` shard: the
+        GQA projections when each rank's shard holds whole query heads
+        and whole KV heads or there is one KV head, which stays whole (the
+        rules split the flattened head dim wherever ``model`` divides
+        it); the MLP's columns; experts sharded by expert."""
+        cfg, m = self.cfg, shd.model_size(self.mesh)
+        if path[0] == "attn":
+            kv_split = cfg.n_kv_heads % m == 0
+            tp = (not cfg.mla and cfg.n_heads % m == 0
+                  and (kv_split or cfg.n_kv_heads == 1))
+            return tp and (kv_split or path[1] not in ("wk", "wv"))
+        if path[0] == "mlp":
+            return True
+        return path[:2] == ("moe", "experts") and spec[0] == "model"
+
+    def gather(self, p, specs, tp: bool, path=()):
+        """``p`` (this rank's blocks) all-gathered over every axis its
+        ``specs`` shard it on, ``model`` excepted where ``tp`` and a block
+        computes on the shard."""
+        if isinstance(p, dict):
+            return {k: self.gather(p[k], specs[k], tp, path + (k,))
+                    for k in p}
+        keep = ("model",) if tp and self._keeps_model(path, specs) else ()
+        return shd.gather_for_use(p, specs, self.mesh, keep)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The residual stream after the embedding: this rank's sequence
+        block under sequence parallelism."""
+        return col.block_of(x, self.tp, 1) if self.sp else x
+
+    def leave(self, x: torch.Tensor) -> torch.Tensor:
+        """The residual stream before the head, whole again."""
+        return col.all_gather(x, self.tp, 1, tiled=True) if self.sp else x
+
+
+def _layer_specs(stacked_specs):
+    """The spec tree of one layer of a stacked tree (the leading
+    ``layers`` entry dropped)."""
+    return tree_map(lambda s: shd.P(*tuple(s)[1:]), stacked_specs)
+
+
 def _scan_layers(cfg: ModelConfig, block, stacked: Dict, x: torch.Tensor,
-                 windows: Optional[np.ndarray] = None, mesh=None,
-                 tp_axis=None) -> torch.Tensor:
+                 windows: Optional[np.ndarray] = None, tp_axis=None,
+                 place: Optional[Placement] = None,
+                 key: str = "layers") -> torch.Tensor:
     """The reference's ``lax.scan`` over the stacked layer axis, as a
-    Python loop, each layer under :func:`_remat`."""
-    _no_dist("_scan_layers", mesh)
+    Python loop, each layer under :func:`_remat`.  With ``place`` (the
+    GSPMD forward), ``stacked`` is ``params[key]``'s blocks and each
+    layer gathers its parameters inside its remat unit."""
     n = tree_leaves(stacked)[0].shape[0]
+    kw = {}
+    if tp_axis is not None:
+        kw["tp_axis"] = tp_axis
+    tp = block is not ssm_block
+    if place is not None:
+        specs = _layer_specs(place.specs[key])
+        if tp:
+            kw.update(mesh=place.mesh, tp_axis=place.tp, sp=place.sp)
     for i, layer_p in enumerate(_unstack(stacked, n)):
-        kw = {} if windows is None else {"window": int(windows[i])}
-        if tp_axis is not None:
-            kw["tp_axis"] = tp_axis
-        x = _remat(cfg, functools.partial(block, cfg, layer_p, **kw), x)
+        wkw = dict(kw) if windows is None else dict(kw, window=int(windows[i]))
+        if place is None:
+            body = functools.partial(block, cfg, layer_p, **wkw)
+        else:
+            def body(h, lp=layer_p, wkw=wkw):
+                return block(cfg, place.gather(lp, specs, tp), h, **wkw)
+        x = _remat(cfg, body, x)
     return x
 
 
@@ -318,47 +427,71 @@ def stage_forward(cfg: ModelConfig, stacked: Dict, x: torch.Tensor,
                         tp_axis=tp_axis)
 
 
-def _hybrid_forward(params: Dict, x: torch.Tensor,
-                    cfg: ModelConfig) -> torch.Tensor:
+def _hybrid_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                    place: Optional[Placement] = None) -> torch.Tensor:
     """Zamba2: groups of ``shared_attn_every`` Mamba-2 layers, each group
     followed by the one shared attention + MLP block.  Each group (its
     SSM layers and the shared block) is one :func:`_remat` unit, as the
     reference checkpoints ``group_fn``; the shared block's gradient is
-    the sum over its applications."""
+    the sum over its applications.  With ``place`` the shared block is
+    gathered once and computes on its ``model`` shards, and each Mamba-2
+    layer is gathered whole inside its group."""
     k = cfg.shared_attn_every
     assert cfg.n_layers % k == 0, (cfg.n_layers, k)
     layers = _unstack(params["layers"], cfg.n_layers)
-    shared = params["shared_block"]
+    shared, kw = params["shared_block"], {}
+    if place is not None:
+        specs = _layer_specs(place.specs["layers"])
+        shared = place.gather(shared, place.specs["shared_block"], True)
+        kw = {"tp_axis": place.tp}
 
     def group_fn(group: List[Dict], h: torch.Tensor) -> torch.Tensor:
         for layer_p in group:
+            if place is not None:
+                layer_p = place.gather(layer_p, specs, False)
             h = ssm_block(cfg, layer_p, h)
-        return dense_block(cfg, shared, h)
+        return dense_block(cfg, shared, h, **kw)
 
     for g in range(0, cfg.n_layers, k):
         x = _remat(cfg, functools.partial(group_fn, layers[g: g + k]), x)
     return x
 
 
+_TOP_KEYS = ("embed", "final_norm", "lm_head")
+
+
 def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
             mesh=None) -> torch.Tensor:
     """tokens (B, S) -> f32 logits (B, S, vocab), dense, moe, ssm and
-    hybrid families."""
+    hybrid families.  With ``mesh`` (run by every rank; see the module
+    docstring) ``params`` holds this rank's blocks and ``tokens`` its
+    batch block, and the logits are that block's, on every rank of the
+    ``model`` axis."""
     decoder_only(cfg, "forward")
-    _no_dist("forward", mesh)
-    x = embed_forward(params, tokens, cfg)
+    place = None
+    top = params
+    if mesh is not None:
+        place = Placement(cfg, mesh, tokens.shape[1], model_spec(cfg))
+        top = {k: place.gather(params[k], place.specs[k], False)
+               for k in _TOP_KEYS if k in params}
+    x = embed_forward(top, tokens, cfg)
+    if place is not None:
+        x = place.enter(x)
     if cfg.family == "dense":
         x = _scan_layers(cfg, dense_block, params["layers"], x,
-                         windows=window_schedule(cfg))
+                         windows=window_schedule(cfg), place=place)
     elif cfg.family == "moe":
         head = cfg.first_dense_layers
         if head:
             x = _scan_layers(cfg, dense_block, params["dense_layers"], x,
-                             windows=window_schedule(cfg)[:head])
+                             windows=window_schedule(cfg)[:head],
+                             place=place, key="dense_layers")
         x = _scan_layers(cfg, moe_block, params["layers"], x,
-                         windows=window_schedule(cfg)[head:])
+                         windows=window_schedule(cfg)[head:], place=place)
     elif cfg.family == "ssm":
-        x = _scan_layers(cfg, ssm_block, params["layers"], x)
+        x = _scan_layers(cfg, ssm_block, params["layers"], x, place=place)
     else:
-        x = _hybrid_forward(params, x, cfg)
-    return head_forward(params, x, cfg)
+        x = _hybrid_forward(params, x, cfg, place)
+    if place is not None:
+        x = place.leave(x)
+    return head_forward(top, x, cfg)

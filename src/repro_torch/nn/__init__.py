@@ -20,6 +20,7 @@ from repro_torch.nn.mla import (MLAConfig, apply_mla, apply_mla_decode,
                                 apply_mla_paged_decode, init_mla_cache,
                                 init_paged_mla_cache, mla_spec)
 from repro_torch.nn.moe import (MoEConfig, apply_moe, apply_moe_dense,
+                                apply_moe_ep, apply_moe_ep_replicated,
                                 moe_spec, router_probs)
 from repro_torch.nn.rope import apply_rope
 from repro_torch.nn.ssm import (SSMConfig, apply_ssm, apply_ssm_decode,
@@ -28,6 +29,7 @@ from repro_torch.nn.ssm import (SSMConfig, apply_ssm, apply_ssm_decode,
 __all__ = ["MLAConfig", "MoEConfig", "NO_WINDOW", "ParamSpec", "SSMConfig",
            "apply_dense", "apply_embedding", "apply_gelu_mlp",
            "apply_layernorm", "apply_lm_head", "apply_mla",
+           "apply_moe_ep", "apply_moe_ep_replicated",
            "apply_mla_decode", "apply_mla_paged_decode", "apply_moe",
            "apply_moe_dense", "apply_rmsnorm", "apply_rope", "apply_ssm",
            "apply_ssm_decode", "apply_swiglu", "chunked_attention",

@@ -19,10 +19,10 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.dist.collectives import psum
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_LOGIT, NO_WINDOW, wide
 from repro_torch.nn.core import apply_dense, dense
+from repro_torch.nn.layers import tp_reduce
 
 
 def gqa_spec(d_model: int, n_heads: int, n_kv: int, head_dim: int,
@@ -47,15 +47,17 @@ def qkv_project(p: Dict, x: torch.Tensor, n_heads: int, n_kv: int,
     return q, k, v
 
 
-def out_project(p: Dict, o: torch.Tensor, tp_axis=None) -> torch.Tensor:
+def out_project(p: Dict, o: torch.Tensor, tp_axis=None,
+                sp: bool = False) -> torch.Tensor:
     """``tp_axis`` (explicit tensor parallelism, a bound
     :class:`repro_torch.dist.collectives.Axis`): ``o`` holds this rank's
     head shard, ``wo`` the matching row shard, and the partial output
-    projection is assembled by a ``psum``."""
+    projection is assembled by a ``psum`` (``sp``: a ``psum_scatter``
+    over the sequence, :func:`repro_torch.nn.layers.tp_reduce`)."""
     B, S, H, D = o.shape
     y = apply_dense(p["wo"], o.reshape(B, S, H * D))
     if tp_axis is not None:
-        y = psum(y, tp_axis)
+        y = tp_reduce(y, tp_axis, sp)
     return y
 
 

@@ -13,7 +13,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.collectives import psum
+from repro_torch.dist.collectives import psum, psum_scatter
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import matmul, wide
 from repro_torch.nn.core import ParamSpec, apply_dense, dense
@@ -61,7 +61,16 @@ def swiglu_spec(d_model: int, d_ff: int) -> Dict:
     }
 
 
-def apply_swiglu(p: Dict, x: torch.Tensor, tp_axis=None) -> torch.Tensor:
+def tp_reduce(y: torch.Tensor, tp_axis, sp: bool = False) -> torch.Tensor:
+    """Assemble a row-parallel product's partial sums ``y`` (B, S, d)
+    over ``tp_axis``: a ``psum``, or under sequence parallelism
+    (``sp``) a ``psum_scatter`` that leaves this rank its sequence block
+    (Megatron-SP)."""
+    return psum_scatter(y, tp_axis, 1) if sp else psum(y, tp_axis)
+
+
+def apply_swiglu(p: Dict, x: torch.Tensor, tp_axis=None,
+                 sp: bool = False) -> torch.Tensor:
     """silu(x·Wg) ⊙ (x·Wu) in one ``ops.fused_ff``, then the down
     projection.
 
@@ -70,14 +79,15 @@ def apply_swiglu(p: Dict, x: torch.Tensor, tp_axis=None) -> torch.Tensor:
     column shard (the fused front half runs on it as it is), down holds
     the matching row shard, and the down product's partial sum is
     assembled by a ``psum``, whose backward is a ``psum`` of the
-    cotangent — the reference's Megatron column→row pattern."""
+    cotangent — the reference's Megatron column→row pattern
+    (:func:`tp_reduce`; ``sp``: reduce-scattered over the sequence)."""
     d = x.shape[-1]
     h = ops.fused_ff(x.reshape(-1, d).contiguous(),
                      p["gate"]["w"].to(x.dtype), p["up"]["w"].to(x.dtype))
     if tp_axis is None:
         return apply_dense(p["down"], h).reshape(*x.shape[:-1], -1)
     y = matmul(h, p["down"]["w"].to(h.dtype))
-    return psum(y, tp_axis).reshape(*x.shape[:-1], -1)
+    return tp_reduce(y.reshape(*x.shape[:-1], -1), tp_axis, sp)
 
 
 def gelu_mlp_spec(d_model: int, d_ff: int, bias: bool = True) -> Dict:
@@ -87,14 +97,15 @@ def gelu_mlp_spec(d_model: int, d_ff: int, bias: bool = True) -> Dict:
     }
 
 
-def apply_gelu_mlp(p: Dict, x: torch.Tensor, tp_axis=None) -> torch.Tensor:
+def apply_gelu_mlp(p: Dict, x: torch.Tensor, tp_axis=None,
+                   sp: bool = False) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(apply_dense(p["up"], x), approximate="tanh")
     if tp_axis is None:
         return apply_dense(p["down"], h)
     # the down bias is replicated over the TP axis: add it once, after the
     # partial-sum psum (folding it into apply_dense would count it TP times)
-    y = psum(matmul(h, p["down"]["w"].to(h.dtype)), tp_axis)
+    y = tp_reduce(matmul(h, p["down"]["w"].to(h.dtype)), tp_axis, sp)
     if "w_b" in p["down"]:
         y = y + p["down"]["w_b"].to(y.dtype)
     return y

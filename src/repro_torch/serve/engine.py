@@ -42,7 +42,7 @@ the engine matches it token for token per request.
 
 The engine runs on the card unless ``device`` says otherwise.  The
 reference's ``mesh`` parameter (placement by ``kv_pool_shardings``)
-belongs to the GSPMD path, ROADMAP A14b.
+is serving with a mesh, ROADMAP A14b-serve.
 """
 
 from __future__ import annotations

@@ -8,15 +8,15 @@ reference's fault-tolerance contract:
   * straggler watermarks: per-step wall time + a hook that fires when a
     step exceeds ``straggler_factor``x the running median.
 
-Runs on the card unless ``device="cpu"`` is given.  A mesh with a
-``pipe`` axis >= 2 (:func:`repro_torch.launch.mesh.make_host_mesh`, on
-every rank) selects the pipeline step
-(:func:`repro_torch.train.step.make_sharded_train_step`): each rank
-draws the parameters from the seed on its device and keeps its own
-blocks, and checkpoints hold the global layout (rank 0 writes the
-gathered state; a restore takes each rank's blocks), so they resume in
-a mesh-less run and the other way round.  A mesh without a pipe axis is
-the GSPMD step, ROADMAP A14b.
+Runs on the card unless ``device="cpu"`` is given.  A mesh
+(:func:`repro_torch.launch.mesh.make_host_mesh`, on every rank) selects
+the pipeline step (:func:`repro_torch.train.step.make_sharded_train_step`)
+when it has a ``pipe`` axis >= 2, else the GSPMD step
+(``make_train_step(mesh=...)``).  Each rank draws the parameters from
+the seed on its device and keeps its own blocks, and checkpoints hold
+the global layout (rank 0 writes the gathered state; a restore takes
+each rank's blocks, ``checkpoint.restore(shardings=)``), so they resume
+on any mesh, or none, whichever wrote them.
 """
 
 from __future__ import annotations
@@ -80,12 +80,9 @@ class Trainer:
                  straggler_hook: Optional[Callable[[int, float], None]] = None,
                  device=None):
         # a mesh with a pipe axis >= 2 selects the pipeline step: gpipe or
-        # 1f1b microbatches over `pipe`, compressed psum over `pod`
+        # 1f1b microbatches over `pipe`, compressed psum over `pod`; any
+        # other mesh the GSPMD step
         self.use_pipeline = mesh is not None and shd.pipe_size(mesh) > 1
-        if mesh is not None and not self.use_pipeline:
-            raise NotImplementedError(
-                "Trainer: a mesh without a pipe axis >= 2 is the GSPMD "
-                "step, not ported yet; see ROADMAP A14b (the GSPMD path)")
         self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
         self.device = (mesh.device if mesh is not None and device is None
                        else resolve_device(device))
@@ -104,7 +101,7 @@ class Trainer:
         gen = torch.Generator(self.device).manual_seed(tcfg.seed)
         params = model.init_model(cfg, gen)
         self.specs = None
-        if self.use_pipeline:
+        if mesh is not None:
             # every rank draws the same parameters from the seed on its
             # device and keeps its own blocks
             self.specs = sharded_state_specs(cfg, mesh, wants_ef(cfg, mesh))
@@ -144,20 +141,22 @@ class Trainer:
                 cfg, self.opt, mesh, num_microbatches=n_micro)
         else:
             self.train_step = make_train_step(
-                cfg, self.opt, num_microbatches=tcfg.num_microbatches)
+                cfg, self.opt, mesh=mesh,
+                num_microbatches=tcfg.num_microbatches)
 
     def _restore(self, state):
         """The reference's three restore cases: a checkpoint that matches;
         one with no error-feedback residuals where the run wants them
         (restore the rest, restart ef at zero); one that does not match."""
         like, specs = state, self.specs
-        if self.use_pipeline:
+        if self.mesh is not None:
             # the global shapes alone: restore reads shapes and structure
             like = tree_map(lambda x, s: torch.empty(
                 shd.global_shape(x.shape, s, self.mesh), dtype=x.dtype,
                 device="meta"), state, specs)
         try:
-            restored, start = checkpoint.restore(self.tcfg.ckpt_dir, like)
+            restored, start = checkpoint.restore(
+                self.tcfg.ckpt_dir, like, shardings=self._shardings(specs))
         except (ValueError, TypeError) as e:
             if state.ef is None:
                 # template has no ef leaves but restore still failed —
@@ -171,28 +170,31 @@ class Trainer:
             # checkpoint predates the compressed-reduction config (no ef
             # leaves): restore everything else and restart the
             # error-feedback residuals from zero
-            restored, start = checkpoint.restore(self.tcfg.ckpt_dir,
-                                                 like._replace(ef=None))
             if specs is not None:
                 specs = specs._replace(ef=None)
+            restored, start = checkpoint.restore(
+                self.tcfg.ckpt_dir, like._replace(ef=None),
+                shardings=self._shardings(specs))
             if self.is_main:
                 print("[train] checkpoint carries no error-feedback "
                       "residuals; reinitialized ef to zero")
             ef = state.ef
         else:
             ef = None
-        if self.use_pipeline:
-            restored = shd.shard_tree(restored, specs, self.mesh)
         restored = tree_map(lambda x: x.to(self.device), restored)
         if ef is not None:
             restored = restored._replace(ef=ef)
         return restored, start
 
+    def _shardings(self, specs):
+        return (None if specs is None
+                else shd.named_shardings(specs, self.mesh))
+
     def _save(self, step: int, blocking: bool = False) -> None:
-        """Checkpoint the state in its global layout: a pipeline run
+        """Checkpoint the state in its global layout: a run on a mesh
         gathers it from the ranks (a collective) and rank 0 writes it."""
         tree = (shd.gather_tree(self.state, self.specs, self.mesh)
-                if self.use_pipeline else self.state)
+                if self.mesh is not None else self.state)
         if self.is_main:
             if blocking:
                 checkpoint.save(self.tcfg.ckpt_dir, step, tree)
@@ -210,7 +212,7 @@ class Trainer:
             # that a restart on any rank finds the same LATEST.
             if t.ckpt_dir:
                 self._ckpt.wait()
-                if self.use_pipeline:
+                if self.mesh is not None:
                     dist.barrier()
 
     def _run(self) -> List[Dict]:

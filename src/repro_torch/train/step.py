@@ -2,10 +2,25 @@
 optimizer update.
 
 ``make_train_step`` returns ``(state, batch) -> (state, metrics)``, the
-reference's mesh-less step.  Gradients come from autograd over the port's
+reference's step.  Gradients come from autograd over the port's
 forward, where the kernels' ``autograd.Function``s stand in for XLA's
 autodiff of the reference's jnp code.  The encoder-decoder's loss runs
 :func:`repro_torch.models.encdec.forward` over the batch's ``frames``.
+
+With a mesh, ``make_train_step(mesh=...)`` is the reference's GSPMD
+step, run by every rank of a :class:`repro_torch.launch.mesh.Mesh` with
+the partition written out: each rank holds the parameters' and AdamW
+moments' blocks by ``param_shardings`` (:func:`sharded_state_specs`),
+takes its block of each microbatch by ``batch_spec``, and runs the
+forward with ``mesh`` (:func:`repro_torch.models.lm.forward`: FSDP
+gathers, tensor and expert parallelism over ``model``).  Every
+collective's backward is its exact transpose, so autograd of the ranks'
+program is the gradient of the global loss once each rank weighs its
+loss so that the ranks' losses sum to it: the owner of a batch block is
+its ``model`` rank 0, and a batch replicated for want of divisibility
+is owned by its first data-parallel rank alone.  A gradient is then
+summed over the axes its parameter is replicated on, the grad-norm
+counts each block once, and clipping uses that global norm.
 
 ``make_sharded_train_step`` is the reference's explicit-collective step
 (its ``jax.shard_map`` body), run by every rank of a
@@ -14,8 +29,7 @@ blocks stream through a pipeline schedule over ``pipe``, tensor
 parallelism over ``model`` psums the partial projections in-stage, and
 the gradients are reduced over ``pipe``/``model`` by the plan the
 parameter specs give, averaged over ``data``, and over ``pod`` either
-compressed (bf16 + error feedback, ``TrainState.ef``) or in f32.  The
-GSPMD step, ``make_train_step(mesh=...)``, is ROADMAP A14b.
+compressed (bf16 + error feedback, ``TrainState.ef``) or in f32.
 """
 
 from __future__ import annotations
@@ -102,12 +116,19 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, mesh=None,
     """Returns train_step(state, batch) -> (state, metrics) with metrics
     ``loss``, ``grad_norm`` (before clipping) and ``step`` as 0-d tensors.
     The optimizer updates the moments of ``state`` in place (see
-    :mod:`repro_torch.optim.adamw`): pass each state once."""
+    :mod:`repro_torch.optim.adamw`): pass each state once.
+
+    With ``mesh`` (a mesh with no ``pipe`` axis > 1; every rank calls
+    the step) it is the GSPMD step: ``state`` holds this rank's blocks
+    (``shard_tree`` of the global state by :func:`sharded_state_specs`)
+    and ``batch`` the global batch, whose microbatches (contiguous
+    slices, as the reference's scan takes them) each rank cuts to its
+    block.  The metrics are global, the same on every rank."""
     if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step: a mesh (the GSPMD step) is not ported yet; "
-            "see ROADMAP A14b (the GSPMD path).  A mesh with pipe >= 2 runs "
-            "make_sharded_train_step")
+        if shd.pipe_size(mesh) > 1:
+            raise ValueError("make_train_step: a mesh with a pipe axis > 1 "
+                             "runs make_sharded_train_step")
+        return _gspmd_train_step(cfg, opt, mesh, num_microbatches)
 
     def train_step(state: TrainState, batch: Dict):
         loss, grads = compute_grads(state.params, batch, cfg,
@@ -117,6 +138,95 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, mesh=None,
             params = apply_updates(state.params, updates)
         metrics = {"loss": loss, "grad_norm": global_norm(grads),
                    "step": state.step + 1}
+        return TrainState(params, opt_state, state.step + 1), metrics
+
+    return train_step
+
+
+def _model_spec(cfg: ModelConfig):
+    return (encdec if cfg.family == "encdec" else lm).model_spec(cfg)
+
+
+def _global_norm(grads, norm_axes, mesh) -> torch.Tensor:
+    """The global norm of gradient blocks: each leaf's squared sum psums
+    over the axes it is sharded on, so a block replicated elsewhere
+    counts once."""
+    groups: Dict[tuple, list] = {}
+    for g, axes in zip(grads, norm_axes):
+        groups.setdefault(axes, []).append(sum_squares(g))
+    total = None
+    for axes, parts in groups.items():
+        part = torch.sum(torch.stack(parts))
+        if axes:
+            part = col.psum(part, [mesh.axis(a) for a in axes])
+        total = part if total is None else total + part
+    return torch.sqrt(total)
+
+
+def _clip(grads, gnorm, opt: Optimizer):
+    """Clip against the global norm here: every per-rank norm
+    ``opt.update`` sees is then <= ``max_grad_norm``, so its own clip is
+    a no-op and clipping happens exactly once."""
+    if opt.max_grad_norm is None:
+        return grads
+    scale = torch.clamp(opt.max_grad_norm / (gnorm + 1e-12), max=1.0)
+    return [g.float() * scale for g in grads]
+
+
+def _gspmd_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
+                      num_microbatches: int):
+    specs = tree_leaves(shd.param_shardings(_model_spec(cfg), mesh))
+    sum_axes = [[mesh.axis(a) for a in shd.replicated_axes(s, mesh)]
+                for s in specs]
+    norm_axes = [shd.sharded_axes(s, mesh) for s in specs]
+    every = [mesh.axis(a) for a in mesh.axis_names if mesh.shape[a] > 1]
+    dp = [a for a in ("pod", "data") if a in mesh.shape]
+
+    def train_step(state: TrainState, batch: Dict):
+        n = num_microbatches
+        size = batch["tokens"].shape[0]
+        if size % n:
+            raise ValueError(f"global batch {size} not divisible by "
+                             f"{n} microbatches")
+        mb = size // n
+        split = shd.batch_spec(mesh, mb)[0] is not None
+        owns = mesh.coords.get("model", 0) == 0 and (
+            split or all(mesh.coords[a] == 0 for a in dp))
+        weight = (1.0 / shd.dp_size(mesh) if split else 1.0) if owns else 0.0
+        leaves = [p.detach().requires_grad_()
+                  for p in tree_leaves(state.params)]
+        live = tree_unflatten(state.params, leaves)
+        acc, loss_sum = None, None
+        for i in range(n):
+            micro = {k: shd.shard_leaf(v[i * mb:(i + 1) * mb],
+                                       shd.batch_spec(mesh, mb, v.ndim),
+                                       mesh) for k, v in batch.items()}
+            with torch.enable_grad():
+                part = loss_fn(live, micro, cfg, mesh=mesh)[0] * weight
+            grads = torch.autograd.grad(part, leaves)
+            if acc is None:
+                acc = [wide(g) for g in grads]
+                loss_sum = part.detach()
+            else:
+                for a, g in zip(acc, grads):
+                    a.add_(g)
+                loss_sum = loss_sum + part.detach()
+        del live, leaves
+        with torch.no_grad():
+            grads = [col.psum(g, axes) if axes else g
+                     for g, axes in zip(acc, sum_axes)]
+            loss = col.psum(loss_sum, every) if every else loss_sum
+            if n > 1:
+                scale = 1.0 / n
+                loss = loss * scale
+                grads = [g * scale for g in grads]
+            gnorm = _global_norm(grads, norm_axes, mesh)
+            grads = tree_unflatten(state.params, _clip(grads, gnorm, opt))
+        updates, opt_state = opt.update(grads, state.opt_state,
+                                        state.params)
+        with torch.no_grad():
+            params = apply_updates(state.params, updates)
+        metrics = {"loss": loss, "grad_norm": gnorm, "step": state.step + 1}
         return TrainState(params, opt_state, state.step + 1), metrics
 
     return train_step
@@ -155,11 +265,20 @@ def init_ef_state(params, mesh, spec_tree=None):
                                           device=p.device), params)
 
 
-def sharded_state_specs(cfg: ModelConfig, mesh, ef: bool) -> TrainState:
-    """The :class:`repro_torch.dist.sharding.P` tree of a pipeline step's
-    :class:`TrainState` (AdamW's state), ``ef`` with residuals or None:
-    what ``shard_tree`` / ``gather_tree`` take to move a state between its
-    global layout and the ranks' blocks."""
+def sharded_state_specs(cfg: ModelConfig, mesh,
+                        ef: bool = False) -> TrainState:
+    """The :class:`repro_torch.dist.sharding.P` tree of a distributed
+    step's :class:`TrainState` (AdamW's state): the pipeline step's on a
+    mesh with a ``pipe`` axis > 1 (``ef`` with residuals or None), else
+    the GSPMD step's, by ``param_shardings``.  It is what ``shard_tree`` /
+    ``gather_tree`` take to move a state between its global layout and
+    the ranks' blocks."""
+    if shd.pipe_size(mesh) < 2:
+        p_specs = shd.param_shardings(_model_spec(cfg), mesh)
+        return TrainState(params=p_specs,
+                          opt_state=AdamState(step=shd.P(), mu=p_specs,
+                                              nu=p_specs),
+                          step=shd.P())
     p_specs = shd.sharded_param_specs(lm.model_spec(cfg), shd.STAGE_KEYS,
                                       mesh)
     ef_specs = (shd.sharded_ef_specs(lm.model_spec(cfg), shd.STAGE_KEYS,
@@ -361,22 +480,9 @@ def make_sharded_train_step(cfg: ModelConfig, opt: Optimizer, mesh, *,
                     grads = tree_map(lambda g: col.pmean(g, ax["pod"]),
                                      grads)
             # true global grad norm from the per-leaf reduction plan
-            groups: Dict[tuple, list] = {}
-            for g, axes in zip(tree_leaves(grads), flat_norm_axes):
-                groups.setdefault(axes, []).append(sum_squares(g))
-            total = torch.zeros((), device=loss.device)
-            for axes, parts in groups.items():
-                part = torch.sum(torch.stack(parts))
-                total = total + (col.psum(part, [ax[a] for a in axes])
-                                 if axes else part)
-            gnorm = torch.sqrt(total)
-            if opt.max_grad_norm is not None:
-                # clip against the GLOBAL norm here; every per-rank norm
-                # opt.update sees is then <= max_grad_norm, so its own
-                # clip is a no-op — clipping happens exactly once
-                scale = torch.clamp(opt.max_grad_norm / (gnorm + 1e-12),
-                                    max=1.0)
-                grads = tree_map(lambda g: g.float() * scale, grads)
+            gnorm = _global_norm(tree_leaves(grads), flat_norm_axes, mesh)
+            grads = tree_unflatten(grads, _clip(tree_leaves(grads), gnorm,
+                                                opt))
         updates, opt_state = opt.update(grads, state.opt_state,
                                         state.params)
         with torch.no_grad():

@@ -4,7 +4,9 @@ and ``launch.train`` under ``torchrun``, on the CPU.
 A pipeline run writes the global layout (rank 0 saves the gathered
 state), so its checkpoints resume under another mesh, in a mesh-less
 run, and in the reference's ``checkpoint.restore``; a mesh-less
-checkpoint resumes in a pipeline run.  The ranks run
+checkpoint resumes in a pipeline run.  ``launch.train`` with
+``--model``/``--pods`` and no ``--pipe`` trains with the GSPMD step.  The
+ranks run
 ``tests/torch_dist_ranks.py::checkpoint_layouts`` in one world of 4
 (``repro_torch.launch.mesh.run_ranks``, a ``file://`` rendezvous under
 ``tmp_path``, a deadline of ``RANK_DEADLINE_S``)."""
@@ -141,6 +143,29 @@ _REF_LAUNCH = ["-m", "repro.launch.train", "--pipe", "2", "--model", "2",
                "--steps", "1", "--seq-len", "16", "--global-batch", "4"]
 
 
+def _torchrun(flags, env):
+    """rank 0's output of ``torchrun --standalone --nproc-per-node 4 -m
+    repro_torch.launch.train --device cpu`` with ``flags``, 2 steps of
+    seq 16 x 4 (it must exit 0)."""
+    # torchrun in a session of its own: at the deadline the whole group,
+    # its ranks included, is killed
+    port = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
+         "--device", "cpu", *flags, "--steps", "2", "--seq-len", "16",
+         "--global-batch", "4"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        start_new_session=True)
+    try:
+        out, err = port.communicate(timeout=RANK_DEADLINE_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(port.pid, signal.SIGKILL)
+        port.communicate()
+        raise
+    assert port.returncode == 0, out[-3000:] + err[-3000:]
+    return out
+
+
 def test_launcher_under_torchrun(tmp_path):
     """``torchrun --nproc-per-node 4 -m repro_torch.launch.train --device
     cpu --pipe 2 --model 2`` (reduced stablelm-3b, 2 steps) prints the
@@ -155,22 +180,7 @@ def test_launcher_under_torchrun(tmp_path):
                                              "device_count=4"))
     assert ref.returncode == 0, ref.stderr[-3000:]
     want = re.search(r"^\[train\] mesh: .*$", ref.stdout, re.M).group(0)
-    # torchrun in a session of its own: at the deadline the whole group,
-    # its ranks included, is killed
-    port = subprocess.Popen(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
-         "--device", "cpu", "--pipe", "2", "--model", "2", "--steps", "2",
-         "--seq-len", "16", "--global-batch", "4"],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-        start_new_session=True)
-    try:
-        out, err = port.communicate(timeout=RANK_DEADLINE_S)
-    except subprocess.TimeoutExpired:
-        os.killpg(port.pid, signal.SIGKILL)
-        port.communicate()
-        raise
-    assert port.returncode == 0, out[-3000:] + err[-3000:]
+    out = _torchrun(["--pipe", "2", "--model", "2"], env)
     lines = out.splitlines()
     assert want in lines, (want, out)
     assert any("backend gloo" in ln for ln in lines)
@@ -178,8 +188,38 @@ def test_launcher_under_torchrun(tmp_path):
     assert sum(ln.startswith("[train] final loss") for ln in lines) == 1
 
 
-def test_launcher_refuses_the_gspmd_mesh():
-    from repro_torch.launch import train as launch_train
-    for flags in (["--model", "2"], ["--pods", "2"]):
-        with pytest.raises(NotImplementedError, match="A14b"):
-            launch_train.main(["--device", "cpu", *flags])
+GSPMD_FLAGS = {"data2_model2": ["--model", "2"],
+               "pod2_data2": ["--pods", "2"]}
+
+
+def test_launcher_refuses_the_gspmd_mesh(tmp_path, subproc):
+    """``--model 2`` and ``--pods 2`` without ``--pipe`` (no longer
+    refused) train with the GSPMD step under ``torchrun`` (4 ranks, the
+    CPU): rank 0 prints the mesh the reference's ``host_mesh_shape``
+    gives, the note that ``--pods`` without a pipe axis reduces in f32,
+    and 2 step lines whose losses (printed to 4 decimals) lie within
+    1e-5 relative (step 0) and 1e-4 (step 1, after an update) of the
+    reference's ``make_train_step(mesh=...)`` on that mesh shape from the
+    launcher's initial parameters, optimizer and data
+    (``gspmd_reference.trainer_reference``)."""
+    import gspmd_reference as gref
+    from repro.launch.mesh import host_mesh_shape
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    meshes = {"data2_model2": dict(model=2), "pod2_data2": dict(pods=2)}
+    ref = gref.trainer_reference(
+        subproc, tmp_path, dict(steps=2, seq_len=16, global_batch=4),
+        ["stablelm-3b"], meshes)
+    for label, flags in GSPMD_FLAGS.items():
+        out = _torchrun(flags, env)
+        shape, names = host_mesh_shape(4, **meshes[label])
+        want = f"[train] mesh: {dict(zip(names, shape))}"
+        lines = out.splitlines()
+        assert any(ln.startswith(want) for ln in lines), (want, out)
+        assert ("fp32 psum" in out) == (label == "pod2_data2"), out
+        losses = [float(re.search(r"loss=(\S+)", ln).group(1))
+                  for ln in lines if ln.startswith("[train] step=")]
+        r = ref[f"stablelm-3b_{label}"]
+        assert len(losses) == 2, out
+        assert gref.close(losses[0], r["loss0"], 1e-5), (losses, r["loss0"])
+        assert gref.close(losses[1], r["loss1"], 1e-4), (losses, r["loss1"])

@@ -24,7 +24,11 @@ SUBPACKAGES = ["repro_torch", "repro_torch.configs", "repro_torch.kernels",
                "repro_torch.kernels.softmax", "repro_torch.kernels.ssd",
                "repro_torch.nn.ssm", "repro_torch.costmodel",
                "repro_torch.launch.evaluate", "repro_torch.dist",
-               "repro_torch.dist.collectives", "repro_torch.launch.mesh"]
+               "repro_torch.dist.collectives", "repro_torch.launch.mesh",
+               "repro_torch.dist.sharding", "repro_torch.nn.moe",
+               "repro_torch.models.lm", "repro_torch.models.encdec",
+               "repro_torch.train.step", "repro_torch.train.loop",
+               "repro_torch.ckpt.checkpoint"]
 
 
 def test_import_loads_no_jax_and_no_repro():

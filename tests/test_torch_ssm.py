@@ -366,20 +366,28 @@ def test_train_step_matches_jax():
     assert all(torch.isfinite(p).all() for p in tree_leaves(state.params))
 
 
-def test_families_without_a_forward_raise():
+def test_families_without_a_forward_raise(tmp_path):
     """``lm``'s model refuses the encoder-decoder, naming the module that
-    builds it (``models.encdec``), as the reference's ``lm`` refuses it;
-    the moe family's forward is ported (D2), but its expert-parallel
-    dispatch, a mesh, raises naming A14b (the GSPMD path)."""
+    builds it (``models.encdec``), as the reference's ``lm`` refuses it.
+    The moe family's forward with a mesh (no longer refused) takes the
+    expert-parallel dispatch: on (model=2), 2 gloo ranks each with its
+    blocks of the parameters (``tests/torch_gspmd_ranks.py``), at a
+    capacity factor without drops (8.0, the reference EP test's), the
+    logits lie within 1e-4 plus 1e-6 of their scale of the mesh-less
+    forward's (the same function, its sums in other orders)."""
+    import torch_gspmd_ranks as ranks
+    from repro_torch.launch.mesh import run_ranks
     whisper = get_config("whisper-large-v3", reduced=True)
     with pytest.raises(ValueError, match="models.encdec"):
         lm.model_spec(whisper)
-    cfg = get_config("olmoe-1b-7b", reduced=True)
+    cfg = get_config("olmoe-1b-7b", reduced=True).replace(
+        capacity_factor=8.0)
     params = lm.init_model(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="A14b"):
-        lm.forward(params, torch.zeros((1, 4), dtype=torch.long), cfg,
-                   mesh=object())
-    with pytest.raises(NotImplementedError, match="A14b"):
-        nn.apply_moe(lm._unstack(params["layers"], cfg.n_layers)[0]["moe"],
-                     torch.zeros((1, 4, cfg.d_model)), lm.moe_config(cfg),
-                     mesh=object())
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (2, 16))
+    run_ranks(ranks.moe_forward, 2, str(tmp_path),
+              {k: v.numpy() for k, v in ranks.flat(params)}, tokens,
+              init_method=f"file://{tmp_path}/pg", timeout_s=180)
+    got = torch.load(tmp_path / "moe_forward.pt", weights_only=False)
+    want = lm.forward(params, torch.from_numpy(tokens), cfg).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-4 + 1e-6 * float(np.abs(want).max()))

@@ -370,12 +370,11 @@ def test_launcher(capsys):
                        "--global-batch", "2"])
     out = capsys.readouterr().out
     assert out.count("[train] step=") == 3 and "[train] final loss" in out
-    # a mesh runs one process per rank: outside torchrun it says so; a
-    # mesh without --pipe >= 2 is the GSPMD step, not ported
-    with pytest.raises(RuntimeError, match="torchrun"):
-        launch_train.main(["--device", "cpu", "--pipe", "2"])
-    with pytest.raises(NotImplementedError, match="A14b"):
-        launch_train.main(["--device", "cpu", "--model", "2"])
+    # a mesh runs one process per rank: outside torchrun it says so, for
+    # the pipeline step and the GSPMD step (a mesh without --pipe >= 2)
+    for flags in (["--pipe", "2"], ["--model", "2"], ["--pods", "2"]):
+        with pytest.raises(RuntimeError, match="torchrun"):
+            launch_train.main(["--device", "cpu", *flags])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             launch_train.main(["--steps", "1"])

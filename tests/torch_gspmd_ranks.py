@@ -1,0 +1,273 @@
+"""Rank bodies of the port's GSPMD tests (``tests/test_torch_gspmd*.py``).
+
+Each function runs in one process of a world of 4 that
+``repro_torch.launch.mesh.run_ranks`` spawns on the CPU (gloo), and
+writes what it measured under ``out_dir`` for the test to check.  This
+module imports torch and the port only, so that the spawned ranks load
+no jax."""
+
+import os
+
+import numpy as np
+import torch
+
+
+def _save(out_dir, name, obj):
+    path = os.path.join(out_dir, name)
+    torch.save(obj, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def flat(tree, prefix=""):
+    """(path, leaf) pairs of a nested dict, in sorted-key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from flat(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def unflat(pairs):
+    """The nested dict of ``flat``'s (path, leaf) pairs."""
+    out = {}
+    for path, leaf in pairs.items():
+        node = out
+        keys = path.strip("/").split("/")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+    return out
+
+
+def rank_inputs(index, shape):
+    """Rank ``index``'s input and loss weight (the test draws the same)."""
+    gen = np.random.default_rng(index)
+    return (gen.standard_normal(shape).astype(np.float32),
+            gen.standard_normal(shape).astype(np.float32))
+
+
+# each case of :func:`_collective`: (mesh axis, input shape)
+COLLECTIVE_CASES = {
+    "gather_tiled": ("model", (3, 2, 5)),
+    "gather_stacked": ("data", (3, 2, 5)),
+    "psum_scatter": ("model", (3, 4, 5)),
+    "all_to_all": ("model", (2, 3, 5)),
+}
+
+
+def _collective(name, x, axis):
+    from repro_torch.dist import collectives as col
+    if name == "gather_tiled":
+        return col.all_gather(x, axis, 1, tiled=True)
+    if name == "gather_stacked":
+        return col.all_gather(x, axis, 0)
+    if name == "psum_scatter":
+        return col.psum_scatter(x, axis, 1)
+    return col.all_to_all(x, axis, 0, 0)
+
+
+def collectives(rank, out_dir):
+    """The GSPMD collectives on a (data=2, model=2) mesh: rank (d, m)
+    draws its input and loss weight from ``2 * d + m`` and saves each
+    case's output and its input's gradient."""
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(model=2, device="cpu")
+    index = 2 * mesh.coords["data"] + mesh.coords["model"]
+    out = {"index": index}
+    for name, (axis, shape) in COLLECTIVE_CASES.items():
+        x, c = rank_inputs(index, shape)
+        x = torch.from_numpy(x).requires_grad_()
+        y = _collective(name, x, mesh.axis(axis))
+        c = torch.from_numpy(rank_inputs(index + 10, tuple(y.shape))[0])
+        (g,) = torch.autograd.grad((c * y).sum(), x)
+        out[name] = (y.detach().numpy(), g.numpy())
+    _save(out_dir, f"collectives_{rank}.pt", out)
+
+
+def moe_ep(rank, out_dir, p_np, x_np, c_np, moe_kw):
+    """``apply_moe_ep`` and ``apply_moe_ep_replicated`` on a (data=2,
+    model=2) mesh from the global parameters ``p_np`` and tokens ``x_np``
+    (the reference test's layer): each rank takes its batch block and its
+    experts, and saves its outputs, the slots of its sequence block, and
+    the gradients of <c, out> (owned by model rank 0) for its tokens and
+    experts."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.nn import moe
+    mesh = make_host_mesh(model=2, device="cpu")
+    cfg = moe.MoEConfig(**moe_kw)
+    # the reference's shard_map in_specs: experts by expert over model,
+    # the router whole
+    p = unflat({k: shd.shard_leaf(torch.from_numpy(v), shd.P(
+        "model" if k.startswith("/experts") else None), mesh).contiguous()
+        for k, v in p_np.items()})
+    bspec = shd.batch_spec(mesh, x_np.shape[0], 3)
+    x = shd.shard_leaf(torch.from_numpy(x_np), bspec, mesh).contiguous()
+    # every model rank holds the whole output of its batch block: the
+    # loss is owned by model rank 0, as the GSPMD step owns it
+    c = shd.shard_leaf(torch.from_numpy(c_np), bspec, mesh) * float(
+        mesh.coords["model"] == 0)
+    out = {"coords": dict(mesh.coords)}
+    for name, fn in (("ep", moe.apply_moe_ep),
+                     ("replicated", moe.apply_moe_ep_replicated)):
+        leaves = {k: v.detach().clone().requires_grad_()
+                  for k, v in flat(p)}
+        xx = x.clone().requires_grad_()
+        y = fn(unflat(leaves), xx, cfg, mesh)
+        grads = torch.autograd.grad((c * y).sum(), [xx, *leaves.values()])
+        out[name] = {"out": y.detach().numpy(), "dx": grads[0].numpy(),
+                     "dp": {k: g.numpy() for k, g in
+                            zip(leaves, grads[1:])}}
+    seq = x.shape[1] // 2
+    block = x[:, mesh.coords["model"] * seq:(mesh.coords["model"] + 1) * seq]
+    out["slots"] = moe.dispatch(p, block, cfg)[1].numpy()
+    _save(out_dir, f"moe_ep_{rank}.pt", out)
+
+
+def moe_forward(rank, out_dir, params_np, tokens):
+    """The forward of reduced olmoe-1b-7b at capacity factor 8.0 (no
+    drops) on a (model=2) mesh of this world of 2, each rank with its
+    blocks of the global parameters: rank 0 saves the logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    cfg = get_config("olmoe-1b-7b", reduced=True).replace(
+        capacity_factor=8.0)
+    mesh = make_host_mesh(model=2, device="cpu")
+    params = shd.shard_tree(
+        unflat({k: torch.from_numpy(v) for k, v in params_np.items()}),
+        shd.param_shardings(lm.model_spec(cfg), mesh), mesh)
+    logits = lm.forward(params, torch.from_numpy(tokens), cfg, mesh=mesh)
+    if rank == 0:
+        _save(out_dir, "moe_forward.pt", logits.detach().numpy())
+
+
+# ---------------------------------------------------------------------------
+# the GSPMD train step and the Trainer
+# ---------------------------------------------------------------------------
+
+def optimizer(kind):
+    from repro_torch import optim
+    if kind == "grads":
+        # b1 = 0 and no clipping: after one step the first moment is the
+        # gradient, exactly
+        return optim.adamw(optim.constant_schedule(1e-3), b1=0.0,
+                           weight_decay=0.1)
+    return optim.adamw(optim.constant_schedule(1e-3), weight_decay=0.1,
+                       max_grad_norm=1.0)
+
+
+def gspmd_steps(rank, out_dir, name, cases):
+    """Run ``make_train_step(mesh=...)`` for each of ``cases`` (dicts:
+    ``arch``, ``cfg_kw``, ``mesh_kw`` of ``make_host_mesh``, ``params``
+    (flat numpy, the reference's layout), ``batches``, ``micro``,
+    ``dtype``, ``opt``) from a fresh state.  Rank 0 saves each case's
+    metrics, the gathered first moments and parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.train.step import (TrainState, make_train_step,
+                                        sharded_state_specs)
+    results = {}
+    for label, case in cases.items():
+        cfg = get_config(case["arch"], reduced=True).replace(
+            **case.get("cfg_kw", {}))
+        if case.get("dtype"):
+            cfg = cfg.replace(dtype=case["dtype"])
+        mesh = make_host_mesh(device="cpu", **case["mesh_kw"])
+        opt = optimizer(case.get("opt", "grads"))
+        specs = sharded_state_specs(cfg, mesh)
+        global_p = params_from_jax(unflat(case["params"]), cfg)
+        params = shd.shard_tree(global_p, specs.params, mesh)
+        state = TrainState(params, opt.init(params),
+                           torch.zeros((), dtype=torch.int32))
+        step = make_train_step(cfg, opt, mesh=mesh,
+                               num_microbatches=case.get("micro", 1))
+        metrics = []
+        for b in case["batches"]:
+            state, m = step(state, {k: torch.from_numpy(v)
+                                    for k, v in b.items()})
+            metrics.append({k: float(v) for k, v in m.items()})
+        g = shd.gather_tree(state, specs, mesh)
+        results[label] = {
+            "mesh": dict(mesh.shape), "metrics": metrics,
+            "mu": {k: v.numpy() for k, v in flat(g.opt_state.mu)},
+            "params": {k: v.numpy() for k, v in flat(g.params)}}
+    if rank == 0:
+        _save(out_dir, f"{name}.pt", results)
+
+
+def _trainer(cfg, mesh_kw, ckpt_dir, **tcfg_kw):
+    """A ``Trainer`` of ``cfg`` on the CPU, on a mesh of ``mesh_kw`` or
+    none; returns (the trainer, its log, its global state)."""
+    import contextlib
+    import io
+
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import TrainConfig, Trainer
+    mesh = None if mesh_kw is None else make_host_mesh(device="cpu",
+                                                       **mesh_kw)
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer = Trainer(cfg, TrainConfig(ckpt_dir=ckpt_dir, **tcfg_kw),
+                          mesh=mesh, device="cpu")
+        log = trainer.run()
+    state = (trainer.state if mesh is None else
+             shd.gather_tree(trainer.state, trainer.specs, mesh))
+    return trainer, log, state
+
+
+def trainer_runs(rank, out_dir, run_dir, tcfg_kw):
+    """The GSPMD ``Trainer`` of reduced stablelm-3b and olmoe-1b-7b on
+    (data=2, model=2) and (pod=2, data=2); then checkpoints across
+    layouts: ``run_dir/meshless`` (a mesh-less run's, written before)
+    restored on (data=2, model=2) by ``restore(shardings=)``, a GSPMD
+    ``Trainer`` resuming it, and a GSPMD run writing ``run_dir/gspmd``.
+    Rank 0 saves the losses, the gathered restore and the GSPMD run's
+    final state."""
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.step import sharded_state_specs
+    out = {}
+    for arch in ("stablelm-3b", "olmoe-1b-7b"):
+        cfg = get_config(arch, reduced=True)
+        for label, mesh_kw in (("data2_model2", dict(model=2)),
+                               ("pod2_data2", dict(pods=2))):
+            _, log, _ = _trainer(cfg, mesh_kw, None, **tcfg_kw)
+            out[(arch, label)] = [r["loss"] for r in log]
+    cfg = get_config("stablelm-3b", reduced=True)
+    meshless = os.path.join(run_dir, "meshless")
+    mesh = make_host_mesh(model=2, device="cpu")
+    specs = sharded_state_specs(cfg, mesh)
+    restored, step = checkpoint.restore(
+        meshless, _like(cfg), shardings=shd.named_shardings(specs, mesh))
+    out["restored"] = (step, {k: v.numpy() for k, v in flat(
+        shd.gather_tree(restored, specs, mesh).params)})
+    steps = tcfg_kw["steps"]
+    trainer, log, _ = _trainer(cfg, dict(model=2), meshless,
+                               **dict(tcfg_kw, steps=steps + 1))
+    out["resumed"] = (trainer.start_step, [r["step"] for r in log])
+    _, _, state = _trainer(cfg, dict(model=2),
+                           os.path.join(run_dir, "gspmd"), **tcfg_kw)
+    out["gspmd_state"] = {k: v.numpy() for k, v in flat(state.params)}
+    if rank == 0:
+        _save(out_dir, "trainer_runs.pt", out)
+
+
+def _like(cfg):
+    """A global ``TrainState`` template of ``cfg`` under AdamW on the
+    meta device (shapes and structure for ``checkpoint.restore``)."""
+    from repro_torch.models import for_config
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import TrainState
+    from repro_torch.utils.tree import tree_map
+    params = for_config(cfg).init_model(cfg, torch.Generator()
+                                        .manual_seed(0))
+    state = TrainState(params, adamw(1e-3).init(params),
+                       torch.zeros((), dtype=torch.int32))
+    return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                          device="meta"), state)
