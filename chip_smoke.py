@@ -23,7 +23,8 @@ Phases, each printed on lines of its own:
    2560 x 10240), deepseek-v2-lite-16b's dense layer and shared
    experts (8 and 8192 rows . 2048 x 10944 and 2048 x 2816) and the
    pipeline step's tensor-parallel shard (2048 and 8192 rows . 2560 x
-   3456); K6
+   3456), and serving with a mesh's decode shards (8 rows . 2560 x 1728
+   and 2560 x 3456: phase 5d on (model 4) and (data 2, model 2)); K6
    ``flash_attention`` in f32 and bf16 at the training paths' shapes
    (stablelm-3b's and zamba2-2.7b's, olmoe-1b-7b's head dim 128, and
    deepseek-v2-lite-16b's MLA: q and k 192, v 128; the pipeline step's
@@ -85,17 +86,17 @@ Phases, each printed on lines of its own:
    further from the host's f64 evaluation than the host plus 1e-5 of
    the scale); and its train step as above;
 4. serving main paths — qwen1.5-4b, mamba2-1.3b, zamba2-2.7b,
-   olmoe-1b-7b and deepseek-v2-lite-16b at full width and about half
-   depth (``SERVE_LAYERS``: 20, 24, 24, 8 and 14 layers), bf16, seeded
+   olmoe-1b-7b and deepseek-v2-lite-16b at full width and about a
+   quarter of their depth (``SERVE_LAYERS``: 10, 12, 12, 4 and 7 layers), bf16, seeded
    random weights, each 16 loadgen requests from 2 tenants through the
    paged ``ServeEngine`` (8 lanes); every request completes with in-vocab
    tokens, and the kernels' launch counts equal engine passes x
-   ``serve_sites``: rmsnorm 2L + 1 and fused_ff L (qwen1.5-4b: 41, 20),
-   rmsnorm 2L + 1 (mamba2-1.3b: 49), rmsnorm 2L + 2G + 1 and fused_ff G
-   over G shared-block applications (zamba2-2.7b: 57, 4), rmsnorm 4L +
-   1 with the q/k norms (olmoe-1b-7b: 33), rmsnorm 3L + 1 with the latent
+   ``serve_sites``: rmsnorm 2L + 1 and fused_ff L (qwen1.5-4b: 21, 10),
+   rmsnorm 2L + 1 (mamba2-1.3b: 25), rmsnorm 2L + 2G + 1 and fused_ff G
+   over G shared-block applications (zamba2-2.7b: 29, 2), rmsnorm 4L +
+   1 with the q/k norms (olmoe-1b-7b: 17), rmsnorm 3L + 1 with the latent
    norm and fused_ff at the dense layer and each moe layer's shared
-   experts (deepseek-v2-lite-16b: 43, 14); then zamba2-2.7b with its pool
+   experts (deepseek-v2-lite-16b: 22, 7); then zamba2-2.7b with its pool
    cut to 48 blocks, the trace's first 8 requests at once: at least one
    spill of pages and recurrent slot rows and one resume by upload, every
    request complete; then deepseek-v2-lite-16b's fork run: a donor
@@ -157,13 +158,34 @@ Phases, each printed on lines of its own:
    ``apply_moe_ep_replicated`` at a sequence 4 does not divide against
    the dense layer; 2 steps against mesh-less steps whose MoE layers
    compute the plain version (5b's bounds); (c) 3 bf16 ``Trainer`` steps
-   of stablelm-3b at 8 layers on (data=2, model=2) and of olmoe-1b-7b at
-   4 layers on (model=4): seconds a step, each rank's peak memory, and
-   each rank's K1/K2/K6 launches held to ``gspmd_sites`` (33 / 16 / 16
-   and 33 / 0 / 8 a step), on the tilings ``select_tiling`` names, with
+   of stablelm-3b at 4 layers on (data=2, model=2) and of olmoe-1b-7b at
+   2 layers on (model=4): seconds a step, each rank's peak memory, and
+   each rank's K1/K2/K6 launches held to ``gspmd_sites`` (17 / 8 / 8
+   and 17 / 0 / 4 a step), on the tilings ``select_tiling`` names, with
    the operand shapes the calls took held to the shard shapes
    (``gspmd_shapes``: K2 4096 x 2560 . 2560 x 3456, K6 (2, 16, 2048, 80)
    and (4, 4, 2048, 128));
+5d. serving with a mesh (``generate(mesh=)``, ``ServeEngine(mesh=)``) on
+   4 ranks spawned on the one card as in 5b, each holding its blocks of
+   the parameters and caches: (a) f32 parity at full width cut to 2
+   layers (zamba2-2.7b: 6) on the draw at each layer's own fan-in, on
+   (data=2, model=2) and (model=4): ``generate(mesh=)`` of qwen1.5-4b,
+   gemma3-1b (on (model 4) also cut to 1 layer over 516 new tokens, past
+   its 512-position window), olmoe-1b-7b, deepseek-v2-lite-16b and
+   mamba2-1.3b over 8 rows, and a paged ``ServeEngine(mesh=)`` run of
+   qwen1.5-4b and of zamba2-2.7b over 4 requests into a pool of 4 blocks
+   (a spill and a resume): each pass's logits within 1e-5 of the logit
+   scale of the mesh-less run on the card (deepseek by
+   ``_hold_to_host``'s f64 route where needed), the streams and counters
+   equal to the mesh-less ones and on every rank; (b) bf16, qwen1.5-4b
+   at full width and 2 layers (``SERVE_MESH_TIMING_LAYERS``: deeper did
+   not fit the time limit) on (model=4) through the paged engine, phase 4's 16 requests
+   submitted at once: ms a pass of the slowest rank, tokens/s, each
+   rank's peak memory and KV-pool bytes beside phase 4's mesh-less
+   figures; each rank's pool a quarter of the mesh-less pool, the
+   streams equal on every rank, K1/K2 launches = passes x
+   ``serve_sites`` (9 / 4 a pass), K2 on ``gemv_m8`` and every K1/K2
+   call at the shard shapes (8 x 2560; 8 x 2560 . 2560 x 1728);
 6. optimizer main paths — (a) ``python -m repro_torch.launch.optimize
    matmul_leakyrelu bmm --strategy greedy`` into a fresh schedule cache
    must print the reference's cycles (8294 -> 8289, 8275 -> 8271), then
@@ -221,8 +243,9 @@ Phases, each printed on lines of its own:
 7. the ``{"kernels": [...]}`` line (K1-K7, with their launches by path
    — serve, serve_ssm, serve_hybrid, serve_hybrid_spill, serve_moe,
    serve_mla, serve_mla_fork, serve_encdec, train, train_ssm,
-   train_hybrid, train_moe, train_mla, train_encdec, train_pipe and
-   train_gspmd (each summed over the ranks) and the optimizer paths —
+   train_hybrid, train_moe, train_mla, train_encdec, train_pipe,
+   train_gspmd and serve_mesh (each summed over the ranks) and the
+   optimizer paths —
    and by path and tiling),
    then the last line: ``{"ok": true, "device": {...}}``.
 
@@ -235,6 +258,7 @@ JAX package.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import math
 import os
@@ -643,8 +667,9 @@ def fused_ff_checks(gen, records):
     """K2 at the serving path's 8 x 2560 . 2560 x 6912, the decode
     threshold's neighbours (M 1, 3, 9, 16, 32), ragged shapes (M not a
     multiple of 128, N not a multiple of 8; K and N ragged at decode),
-    the training path's 8192 rows, zamba2-2.7b's shared MLP (8 and 8192
-    rows . 2560 x 10240), and deepseek-v2-lite-16b's dense layer (8 and
+    the training path's 8192 rows, serving with a mesh's column shards
+    (8 x 2560 . 2560 x 1728 and x 3456), zamba2-2.7b's shared MLP (8 and
+    8192 rows . 2560 x 10240), and deepseek-v2-lite-16b's dense layer (8 and
     8192 rows . 2048 x 10944, N not a multiple of 128) and shared experts
     (. 2048 x 2816), in bf16 and f32, each launching the
     instance ``select_tiling`` names; in bf16 at the path shapes timed
@@ -678,7 +703,11 @@ def fused_ff_checks(gen, records):
         (ROWS, D_MODEL, D_FF // 2, "train_pipe"),
         # the GSPMD step's column shard on (data 2, model 2): the batch
         # block of 2 sequences
-        (ROWS // 2, D_MODEL, D_FF // 2, "train_gspmd")]
+        (ROWS // 2, D_MODEL, D_FF // 2, "train_gspmd"),
+        # serving with a mesh: the decode pass's column shard on (model 4)
+        # (phase 5d's timed run) and on (data 2, model 2)
+        (LANES, D_MODEL, D_FF // 4, "serve_mesh"),
+        (LANES, D_MODEL, D_FF // 2, "serve_mesh")]
     for dname, dt in (("bfloat16", torch.bfloat16),
                       ("float32", torch.float32)):
         for m, k, n, path in cases:
@@ -690,7 +719,8 @@ def fused_ff_checks(gen, records):
             ws = [tuple((torch.randn(k, n, device="cuda", generator=gen)
                          * k ** -0.5).to(dt) for _ in range(2))
                   for _ in range(4 if path in ("serve", "serve_hybrid",
-                                               "serve_mla", "threshold")
+                                               "serve_mla", "threshold",
+                                               "serve_mesh")
                                  else 1)]
             shape = f"{m}x{k}x{n} {dname}"
             plain = ops.fused_ff(x, *ws[0], impl="ref")
@@ -737,6 +767,10 @@ def fused_ff_checks(gen, records):
                 alts = alternatives(ff_mod, cases_cfg, check, iters)
             else:
                 alts = {}
+            # phase 5d's timed shard: one launch a layer, a pass and a rank
+            per_pass = ({"launches_per_pass": SERVE_MESH_TIMING_LAYERS}
+                        if path == "serve_mesh"
+                        and n == D_FF // SERVE_MESH_TIMING["model"] else {})
             el = x.element_size()
             comp = timed(rotate(lambda a, b: F.silu(x @ a) * (x @ b)), iters)
             records.append(record(
@@ -750,7 +784,7 @@ def fused_ff_checks(gen, records):
                 # no single PyTorch call computes silu(x@Wg)*(x@Wu)
                 None, library_composite_ms=comp[0],
                 library_composite_device_ms=comp[1], tiling=tiling,
-                alternatives=alts))
+                alternatives=alts, **per_pass))
             del x, ws, plain
     torch.cuda.empty_cache()
 
@@ -1705,12 +1739,13 @@ def serve_sites(cfg):
             "fused_ff": shared}
 
 
-# Phase 4 serves at full width and these depths, about half the
+# Phase 4 serves at full width and these depths, about a quarter of the
 # published ones (zamba2-2.7b's in whole groups of 6), to keep the script
-# inside its time limit since phase 5c came: a pass's host time scales
-# with the layers.
-SERVE_LAYERS = {"qwen1.5-4b": 20, SSM_ARCH: 24, HYBRID_ARCH: 24,
-                MOE_ARCH: 8, MLA_ARCH: 14}
+# inside its time limit: a pass's host time scales with the layers (half
+# the published depths until the whole script took 1239.1 s on one
+# H100's host with phase 5d).
+SERVE_LAYERS = {"qwen1.5-4b": 10, SSM_ARCH: 12, HYBRID_ARCH: 12,
+                MOE_ARCH: 4, MLA_ARCH: 7}
 
 
 def _serve_engine(arch, **kw):
@@ -1789,6 +1824,7 @@ def serve_phase(arch, profile_dir):
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     print(f"  serving main path ({arch}) " + json.dumps(stats), flush=True)
+    _SERVE_STATS[arch] = stats
     if profile_dir:
         profile_passes(engine, cfg, profile_dir)
     del engine
@@ -2574,7 +2610,8 @@ GSPMD_PARITY = {"data2_model2": (dict(model=2), {}),
 GSPMD_MOE_LAYERS, GSPMD_MOE_MESH = 2, dict(model=4)
 GSPMD_RAGGED_SEQ = SEQ - 2
 # (c) timing, bf16, TRAIN_STEPS Trainer steps: {arch: (layers, mesh)}
-GSPMD_TIMING = {PIPE_ARCH: (8, dict(model=2)), MOE_ARCH: (4, dict(model=4))}
+# (8 and 4 layers until the whole script took 1239.1 s with phase 5d)
+GSPMD_TIMING = {PIPE_ARCH: (4, dict(model=2)), MOE_ARCH: (2, dict(model=4))}
 # the ranks are killed, and the script fails, after this many seconds
 GSPMD_DEADLINE_S = 900
 
@@ -2969,29 +3006,509 @@ def gspmd_phase():
 
 
 # ---------------------------------------------------------------------------
+# phase 5d: serving with a mesh — ranks on the one card
+# ---------------------------------------------------------------------------
+
+SERVE_MESH_WORLD = 4
+# (a) parity, f32, full width at 2 layers (zamba2-2.7b: its one group of
+# 6) on the draw at each layer's own fan-in, on each mesh: generate(mesh=)
+# of each of SERVE_MESH_GENERATE over LANES rows of (prompt, new) tokens
+# (on (data 2, model 2) 2 passes: each gathers every layer over ``data``,
+# 3.2-3.7 s a pass for the moe models, measured on one H100), and
+# gemma3-1b cut to 1 layer (local) on (model 4) over
+# SERVE_MESH_WINDOW_NEW new ones, past its 512-position window (its ring
+# buffer 128 positions a rank; at 2 layers 101 ms a pass); a
+# paged engine of each of SERVE_MESH_ENGINE over SERVE_MESH_TRAFFIC's 4
+# requests, submitted at once into a pool of 4 blocks of 4 positions (11
+# passes, a spill and a resume: the same run on the host at reduced
+# widths, the pool's accounting not depending on the widths)
+SERVE_MESH_MESHES = {"data2_model2": (dict(model=2), 1, 2),
+                     "model4": (dict(model=4), 4, 8)}
+SERVE_MESH_GENERATE = ("qwen1.5-4b", "gemma3-1b", MOE_ARCH, MLA_ARCH,
+                       SSM_ARCH)
+SERVE_MESH_WINDOW_NEW = 516
+SERVE_MESH_ENGINE = ("qwen1.5-4b", HYBRID_ARCH)
+SERVE_MESH_TRAFFIC = dict(qps=4.0, n_requests=4, n_tenants=2,
+                          prompt_len=(2, 3), output_len=(3, 6), seed=0)
+SERVE_MESH_POOL = dict(max_seq=8, block_size=4, kv_blocks=4)
+# (b) timing, bf16: qwen1.5-4b at SERVE_MESH_TIMING_LAYERS on this mesh,
+# phase 4's 16 requests submitted at once.  At phase 4's 20 layers a pass
+# took 373.3 ms (42 host-staged collectives of 8-12 ms each, measured on
+# one H100) and the phase 357 s, at 8 layers 113.8 ms and the whole
+# script 1149.1 s, at 4 68.9-91.4 ms and the script 1109.2-1239.1 s, so
+# the timed depth is cut to 2
+SERVE_MESH_TIMING = dict(model=4)
+SERVE_MESH_TIMING_LAYERS = 2
+# the ranks are killed, and the script fails, after this many seconds
+SERVE_MESH_DEADLINE_S = 600
+# phase 4's serving figures by arch, printed beside 5d's
+_SERVE_STATS = {}
+
+
+def _mesh_parity_cfg(arch, n_layers=2):
+    from repro_torch.configs import get_config
+    return get_config(arch).replace(
+        n_layers=6 if arch == HYBRID_ARCH else n_layers, dtype="float32")
+
+
+class _on_pass:
+    """Within it, every call of ``mod.name`` (a decode step the serving
+    code looks up there) also calls ``fn(args, kwargs, result)``."""
+
+    def __init__(self, mod, name, fn):
+        self.mod, self.name, self.fn = mod, name, fn
+
+    def __enter__(self):
+        self.orig = orig = getattr(self.mod, self.name)
+
+        def call(*a, **k):
+            result = orig(*a, **k)
+            self.fn(a, k, result)
+            return result
+        setattr(self.mod, self.name, call)
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+
+
+def _held(card, host, exact):
+    """(held quantity over the scale, f64 route) of ``_hold_to_host``
+    for one pass: the card's logits against the host's (here the
+    mesh-less run on the card) within 1e-5 of the scale, or where the
+    host's own f32 error exceeds that, against ``exact``."""
+    scale = host.abs().max().item()
+    d = (card - host).abs().max().item()
+    if exact is None:
+        return d / scale, False
+    h_err = (host.double() - exact).abs().max().item()
+    c_err = (card.double() - exact).abs().max().item()
+    route = h_err > 1e-5 * scale
+    return (c_err - h_err if route else d) / scale, route
+
+
+def _mesh_generate(arch, mesh, rank, n_prompt, new, n_layers=2):
+    """``generate(mesh=)`` of ``arch`` (``_mesh_parity_cfg``) on ``mesh``;
+    rank 0 steps the mesh-less decode on the card in lockstep, on the
+    same tokens, and holds each pass's logits (gathered over the batch)
+    to its (deepseek-v2-lite-16b: with its f64 evaluation beside), and
+    each argmax after the prompt to its, so the mesh-less greedy stream
+    is the mesh's."""
+    import numpy as np
+    import torch
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.serve import generate
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve.decode import decode_step, init_caches
+
+    cfg = _mesh_parity_cfg(arch, n_layers)
+    params = _pipe_params(cfg, "cuda")
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (LANES, n_prompt)))
+    total = n_prompt + new
+    bspec = shd.P(shd.batch_spec(mesh, LANES)[0], None)
+    st = {"worst": 0.0, "f64": False, "agree": True, "passes": 0}
+    if rank == 0:
+        st["caches"] = init_caches(cfg, LANES, total, "cuda")
+        if arch == MLA_ARCH:
+            cfg64 = cfg.replace(dtype="float64")
+            p64 = _tree_to(params, "cuda", torch.float64)
+            st["c64"] = init_caches(cfg64, LANES, total, "cuda")
+
+    def check(args, kw, result):
+        logits = shd.gather_leaf(result[0], bspec, mesh)
+        tok = shd.gather_leaf(args[2], bspec, mesh)
+        pos = args[3]
+        st["passes"] += 1
+        if rank != 0:
+            return
+        host, st["caches"] = decode_step(params, st["caches"], tok, pos, cfg)
+        exact = None
+        if arch == MLA_ARCH:             # f64: the plain versions
+            with ops.forced("ref"):
+                exact, st["c64"] = decode_step(p64, st["c64"], tok, pos,
+                                               cfg64)
+        held, route = _held(logits, host, exact)
+        st["worst"] = max(st["worst"], held)
+        st["f64"] |= route
+        if pos + 1 >= n_prompt:
+            st["agree"] &= bool(torch.equal(logits.argmax(-1),
+                                            host.argmax(-1)))
+
+    t0 = time.perf_counter()
+    with torch.no_grad(), _on_pass(engine_mod, "decode_step", check):
+        tokens = generate(params, cfg, prompt, new, mesh=mesh)
+    out = {k: st[k] for k in ("worst", "f64", "agree", "passes")}
+    out.update(seconds=time.perf_counter() - t0,
+               tokens=tokens[:, n_prompt:].tolist())
+    del params, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_engine(arch, mesh, rank):
+    """A paged ``ServeEngine(mesh=)`` run of ``arch``
+    (``_mesh_parity_cfg``) over ``SERVE_MESH_TRAFFIC`` into
+    ``SERVE_MESH_POOL``; rank 0 first runs the mesh-less engine on the
+    card, keeping each pass's logits, and holds the mesh run's passes to
+    them, its streams and counters to the mesh-less run's."""
+    import torch
+    from repro_torch.serve import (ServeEngine, Tenant, TrafficConfig,
+                                   poisson_trace)
+    from repro_torch.serve import engine as engine_mod
+
+    cfg = _mesh_parity_cfg(arch)
+    params = _pipe_params(cfg, "cuda")
+    trace = poisson_trace(TrafficConfig(vocab=cfg.vocab,
+                                        **SERVE_MESH_TRAFFIC), ["t0", "t1"])
+    names = ("passes", "preempt_spills", "resume_uploads", "stalls")
+
+    def run(on_mesh, fn):
+        engine = ServeEngine(cfg, params=params, max_batch=LANES,
+                             paged=True, tenants=[Tenant("t0"),
+                                                  Tenant("t1")],
+                             mesh=mesh if on_mesh else None, device="cuda",
+                             **SERVE_MESH_POOL)
+        reqs = [engine.submit(a.prompt, a.max_new_tokens, tenant=a.tenant)
+                for a in trace]
+        with torch.no_grad(), _on_pass(engine_mod, "paged_decode_step", fn):
+            engine.run()
+        return ([list(map(int, r.output)) for r in reqs],
+                {k: engine.counters[k] for k in names},
+                engine.kv_bytes_allocated())
+
+    plain = []
+    if rank == 0:
+        ml_streams, ml_counters, _ = run(
+            False, lambda a, k, r: plain.append(r[0]))
+    st = {"worst": 0.0, "i": 0}
+
+    def check(args, kw, result):
+        if rank == 0 and st["i"] < len(plain):
+            st["worst"] = max(st["worst"],
+                              _held(result[0], plain[st["i"]], None)[0])
+        st["i"] += 1
+
+    t0 = time.perf_counter()
+    streams, counters, pool = run(True, check)
+    out = {"worst": st["worst"], "passes": st["i"], "streams": streams,
+           "counters": counters, "pool_bytes": pool,
+           "seconds": time.perf_counter() - t0}
+    if rank == 0:
+        out.update(meshless_streams=ml_streams, meshless_counters=ml_counters,
+                   meshless_passes=len(plain))
+    del params, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_timing():
+    """(b): the bf16 paged engine of qwen1.5-4b at
+    ``SERVE_MESH_TIMING_LAYERS`` on ``SERVE_MESH_TIMING``, phase 4's
+    requests submitted at once: its
+    wall time, passes, peak memory, pool bytes, streams, launches,
+    tilings and the operand shapes of every K1/K2/K6 call."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import (ServeEngine, Tenant, TrafficConfig,
+                                   poisson_trace)
+
+    cfg = get_config("qwen1.5-4b").replace(
+        n_layers=SERVE_MESH_TIMING_LAYERS)
+    mesh = make_host_mesh(device="cuda", **SERVE_MESH_TIMING)
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, max_batch=LANES, max_seq=256, block_size=16,
+                         paged=True, tenants=[Tenant("t0"), Tenant("t1")],
+                         rng_seed=0, mesh=mesh)
+    torch.cuda.empty_cache()
+    make_s = time.perf_counter() - t0
+    engine.generate([1, 2, 3], 2, tenant="t0")      # warm-up
+    engine.finished.clear()
+    seen = _watch_shapes()
+    trace = poisson_trace(TrafficConfig(vocab=cfg.vocab, **SERVE_TRAFFIC),
+                          ["t0", "t1"])
+    reqs = [engine.submit(a.prompt, a.max_new_tokens, tenant=a.tenant)
+            for a in trace]
+    passes0 = engine.counters["passes"]
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    for v in seen.values():
+        v.clear()
+    t0 = time.perf_counter()
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    passes = engine.counters["passes"] - passes0
+    tokens = sum(len(r.output) for r in reqs)
+    return {"mesh": repr(mesh), "make_s": make_s, "wall_s": wall,
+            "passes": passes, "ms_per_pass": wall * 1e3 / passes,
+            "tokens": tokens, "tokens_per_s": tokens / wall,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "pool_bytes": engine.kv_bytes_allocated(),
+            "peak_kv_bytes": engine.peak_kv_bytes(),
+            "streams": [list(map(int, r.output)) for r in reqs],
+            "launches": dict(launches), "tilings": launches.tilings,
+            "shapes": {k: sorted(v) for k, v in seen.items()}}
+
+
+def serve_mesh_rank(rank, out_dir):
+    """One rank of phase 5d: (a) parity in f32, then (b) the timed bf16
+    engine; writes rank<r>.json."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank, "generate": {}, "engine": {}}
+    t0 = time.perf_counter()
+    for label, (mesh_kw, n_prompt, n_new) in SERVE_MESH_MESHES.items():
+        mesh = make_host_mesh(device="cuda", **mesh_kw)
+        out["mesh_" + label] = repr(mesh)
+        runs = [(arch, n_new, 2) for arch in SERVE_MESH_GENERATE]
+        if label == "model4":
+            runs.append(("gemma3-1b", SERVE_MESH_WINDOW_NEW, 1))
+        for arch, new, layers in runs:
+            key = f"{label} {arch} {layers}L {n_prompt}+{new}"
+            out["generate"][key] = _mesh_generate(arch, mesh, rank,
+                                                  n_prompt, new, layers)
+            if rank == 0:
+                print(f"    rank 0: generate {key} in "
+                      f"{out['generate'][key]['seconds']:.1f} s", flush=True)
+        for arch in SERVE_MESH_ENGINE:
+            key = f"{label} {arch}"
+            out["engine"][key] = _mesh_engine(arch, mesh, rank)
+            if rank == 0:
+                print(f"    rank 0: engine {key} in "
+                      f"{out['engine'][key]['seconds']:.1f} s", flush=True)
+    out["parity_s"] = time.perf_counter() - t0
+    out["timing"] = _mesh_timing()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def serve_mesh_phase():
+    """Phase 5d: serving with a mesh (``generate(mesh=)``,
+    ``ServeEngine(mesh=)``) on ``SERVE_MESH_WORLD`` ranks spawned on the
+    one card (gloo, host-staged), each rank holding its blocks of the
+    parameters and of the caches.
+
+    (a) Parity, f32, full width cut to 2 layers (zamba2-2.7b: 6), on the
+    draw at each layer's own fan-in, on (data=2, model=2) and (model=4):
+    ``generate(mesh=)`` of qwen1.5-4b, gemma3-1b (on (model 4) also at 1
+    layer past its 512-position window), olmoe-1b-7b, deepseek-v2-lite-16b
+    and mamba2-1.3b over 8 rows, and a paged ``ServeEngine(mesh=)`` run
+    of qwen1.5-4b and zamba2-2.7b with a spill: each pass's logits within
+    1e-5 of the logit scale of the mesh-less run on the card
+    (deepseek-v2-lite-16b by ``_hold_to_host``'s f64 route where the
+    mesh-less run's own f32 error exceeds that), the streams equal to
+    the mesh-less ones and on every rank, the engine's counters equal.
+
+    (b) Timing, bf16: qwen1.5-4b at full width and
+    ``SERVE_MESH_TIMING_LAYERS`` on (model=4) through the paged engine,
+    phase 4's 16 requests
+    submitted at once: ms a pass of the slowest rank, tokens/s, each
+    rank's peak memory and KV-pool bytes beside phase 4's mesh-less
+    figures; held: each rank's pool a quarter of the mesh-less pool at the
+    same geometry, the streams equal on every rank, each rank's K1/K2
+    launches = passes x ``serve_sites``, K2 on ``gemv_m8``, and every
+    K1/K2 call at the shard shapes (the 8 lanes' residual stream; 8 x
+    2560 . 2560 x 1728).  No speed-up is claimed: the collectives are
+    host-staged.  Returns the timing run's launches summed over the
+    ranks."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused_ff as ff_mod
+    from repro_torch.kernels import rmsnorm as rn_mod
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.serve.decode import init_paged_caches
+    from repro_torch.serve.pool import KVBlockPool
+    from repro_torch.utils.tree import tree_leaves
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_serve_mesh_",
+                               dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        run_ranks(serve_mesh_rank, SERVE_MESH_WORLD, out_dir,
+                  init_method=f"file://{out_dir}/pg", device="cuda",
+                  timeout_s=SERVE_MESH_DEADLINE_S)
+        ranks_s = time.perf_counter() - t0
+        outs = []
+        for r in range(SERVE_MESH_WORLD):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                outs.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir)
+    print(f"  {SERVE_MESH_WORLD} ranks ran in {ranks_s:.1f} s (parity "
+          f"{max(o['parity_s'] for o in outs):.1f} s); "
+          f"{outs[0]['mesh_data2_model2']}; {outs[0]['mesh_model4']}",
+          flush=True)
+
+    # (a); every line is printed before the first failure is raised
+    problems = []
+    for key, g in outs[0]["generate"].items():
+        print(f"  generate {key}: {g['passes']} passes in "
+              f"{g['seconds']:.1f} s, worst held / scale {g['worst']:.3e}"
+              f"{' (f64 route)' if g['f64'] else ''} (bound 1e-5), "
+              f"argmax equal to the mesh-less run's: {g['agree']}",
+              flush=True)
+        if not (g["worst"] <= 1e-5 and g["agree"]):
+            problems.append(f"generate {key}: off the mesh-less run")
+        if any(o["generate"][key]["tokens"] != g["tokens"] for o in outs):
+            problems.append(f"generate {key}: ranks disagree on the tokens")
+    for key, e in outs[0]["engine"].items():
+        print(f"  engine {key}: {e['passes']} passes in {e['seconds']:.1f} "
+              f"s, worst |mesh - mesh-less| / scale {e['worst']:.3e} "
+              f"(bound 1e-5), counters {e['counters']} (mesh-less "
+              f"{e['meshless_counters']}), pool {e['pool_bytes']} B a rank",
+              flush=True)
+        if not (e["worst"] <= 1e-5 and e["streams"] == e["meshless_streams"]
+                and e["counters"] == e["meshless_counters"]
+                and e["passes"] == e["meshless_passes"]):
+            problems.append(f"engine {key}: off the mesh-less engine")
+        if any(o["engine"][key]["streams"] != e["streams"] for o in outs):
+            problems.append(f"engine {key}: ranks disagree on the streams")
+        if HYBRID_ARCH in key and not (e["counters"]["preempt_spills"] >= 1
+                                       and e["counters"]["resume_uploads"]
+                                       >= 1):
+            problems.append(f"engine {key}: no spill and resume")
+
+    # (b) timing, pool, launches, tilings and shapes
+    cfg = get_config("qwen1.5-4b").replace(
+        n_layers=SERVE_MESH_TIMING_LAYERS)
+    m = SERVE_MESH_TIMING["model"]
+    pool = KVBlockPool(LANES, 256, block_size=16)
+    meshless_pool = sum(
+        a.numel() * a.element_size() for a in tree_leaves(
+            init_paged_caches(cfg, pool.num_blocks, 16, LANES, "meta")))
+    per_pass = serve_sites(cfg)
+    tiling = {"rmsnorm": rn_mod.select_tiling(torch.bfloat16,
+                                              (LANES, cfg.d_model)),
+              "fused_ff": ff_mod.select_tiling(
+                  torch.bfloat16, (LANES, cfg.d_model, cfg.d_ff // m))}
+    if tiling["fused_ff"] != "gemv_m8":
+        problems.append(f"K2 at the shard selects {tiling['fused_ff']}, "
+                        f"not gemv_m8")
+    shapes = {"rmsnorm": {(LANES, cfg.d_model)},
+              "fused_ff": {(LANES, cfg.d_model, cfg.d_ff // m)},
+              "flash_attention": set()}
+    total = _Launches((name, 0) for name in KERNELS)
+    total.tilings = {}
+    first = outs[0]["timing"]
+    for o in outs:
+        t = o["timing"]
+        want = _expected_launches(**{k: t["passes"] * n
+                                     for k, n in per_pass.items()})
+        print(f"  rank {o['rank']} {t['mesh']}: {t['passes']} passes in "
+              f"{t['wall_s']:.2f} s ({t['ms_per_pass']:.1f} ms a pass), "
+              f"peak {t['max_memory_allocated_gb']:.2f} GB, pool "
+              f"{t['pool_bytes']} B (mesh-less {meshless_pool} B); "
+              f"launches {t['launches']} by tiling {t['tilings']}; "
+              f"operand shapes {t['shapes']}", flush=True)
+        if t["launches"] != want:
+            problems.append(f"rank {o['rank']}: launches {t['launches']}, "
+                            f"expected {want} ({per_pass} a pass)")
+        for name, inst in tiling.items():
+            if set(t["tilings"][name]) != {inst}:
+                problems.append(f"rank {o['rank']}: {name} ran "
+                                f"{t['tilings'][name]}, not {inst}")
+        for name, want_shapes in shapes.items():
+            got = {tuple(s) for s in t["shapes"][name]}
+            if got != want_shapes:
+                problems.append(f"rank {o['rank']}: {name} took "
+                                f"{sorted(got)}, not the shard shapes "
+                                f"{sorted(want_shapes)}")
+        if t["pool_bytes"] * m != meshless_pool:
+            problems.append(f"rank {o['rank']}: pool {t['pool_bytes']} B, "
+                            f"not 1/{m} of {meshless_pool} B")
+        if t["streams"] != first["streams"] or \
+                t["passes"] != first["passes"]:
+            problems.append(f"rank {o['rank']}: streams differ from rank "
+                            f"0's")
+        if not all(0 <= x < cfg.vocab for s in t["streams"] for x in s) \
+                or len(t["streams"]) != SERVE_TRAFFIC["n_requests"]:
+            problems.append(f"rank {o['rank']}: incomplete or out-of-vocab "
+                            f"streams")
+        for name, n in t["launches"].items():
+            total[name] += n
+        for name, by in t["tilings"].items():
+            for inst, n in by.items():
+                total.tilings.setdefault(name, {})
+                total.tilings[name][inst] = \
+                    total.tilings[name].get(inst, 0) + n
+    slowest = max(outs, key=lambda o: o["timing"]["wall_s"])["timing"]
+    stats = {"n_layers": cfg.n_layers, "mesh": SERVE_MESH_TIMING,
+             "ranks": SERVE_MESH_WORLD, "transport": first["mesh"],
+             "passes": slowest["passes"], "wall_s": slowest["wall_s"],
+             "ms_per_pass": slowest["ms_per_pass"],
+             "tokens_per_s": slowest["tokens"] / slowest["wall_s"],
+             "peak_gb_by_rank": [o["timing"]["max_memory_allocated_gb"]
+                                 for o in outs],
+             "pool_bytes_by_rank": [o["timing"]["pool_bytes"] for o in outs],
+             "meshless_pool_bytes": meshless_pool,
+             "launches_per_rank_pass": per_pass, "tilings": tiling,
+             "meshless_phase4": _SERVE_STATS.get("qwen1.5-4b")}
+    print("  serving with a mesh " + json.dumps(stats), flush=True)
+    if problems:
+        fail("; ".join(problems))
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the optimizer main path — launch.optimize, deploy, the registry
 # ---------------------------------------------------------------------------
 
-def _run_cli(module, *args, timeout=600):
-    """``python -m MODULE ARGS``, as a user runs it: (the process, its
-    output lines, its wall time (s)), the output printed."""
+def _start_cli(module, *args):
+    """Start ``python -m MODULE ARGS``, as a user runs it, its output to
+    files (a pipe nobody reads could fill and stall it); the process is
+    killed if the script ends first.  For :func:`_finish_cli`."""
     env = dict(os.environ, PYTHONPATH=SRC)
     cmd = [sys.executable, "-m", module, *args]
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                          timeout=timeout)
-    wall = time.perf_counter() - t0
-    print(f"  $ python {' '.join(cmd[1:])}  ({wall:.1f} s, exit "
+    proc = subprocess.Popen(cmd, stdout=out, stderr=err, text=True, env=env)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"proc": proc, "cmd": cmd, "t0": t0, "out": out, "err": err}
+
+
+def _finish_cli(started, timeout=600):
+    """Wait for a :func:`_start_cli` process: (the process, with its
+    ``stdout`` and ``stderr`` read, its output lines, its wall time (s)
+    from its start), the output printed."""
+    proc = started["proc"]
+    proc.wait(timeout=max(1.0, started["t0"] + timeout
+                          - time.perf_counter()))
+    if "wall" not in started:
+        started["wall"] = time.perf_counter() - started["t0"]
+    for name in ("out", "err"):
+        started[name].seek(0)
+    proc.stdout, proc.stderr = started["out"].read(), started["err"].read()
+    wall = started["wall"]
+    print(f"  $ python {' '.join(started['cmd'][1:])}  ({wall:.1f} s, exit "
           f"{proc.returncode})\n"
           + "\n".join("    " + line for line in proc.stdout.splitlines()),
           flush=True)
     return proc, proc.stdout.splitlines(), wall
 
 
-def _cli(module, *args, timeout=600):
-    """``_run_cli``, failing unless the process exits 0: (its output
-    lines, its wall time)."""
-    proc, lines, wall = _run_cli(module, *args, timeout=timeout)
+def _run_cli(module, *args, timeout=600):
+    """``python -m MODULE ARGS``, as a user runs it: (the process, its
+    output lines, its wall time (s)), the output printed."""
+    return _finish_cli(_start_cli(module, *args), timeout=timeout)
+
+
+def _cli(module, *args, timeout=600, started=None):
+    """``_run_cli`` (or ``_finish_cli`` of ``started``), failing unless
+    the process exits 0: (its output lines, its wall time)."""
+    proc, lines, wall = (_run_cli(module, *args, timeout=timeout)
+                         if started is None else
+                         _finish_cli(started, timeout=timeout))
     if proc.returncode != 0:
         fail(f"{module} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
     return lines, wall
@@ -3480,10 +3997,35 @@ def guided_phase():
     return _deployed_pair(configs, seed=5)
 
 
-def costmodel_phase():
+def start_costmodel():
+    """Start (f)'s ``launch.evaluate --budget 512 --memo-dir D
+    --train-cost-model --out J`` (host-bound, 94 s alone on one H100's
+    host): it runs beside phase 3, which measures no time, and is
+    awaited before phase 4 (:func:`costmodel_phase` reads it)."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    memo_dir = tempfile.mkdtemp(prefix="chip_smoke_costmodel_",
+                                dir=os.path.join(ROOT, "build"))
+    out = os.path.join(memo_dir, "evaluator.json")
+    started = _start_cli("repro_torch.launch.evaluate", "--budget",
+                         str(EVAL_BUDGET), "--memo-dir", memo_dir,
+                         "--train-cost-model", "--out", out)
+    return dict(started, memo_dir=memo_dir, json=out)
+
+
+def await_costmodel(started, timeout=900):
+    """Wait for :func:`start_costmodel`'s process to end (its wall time
+    kept for :func:`costmodel_phase`)."""
+    started["proc"].wait(timeout=timeout)
+    started["wall"] = time.perf_counter() - started["t0"]
+    print(f"  launch.evaluate (beside phase 3) ended after "
+          f"{started['wall']:.1f} s", flush=True)
+
+
+def costmodel_phase(started):
     """(f) The cost model on the card: ``launch.evaluate --budget 512
-    --memo-dir D --train-cost-model --out J`` runs the default roster with
-    the PPO warm phase's agent and the model on the card.  Held: the
+    --memo-dir D --train-cost-model --out J`` (started by
+    :func:`start_costmodel`) runs the default roster with the PPO warm
+    phase's agent and the model on the card.  Held: the
     reference acceptance test's budget clause (on each kernel beam-cost
     spends more than nothing and at most a quarter of greedy's
     measurements), and a held-out Spearman of at least ``SPEARMAN_FLOOR``
@@ -3502,14 +4044,10 @@ def costmodel_phase():
                                        CostModel)
     from repro_torch.launch.evaluate import DATASET_FILENAME, MODEL_FILENAME
 
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    memo_dir = tempfile.mkdtemp(prefix="chip_smoke_costmodel_",
-                                dir=os.path.join(ROOT, "build"))
-    out = os.path.join(memo_dir, "evaluator.json")
+    memo_dir, out = started["memo_dir"], started["json"]
     try:
-        _, wall = _cli("repro_torch.launch.evaluate", "--budget",
-                       str(EVAL_BUDGET), "--memo-dir", memo_dir,
-                       "--train-cost-model", "--out", out, timeout=900)
+        _, wall = _cli("repro_torch.launch.evaluate", timeout=900,
+                       started=started)
         with open(out) as f:
             result = json.load(f)
         dataset = CostDataset.load(os.path.join(memo_dir, DATASET_FILENAME))
@@ -3739,6 +4277,7 @@ def main() -> int:
     records = kernel_phase()
 
     phase("3 device against host")
+    costmodel = start_costmodel()
     device_host_phase("qwen1.5-4b")
     device_host_phase(SSM_ARCH)
     device_host_phase(MOE_ARCH)
@@ -3751,6 +4290,8 @@ def main() -> int:
     device_host_encdec(ENCDEC_ARCH)
     device_host_train_step(ENCDEC_ARCH, n_layers=4, enc_layers=2,
                            dec_layers=2)
+
+    await_costmodel(costmodel)
 
     phase("4 serving main paths")
     launches = {"serve": serve_phase("qwen1.5-4b", args.profile),
@@ -3777,6 +4318,9 @@ def main() -> int:
     phase("5c GSPMD train step")
     launches["train_gspmd"] = gspmd_phase()
 
+    phase("5d serving with a mesh")
+    launches["serve_mesh"] = serve_mesh_phase()
+
     phase("6 optimizer main paths")
     launches["optimize"], pair_configs = optimize_phase()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -3789,7 +4333,7 @@ def main() -> int:
         launches["fleet_ssm"], ssd_config = ssm_fleet_phase(ssm_cache)
         tiling_gate(dict(fleet_configs, **pair_configs, ssd=ssd_config))
         launches["guided"] = guided_phase()
-        costmodel_phase()
+        costmodel_phase(costmodel)
         launches["serve_tuned"], launches["serve_untuned"] = \
             tuned_serve_phase(fleet_cache)
         launches["serve_ssm_tuned"] = tuned_ssm_serve_phase(ssm_cache)

@@ -82,20 +82,40 @@ def axis_size(axis: Axes) -> int:
 def _wire(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """``x`` as the transport takes it: a contiguous host copy where the
     mesh stages through the host, else a contiguous copy in place."""
-    if axis.mesh.staged and x.device.type != "cpu":
+    return _wire_on(x, axis.mesh)
+
+
+def _wire_on(x: torch.Tensor, mesh) -> torch.Tensor:
+    if mesh.staged and x.device.type != "cpu":
         return x.detach().to("cpu", copy=True).contiguous()
     return x.detach().clone(memory_format=torch.contiguous_format)
 
 
+# Host-staged sums of at most this many bytes go as an all-gather and a
+# sum on the host, larger ones as gloo's all-reduce: among 4 ranks
+# sharing an H100 (one torch thread each) the all-gather and sum took
+# 3.5-4.4 ms at 40 and 80 KB against the all-reduce's 6.4-7.0, 8.7 and
+# 8.9 ms at 1.2 MB against 12.1 and 9.0 (two runs), and 9.4,
+# 11.4, 20.6 and 120.1 ms at 1.5, 2, 4 and 21 MB against 8.3, 8.9, 11.0
+# and 40.7 (tools/collective_latency.py).
+GATHER_SUM_BYTES = 1 << 20
+
+
 def _all_reduce(x: torch.Tensor, axes: Tuple[Axis, ...]) -> torch.Tensor:
-    """Sum of ``x`` over ``axes`` (one all-reduce an axis of size > 1, in
-    the order given)."""
+    """Sum of ``x`` over ``axes`` (one collective an axis of size > 1, in
+    the order given): an all-reduce, or where the mesh stages through the
+    host and ``x`` is small, an all-gather summed in the group's rank
+    order, the same on every rank."""
     live = [a for a in axes if a.size > 1]
     if not live:
         return x.clone()
     buf = _wire(x, live[0])
     for a in live:
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=a.group)
+        if a.mesh.staged and \
+                buf.numel() * buf.element_size() <= GATHER_SUM_BYTES:
+            buf = _gather_flat(buf, a).sum(dim=0)
+        else:
+            dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=a.group)
     return buf.to(x.device)
 
 
@@ -103,19 +123,24 @@ def _permute(x: torch.Tensor, axis: Axis, perm) -> torch.Tensor:
     """``jax.lax.ppermute``: along ``axis``, index ``src`` sends ``x`` to
     index ``dst`` for each pair; an index that receives nothing returns
     zeros."""
-    me = axis.index
+    return _permute_ranks(x, axis.mesh, axis.ranks, axis.index, perm,
+                          axis.group)
+
+
+def _permute_ranks(x: torch.Tensor, mesh, ranks, me: int, perm,
+                   group=None) -> torch.Tensor:
+    """:func:`_permute` over the indices of ``ranks`` (global ranks; of
+    ``group``'s when one is given), this rank at index ``me``."""
     sends = [d for s, d in perm if s == me]
     recvs = [s for s, d in perm if d == me]
     if len(recvs) > 1:
         raise ValueError(f"ppermute: index {me} receives twice in {perm}")
     if sends == [me] and recvs == [me]:
         return x.clone()
-    buf = _wire(x, axis)
+    buf = _wire_on(x, mesh)
     out = torch.zeros_like(buf)
-    ops = [dist.P2POp(dist.isend, buf, axis.ranks[d], axis.group)
-           for d in sends]
-    ops += [dist.P2POp(dist.irecv, out, axis.ranks[s], axis.group)
-            for s in recvs]
+    ops = [dist.P2POp(dist.isend, buf, ranks[d], group) for d in sends]
+    ops += [dist.P2POp(dist.irecv, out, ranks[s], group) for s in recvs]
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
@@ -145,6 +170,24 @@ class _PPermute(torch.autograd.Function):
         return _PPermute.apply(g, ctx.axis, inverse), None, None
 
 
+def shift_down(x: torch.Tensor, axis: Axes) -> torch.Tensor:
+    """``jax.lax.ppermute`` by one step down the combined index of
+    ``axis`` (several axes combine major to minor, in mesh order): index
+    ``i`` receives index ``i + 1``'s ``x`` and the last index zeros.  Not
+    differentiable.  A sequence-sharded ring buffer moves its blocks'
+    first rows with it."""
+    live = [a for a in _axes(axis) if a.size > 1]
+    if not live:
+        return torch.zeros_like(x)
+    mesh = live[0].mesh
+    ranks = mesh.axis_ranks([a.name for a in live])
+    me = 0
+    for a in live:
+        me = me * a.size + a.index
+    perm = [(i + 1, i) for i in range(len(ranks) - 1)]
+    return _permute_ranks(x, mesh, ranks, me, perm)
+
+
 def psum(x: torch.Tensor, axis: Axes) -> torch.Tensor:
     """Sum of ``x`` over every rank of ``axis`` (an :class:`Axis` or a
     sequence of them); differentiable, its backward a ``psum`` of the
@@ -165,12 +208,17 @@ def ppermute(x: torch.Tensor, axis: Axis, perm) -> torch.Tensor:
 
 def _gather_parts(x: torch.Tensor, axis: Axis):
     """Every rank's ``x`` along ``axis``, in coordinate order."""
-    buf = _wire(x, axis)
-    parts = [torch.empty_like(buf) for _ in range(axis.size)]
-    dist.all_gather(parts, buf, group=axis.group)
+    parts = _gather_flat(_wire(x, axis), axis).to(x.device)
     # parts come in the group's rank order; put them in coordinate order
-    return [parts[dist.get_group_rank(axis.group, r)].to(x.device)
-            for r in axis.ranks]
+    return [parts[dist.get_group_rank(axis.group, r)] for r in axis.ranks]
+
+
+def _gather_flat(buf: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Every rank's ``buf`` (a wire buffer) along ``axis``, stacked in
+    the group's rank order, by one all-gather of flat buffers."""
+    out = buf.new_empty(axis.size * buf.numel())
+    dist.all_gather_into_tensor(out, buf.reshape(-1), group=axis.group)
+    return out.view(axis.size, *buf.shape)
 
 
 def block_of(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:

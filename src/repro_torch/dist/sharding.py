@@ -315,8 +315,9 @@ def decode_cache_shardings(cfg, caches, mesh):
     """:class:`P` tree for a decode-cache tree (any model family); leaves
     (tensors or anything with a ``shape``) are classified by rank and
     shape the way ``serve.decode.init_caches`` builds them.  The
-    reference returns ``NamedSharding``s; placing caches by them is
-    serving with a mesh (ROADMAP A14b-serve)."""
+    reference returns ``NamedSharding``s; the port's ``generate(mesh=)``
+    places each rank's cache blocks by these (:func:`shard_zeros`) and
+    ``decode_step(mesh=, specs=)`` reads them."""
     return tree_map(lambda x: decode_cache_leaf_spec(cfg, tuple(x.shape),
                                                       mesh), caches)
 
@@ -337,7 +338,8 @@ def kv_pool_shardings(cfg, caches, mesh, kinds=None):
     decode-cache rules) or paged (``kinds`` =
     ``serve.decode.paged_cache_kinds(cfg)``: ``"slot"`` entries keep the
     decode-cache rules, paged ones :func:`paged_leaf_spec`).  The
-    reference returns ``NamedSharding``s (ROADMAP A14b-serve)."""
+    reference returns ``NamedSharding``s; ``ServeEngine(mesh=)`` makes
+    each rank's blocks of its pool by these."""
     if kinds is None:
         return decode_cache_shardings(cfg, caches, mesh)
     return [decode_cache_shardings(cfg, c, mesh) if kind == "slot"
@@ -350,17 +352,17 @@ def kv_pool_shardings(cfg, caches, mesh, kinds=None):
 # placing a global tree on the ranks, and back
 # ---------------------------------------------------------------------------
 
-def _entry_axes(entry) -> Tuple[str, ...]:
+def entry_axes(entry) -> Tuple[str, ...]:
     if entry is None:
         return ()
     return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
 
 
-def _block(mesh, entry) -> Tuple[int, int]:
+def block_index(mesh, entry) -> Tuple[int, int]:
     """(this rank's block index, block count) of a dimension sharded by
     ``entry`` — several axes combine major to minor."""
     idx, n = 0, 1
-    for a in _entry_axes(entry):
+    for a in entry_axes(entry):
         idx = idx * mesh.shape[a] + mesh.coords[a]
         n *= mesh.shape[a]
     return idx, n
@@ -369,7 +371,7 @@ def _block(mesh, entry) -> Tuple[int, int]:
 def shard_leaf(x: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     """This rank's block of the global tensor ``x`` under ``spec``."""
     for dim, entry in enumerate(spec):
-        idx, n = _block(mesh, entry)
+        idx, n = block_index(mesh, entry)
         if n == 1:
             continue
         if x.shape[dim] % n:
@@ -380,11 +382,27 @@ def shard_leaf(x: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     return x
 
 
+def shard_zeros(tree, specs, mesh, device):
+    """This rank's blocks, zero-filled on ``device``, of a global tree
+    known by its leaves' shapes and types (on the meta device, say: no
+    rank allocates the global tree)."""
+    return tree_map(lambda x, s: torch.zeros(
+        shard_leaf(x, s, mesh).shape, dtype=x.dtype, device=device),
+        tree, specs)
+
+
+def live_axes(mesh, entry):
+    """The bound axes (of size > 1) that a spec ``entry`` shards over,
+    major to minor."""
+    return tuple(mesh.axis(a) for a in entry_axes(entry)
+                 if mesh.shape[a] > 1)
+
+
 def global_shape(shape, spec: P, mesh) -> Tuple[int, ...]:
     """The global shape of a block of ``shape`` under ``spec``."""
     out = list(shape)
     for dim, entry in enumerate(spec):
-        out[dim] *= _block(mesh, entry)[1]
+        out[dim] *= block_index(mesh, entry)[1]
     return tuple(out)
 
 
@@ -399,7 +417,7 @@ def gather_leaf(x: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     """The global tensor from every rank's block ``x`` under ``spec`` (a
     collective: every rank calls it, and every rank gets the result)."""
     for dim in reversed(range(len(spec))):
-        for a in reversed(_entry_axes(spec[dim])):
+        for a in reversed(entry_axes(spec[dim])):
             if mesh.shape[a] == 1:
                 continue
             x = all_gather(x, mesh.axis(a), dim, tiled=True)
@@ -413,7 +431,7 @@ def gather_for_use(x: torch.Tensor, spec: P, mesh,
     gradient comes back summed over those axes and scattered to the
     block, FSDP's reduce-scatter)."""
     for dim in reversed(range(len(spec))):
-        for a in reversed(_entry_axes(spec[dim])):
+        for a in reversed(entry_axes(spec[dim])):
             if a in keep or mesh.shape[a] == 1:
                 continue
             x = all_gather(x, mesh.axis(a), dim, tiled=True)
@@ -423,7 +441,7 @@ def gather_for_use(x: torch.Tensor, spec: P, mesh,
 def sharded_axes(spec: P, mesh) -> Tuple[str, ...]:
     """The axes of ``mesh`` (of size > 1) that ``spec`` shards a dimension
     over, in mesh order."""
-    used = {a for entry in spec for a in _entry_axes(entry)}
+    used = {a for entry in spec for a in entry_axes(entry)}
     return tuple(a for a in mesh.axis_names
                  if a in used and mesh.shape[a] > 1)
 

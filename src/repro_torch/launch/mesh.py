@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import sys
 import time
 from typing import Dict, Optional, Tuple
 
@@ -77,11 +78,13 @@ class Mesh(AbstractMesh):
     def group(self, name: str):
         return self.device_mesh.get_group(name)
 
-    def axis_ranks(self, name: str) -> Tuple[int, ...]:
-        """The global ranks along axis ``name`` through this rank, by
-        coordinate."""
+    def axis_ranks(self, names) -> Tuple[int, ...]:
+        """The global ranks along axis ``names`` (a name, or several in
+        mesh order) through this rank, by their combined coordinate,
+        major to minor."""
+        names = (names,) if isinstance(names, str) else tuple(names)
         grid = self.device_mesh.mesh
-        index = tuple(slice(None) if a == name else self.coords[a]
+        index = tuple(slice(None) if a in names else self.coords[a]
                       for a in self.axis_names)
         return tuple(int(r) for r in grid[index].reshape(-1).tolist())
 
@@ -226,7 +229,7 @@ def init_distributed(device=None, *, init_method: Optional[str] = None,
     return dev
 
 
-def _require_group() -> None:
+def require_group() -> None:
     if not dist.is_initialized():
         raise RuntimeError(
             "no process group: call launch.mesh.init_distributed first, "
@@ -234,7 +237,7 @@ def _require_group() -> None:
 
 
 def _make_mesh(shape, axes, device) -> Mesh:
-    _require_group()
+    require_group()
     return Mesh(shape, axes, rank_device(device))
 
 
@@ -249,7 +252,7 @@ def make_host_mesh(model: int = 1, data: Optional[int] = None,
     silently dropping them.  ``device`` defaults to the card
     (``cuda:(local_rank % device_count)``); tests pass ``"cpu"``.
     """
-    _require_group()
+    require_group()
     shape, axes = host_mesh_shape(dist.get_world_size(), model=model,
                                   data=data, pipe=pipe, pods=pods)
     return _make_mesh(shape, axes, device)
@@ -260,14 +263,22 @@ def make_host_mesh(model: int = 1, data: Optional[int] = None,
 # ---------------------------------------------------------------------------
 
 def _rank_main(rank, fn, world, init_method, device, args):
-    if torch.device(device).type == "cpu":
-        torch.set_num_threads(1)
+    """One spawned rank: ``fn`` between the group's setup and teardown.
+    A rank that returns leaves by ``os._exit(0)`` once its group is
+    destroyed, skipping the interpreter's teardown: under load gloo's
+    native state has aborted a finished rank there ("terminate called
+    without an active exception", no Python frame left), which failed a
+    run whose work was done (ROADMAP §C)."""
+    torch.set_num_threads(1)
     init_distributed(device, init_method=init_method, rank=rank,
                      world_size=world, local_world_size=world)
     try:
         fn(rank, *args)
     finally:
         dist.destroy_process_group()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def run_ranks(fn, world: int, *args, init_method: str, device="cpu",
@@ -275,8 +286,11 @@ def run_ranks(fn, world: int, *args, init_method: str, device="cpu",
     """Run ``fn(rank, *args)`` in ``world`` spawned processes on one host,
     each with the process group initialised at ``init_method`` (a
     ``file://`` path keeps concurrent runs apart) and its rank's device
-    (``device="cuda"``: every rank on this host's cards).  Ranks on the
-    CPU take one torch thread each.  A rank that raises makes this raise;
+    (``device="cuda"``: every rank on this host's cards).  Each rank
+    takes one torch thread: 4 ranks sharing an H100 summed 40 KB from the
+    card in 4.3 ms so, in 32.0 ms with a thread a core
+    (``tools/collective_latency.py``).  A rank that
+    raises makes this raise;
     ranks still running after ``timeout_s`` seconds are killed and this
     raises ``TimeoutError``."""
     import torch.multiprocessing as mp

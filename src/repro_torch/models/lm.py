@@ -188,7 +188,13 @@ def head_forward(params: Dict, x: torch.Tensor,
 def embed_forward(params: Dict, tokens: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     """Token embedding (with the gemma sqrt(d) scale) -> residual stream."""
-    x = nn.apply_embedding(params["embed"], tokens).to(torch_dtype(cfg.dtype))
+    return scale_embedding(nn.apply_embedding(params["embed"], tokens), cfg)
+
+
+def scale_embedding(e: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Looked-up embeddings -> residual stream (``cfg.dtype``, and the
+    gemma sqrt(d) scale)."""
+    x = e.to(torch_dtype(cfg.dtype))
     if cfg.name.startswith("gemma"):
         x = x * (cfg.d_model ** 0.5)   # gemma embeds are sqrt(d)-scaled
     return x

@@ -19,6 +19,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.dist import collectives as col
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_LOGIT, NO_WINDOW, wide
 from repro_torch.nn.core import apply_dense, dense
@@ -94,23 +95,62 @@ def masked_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     triples match.  Masked positions contribute exactly 0.0 whatever the
     cache holds there (their logits become -1e30 and ``exp(-1e30 - m)``
     underflows)."""
+    logits, vf = _decode_logits(q, k_cache, v_cache, mask, scale)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    ell = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p, vf) / ell                              # (B,KH,G,Dv)
+    return o.reshape(*q.shape[:3], -1).to(q.dtype)
+
+
+def _decode_logits(q, k_cache, v_cache, mask, scale):
+    """The decode softmax's masked logits (B, KH, G, S) and its values
+    (B, KH, S, Dv), in f32 (f64 for an f64 model)."""
     B, _, H, D = q.shape
     KH = k_cache.shape[2]
-    Dv = v_cache.shape[-1]
-    G = H // KH
     if scale is None:
         scale = D ** -0.5
-    qf = wide(q).reshape(B, KH, G, D) * scale                  # (B,KH,G,D)
+    qf = wide(q).reshape(B, KH, H // KH, D) * scale            # (B,KH,G,D)
     kf = k_cache.to(qf.dtype).permute(0, 2, 3, 1)              # (B,KH,D,S)
     logits = torch.matmul(qf, kf)                              # (B,KH,G,S)
     maskb = mask[:, None, None, :] if mask.ndim == 2 else mask
     logits = logits.masked_fill(~maskb, NEG_LOGIT)
+    return logits, v_cache.to(qf.dtype).permute(0, 2, 1, 3)
+
+
+def split_softmax(logits: torch.Tensor, values: torch.Tensor,
+                  axes) -> torch.Tensor:
+    """softmax(logits) @ values where the key axis (the last of
+    ``logits``, the one before last of ``values``) is split over the mesh
+    ``axes`` (bound :class:`repro_torch.dist.collectives.Axis` objects)
+    and this rank holds one block of it (flash-decode's split-S): each
+    block's (weighted values, sum, maximum) under its own maximum, one
+    all-gather of them, and the blocks combined by log-sum-exp, in
+    coordinate order, so every rank gets the same bits.  A masked logit
+    (-1e30) adds exactly 0, and so does a block whose every key is
+    masked (its maximum lies 1e30 below the others')."""
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
-    ell = p.sum(dim=-1, keepdim=True)
-    vf = v_cache.to(qf.dtype).permute(0, 2, 1, 3)              # (B,KH,S,Dv)
-    o = torch.matmul(p, vf) / ell                              # (B,KH,G,Dv)
-    return o.reshape(B, 1, H, Dv).to(q.dtype)
+    part = torch.cat([torch.matmul(p, values), p.sum(dim=-1, keepdim=True),
+                      m], dim=-1)
+    for ax in axes:
+        part = col.all_gather(part, ax, 0)
+    part = part.reshape(-1, *part.shape[len(axes):])
+    w = torch.exp(part[..., -1:] - part[..., -1:].amax(dim=0))
+    tot = (part[..., :-1] * w).sum(dim=0)
+    return tot[..., :-1] / tot[..., -1:]
+
+
+def split_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, mask: torch.Tensor, axes,
+                           *, scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`masked_decode_attention` over a cache whose sequence is
+    split over ``axes``: ``k_cache``/``v_cache``/``mask`` are this rank's
+    block of positions, and every rank gets the whole output
+    (:func:`split_softmax`)."""
+    logits, vf = _decode_logits(q, k_cache, v_cache, mask, scale)
+    o = split_softmax(logits, vf, axes)
+    return o.reshape(*q.shape[:3], -1).to(q.dtype)
 
 
 def decode_positions(pos, batch: int, device) -> torch.Tensor:
@@ -145,6 +185,28 @@ def update_cache(cache: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
         cache[rows, pos.long()] = new[:, 0]
     else:
         p = int(pos)
+        cache[:, p:p + 1] = new
+    return cache
+
+
+def update_cache_block(cache: torch.Tensor, new: torch.Tensor, pos,
+                       lo: int) -> torch.Tensor:
+    """:func:`update_cache` on a block of a sequence-sharded cache that
+    holds positions ``lo .. lo + S - 1``: a row writes only where its
+    position lies in the block (each lane its own under ragged
+    ``pos``).  Returns ``cache``."""
+    new = new.to(cache.dtype)
+    S = cache.shape[1]
+    if isinstance(pos, torch.Tensor) and pos.ndim >= 1:
+        p = pos.long() - lo
+        hit = (p >= 0) & (p < S)
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        at = p.clamp(0, S - 1)
+        keep = cache[rows, at]
+        cache[rows, at] = torch.where(hit.view(-1, *[1] * (keep.ndim - 1)),
+                                      new[:, 0], keep)
+    elif 0 <= int(pos) - lo < S:
+        p = int(pos) - lo
         cache[:, p:p + 1] = new
     return cache
 

@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.kernels.ref import NEG_LOGIT, matmul, wide
 from repro_torch.nn.attention import (chunked_attention, decode_positions,
-                                      gather_pages, paged_update_cache)
+                                      gather_pages, paged_update_cache,
+                                      split_softmax, update_cache_block)
 from repro_torch.nn.core import ParamSpec, apply_dense, dense
 from repro_torch.nn.layers import apply_rmsnorm, rmsnorm_spec
 from repro_torch.nn.rope import apply_rope
@@ -123,18 +124,26 @@ def init_mla_cache(cfg: MLAConfig, batch: int, max_seq: int,
 
 
 def apply_mla_decode(p: Dict, x: torch.Tensor, cache: Dict, pos,
-                     cfg: MLAConfig) -> Tuple[torch.Tensor, Dict]:
+                     cfg: MLAConfig, seq_axes=(), lo: int = 0
+                     ) -> Tuple[torch.Tensor, Dict]:
     """One-token step against the latent cache (weight-absorbed form:
     scores and values both live in the kv_lora latent space), written in
     place.
 
     ``pos`` is an int (all rows at the same position) or a ``(B,)``
-    tensor of per-row positions (continuous-batching ragged decode)."""
+    tensor of per-row positions (continuous-batching ragged decode).
+    ``seq_axes`` (bound mesh axes): the cache is this rank's block of
+    positions from ``lo`` of a latent sequence-sharded over them; the
+    block's owner writes the new row, and the softmax combines the
+    blocks (:func:`repro_torch.nn.attention.split_softmax`)."""
     B = x.shape[0]
     positions = decode_positions(pos, B, x.device)
     c_new, kr_new = _latent(p, x, cfg, positions)
     ragged = isinstance(pos, torch.Tensor) and pos.ndim >= 1
-    if ragged:
+    if seq_axes:
+        update_cache_block(cache["c_kv"], c_new, pos, lo)
+        update_cache_block(cache["k_rope"], kr_new, pos, lo)
+    elif ragged:
         rows = torch.arange(B, device=x.device)
         cache["c_kv"][rows, positions[:, 0]] = \
             c_new[:, 0].to(cache["c_kv"].dtype)
@@ -144,24 +153,26 @@ def apply_mla_decode(p: Dict, x: torch.Tensor, cache: Dict, pos,
         t = int(pos)
         cache["c_kv"][:, t:t + 1] = c_new.to(cache["c_kv"].dtype)
         cache["k_rope"][:, t:t + 1] = kr_new.to(cache["k_rope"].dtype)
-    k_pos = torch.arange(cache["c_kv"].shape[1], device=x.device)
+    k_pos = lo + torch.arange(cache["c_kv"].shape[1], device=x.device)
     mask = k_pos[None] <= positions                            # (B, S)
     o = _latent_attention(p, x, cfg, positions, cache["c_kv"],
-                          cache["k_rope"], mask)
+                          cache["k_rope"], mask, seq_axes)
     return apply_dense(p["wo"], o), cache
 
 
 def _latent_attention(p: Dict, x: torch.Tensor, cfg: MLAConfig,
                       positions: torch.Tensor, c_kv: torch.Tensor,
-                      k_rope: torch.Tensor,
-                      mask: torch.Tensor) -> torch.Tensor:
+                      k_rope: torch.Tensor, mask: torch.Tensor,
+                      seq_axes=()) -> torch.Tensor:
     """Weight-absorbed latent attention over a (gathered) latent cache;
     ``mask`` (B, S) per row.
 
     Shared by the dense slot path and the paged block-table path — with
     identical ``(c_kv, k_rope, mask)`` operands the outputs are
     bit-identical, which is what makes paged MLA serving exact.  A
-    masked position's logit is -1e30, so it contributes exactly 0."""
+    masked position's logit is -1e30, so it contributes exactly 0.
+    ``seq_axes``: the latent is this rank's block of a sequence split
+    over those mesh axes."""
     B = x.shape[0]
     H = cfg.n_heads
     q_nope, q_rope = _queries(p, x, cfg, positions)   # (B,1,H,*)
@@ -177,8 +188,10 @@ def _latent_attention(p: Dict, x: torch.Tensor, cfg: MLAConfig,
                           k_rope.to(dt).transpose(1, 2))
     s = (s_lat + s_rope) * (cfg.qk_dim ** -0.5)
     s = s.masked_fill(~mask[:, None, :], NEG_LOGIT)
-    w = torch.softmax(s, dim=-1)
-    o_lat = torch.matmul(w, c)                        # (B, H, R) latent
+    if seq_axes:                                      # (B, H, R) latent
+        o_lat = split_softmax(s, c, seq_axes)
+    else:
+        o_lat = torch.matmul(torch.softmax(s, dim=-1), c)
     w_uv = p["w_uv"].to(dt).permute(1, 0, 2)          # (H, R, dv)
     o = torch.matmul(o_lat[:, :, None, :], w_uv)      # (B, H, 1, dv)
     return o.reshape(B, 1, H * cfg.v_head_dim).to(x.dtype)

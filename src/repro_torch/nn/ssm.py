@@ -17,6 +17,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives as col
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import wide
 from repro_torch.nn.core import ParamSpec, apply_dense, dense
@@ -115,16 +116,35 @@ def init_ssm_cache(cfg: SSMConfig, batch: int, dtype=torch.float32,
 
 
 def apply_ssm_decode(p: Dict, x: torch.Tensor, cache: Dict,
-                     cfg: SSMConfig) -> Tuple[torch.Tensor, Dict]:
-    """One-token step.  x: (B, 1, d_model)."""
+                     cfg: SSMConfig, in_axis=None, channels_axis=None,
+                     heads_axis=None,
+                     out_axis=None) -> Tuple[torch.Tensor, Dict]:
+    """One-token step.  x: (B, 1, d_model).
+
+    Under a mesh (bound axes, each where its block is this rank's):
+    ``in_axis`` — ``in_proj`` holds a block of columns, whose products
+    are all-gathered (z, x, B, C and dt do not align with its blocks);
+    ``channels_axis`` — the conv weights and tail hold a block of
+    channels, whose convolution is computed here and all-gathered;
+    ``heads_axis`` — the state holds a block of heads, which this rank
+    updates before ``y`` is all-gathered for the gated norm;
+    ``out_axis`` — ``out_proj`` holds a block of rows, whose partial
+    product is psummed."""
     B = x.shape[0]
     gn = cfg.n_groups * cfg.d_state
-    z, xs, b, c, dt = _split_proj(cfg, apply_dense(p["in_proj"], x))
+    proj = apply_dense(p["in_proj"], x)
+    if in_axis is not None:
+        proj = col.all_gather(proj, in_axis, 2, tiled=True)
+    z, xs, b, c, dt = _split_proj(cfg, proj)
     conv_in = torch.cat([xs, b, c], dim=-1)                      # (B,1,C)
+    w, cb = p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype)
+    if channels_axis is not None:
+        conv_in = col.block_of(conv_in, channels_axis, 2)
     window = torch.cat([cache["conv"], conv_in], dim=1)          # (B,W,C)
-    w = p["conv_w"].to(x.dtype)
     conv_out = F.silu(torch.einsum("bwc,wc->bc", window, w)[:, None, :]
-                      + p["conv_b"].to(x.dtype)[None, None, :])
+                      + cb[None, None, :])
+    if channels_axis is not None:
+        conv_out = col.all_gather(conv_out, channels_axis, 2, tiled=True)
     xs, b, c = torch.split(conv_out, [cfg.d_inner, gn, gn], dim=-1)
 
     dt, a = _decay(p, dt[:, 0])                                  # (B,H)
@@ -132,13 +152,24 @@ def apply_ssm_decode(p: Dict, x: torch.Tensor, cache: Dict,
     rep = cfg.n_heads // cfg.n_groups
     bh = b.reshape(B, cfg.n_groups, cfg.d_state).repeat_interleave(rep, 1)
     ch = c.reshape(B, cfg.n_groups, cfg.d_state).repeat_interleave(rep, 1)
+    d_skip = p["d_skip"].to(xh.dtype)
+    if heads_axis is not None:
+        xh, a, bh, ch = (col.block_of(t, heads_axis, 1)
+                         for t in (xh, a, bh, ch))
+        d_skip = col.block_of(d_skip, heads_axis, 0)
 
     decay = torch.exp(a)[..., None, None]                        # (B,H,1,1)
     state = cache["state"] * decay + (wide(xh)[..., None]
                                       * wide(bh)[..., None, :])
     y = torch.einsum("bhpn,bhn->bhp", state, wide(ch).to(state.dtype))
-    y = y.to(x.dtype) + xh * p["d_skip"].to(xh.dtype)[None, :, None]
+    y = y.to(x.dtype) + xh * d_skip[None, :, None]
+    if heads_axis is not None:
+        y = col.all_gather(y, heads_axis, 1, tiled=True)
     y = y.reshape(B, 1, cfg.d_inner)
     y = apply_rmsnorm(p["norm"], y * F.silu(z))
-    out = apply_dense(p["out_proj"], y)
+    if out_axis is not None:
+        out = col.psum(apply_dense(p["out_proj"],
+                                   col.block_of(y, out_axis, 2)), out_axis)
+    else:
+        out = apply_dense(p["out_proj"], y)
     return out, {"conv": window[:, 1:], "state": state}

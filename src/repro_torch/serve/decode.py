@@ -19,6 +19,27 @@ functional update copies); a ring buffer is rebuilt by its
 shift-and-append, and a recurrent cache by its step, which are copies
 either way.  Each step returns the cache list it updated, as the
 reference does.
+
+``mesh`` (serving with a mesh; every rank runs the step): ``params``
+holds this rank's blocks by ``dist.sharding.param_shardings``, each
+cache entry its block by ``specs`` (``decode_cache_shardings``, or
+``kv_pool_shardings`` for the engine's pool), and ``token``/``pos`` the
+rows of the caches' batch block.  No cache block is ever gathered: a
+KV cache sharded by heads attends this rank's query heads (GQA groups
+are contiguous) and its output projection psums over ``model``; one
+sharded by the sequence (MQA, or a batch the data axes do not divide)
+attends every head over this rank's positions and the blocks combine
+by log-sum-exp (:func:`repro_torch.nn.attention.split_softmax`), the
+block holding a row's position writes it, and a ring buffer's shift
+moves each block's first row to its left neighbour; an MLA latent
+splits the same way; an SSM state updates its heads and a conv tail
+its channels (:func:`repro_torch.nn.ssm.apply_ssm_decode`).  Each
+layer's parameters are all-gathered for use (FSDP over ``data``), over
+``model`` too except the head-sharded attention, the MLP's columns
+(psummed) and the experts (:func:`repro_torch.nn.apply_moe` takes
+``apply_moe_ep_replicated`` for one token a lane).  The embedding and
+the head run on this rank's vocabulary block: the lookup psums, the
+logits are all-gathered, so every rank takes the same argmax.
 """
 
 from __future__ import annotations
@@ -29,13 +50,19 @@ import torch
 
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import (_apply_mlp, _apply_norm, embed_forward,
-                                   head_forward, mla_config, moe_config,
+from repro_torch.dist import collectives as col
+from repro_torch.dist import sharding as shd
+from repro_torch.models.lm import (Placement, _apply_mlp, _apply_norm,
+                                   _layer_specs, embed_forward, head_forward,
+                                   mla_config, moe_config, scale_embedding,
                                    ssm_config, window_schedule)
 from repro_torch.nn.attention import (NO_WINDOW, decode_positions,
                                       masked_decode_attention,
                                       paged_decode_attention,
-                                      paged_update_cache)
+                                      paged_update_cache,
+                                      split_decode_attention,
+                                      update_cache_block)
+from repro_torch.kernels.ref import matmul, wide
 from repro_torch.nn.core import apply_dense, torch_dtype
 from repro_torch.nn.mla import (apply_mla_decode, apply_mla_paged_decode,
                                 init_mla_cache)
@@ -141,12 +168,18 @@ def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int,
 # per-layer decode attention
 # ---------------------------------------------------------------------------
 
+def _heads(cfg: ModelConfig, p: Dict) -> int:
+    """The heads a projection holds (this rank's, under a mesh)."""
+    return p["w"].shape[1] // cfg.head_dim
+
+
 def _project_qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                  positions: torch.Tensor):
     """The decode-step q/k/v projection (+qk-norm, +rope) — shared by the
     dense slot path and the paged block-table path so both produce
     bit-identical per-token K/V before the cache write."""
-    q, k, v = nn.qkv_project(p, x, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    q, k, v = nn.qkv_project(p, x, _heads(cfg, p["wq"]),
+                             _heads(cfg, p["wk"]), cfg.head_dim)
     if cfg.qk_norm:
         q = nn.apply_rmsnorm(p["q_norm"], q)
         k = nn.apply_rmsnorm(p["k_norm"], k)
@@ -155,48 +188,95 @@ def _project_qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     return q, k, v
 
 
+class _Layout:
+    """Where this rank's block of a cache leaf lies: ``heads`` — the
+    ``model`` axis its heads are sharded over (None: whole); ``seq`` —
+    the axes its sequence is split over, this block holding positions
+    ``lo .. lo + S - 1`` of ``total``.  A mesh-less cache is whole."""
+
+    def __init__(self, heads=None, seq=(), lo: int = 0,
+                 total: Optional[int] = None):
+        self.heads, self.seq, self.lo, self.total = heads, seq, lo, total
+
+    @classmethod
+    def of(cls, mesh, spec, shape, heads_dim: Optional[int] = 2):
+        """The layout of a block of ``shape`` placed by ``spec`` (batch,
+        sequence, [heads, ...])."""
+        heads = None
+        if heads_dim is not None and "model" in shd.entry_axes(
+                spec[heads_dim]) and mesh.shape["model"] > 1:
+            heads = mesh.axis("model")
+        seq = shd.live_axes(mesh, spec[1])
+        idx, n = shd.block_index(mesh, spec[1])
+        return cls(heads, seq, idx * shape[1], n * shape[1])
+
+
+_WHOLE = _Layout()
+
+
 def _attn_decode(cfg: ModelConfig, p: Dict, x: torch.Tensor, cache: Dict,
-                 pos, window: int) -> Tuple[torch.Tensor, Dict]:
+                 pos, window: int,
+                 lay: _Layout = _WHOLE) -> Tuple[torch.Tensor, Dict]:
     """x: (B, 1, d); ring buffer for local windows, absolute cache else.
 
     ``pos`` is an int (all rows at the same position — static batch) or
     a ``(B,)`` tensor (ragged rows — continuous batching), in which case
-    the key mask becomes per-row ``(B, S)``."""
+    the key mask becomes per-row ``(B, S)``.  ``lay``: the cache's block
+    under a mesh (see the module docstring)."""
     B = x.shape[0]
     positions = decode_positions(pos, B, x.device)
     q, k, v = _project_qkv(cfg, p, x, positions)
 
     ragged = isinstance(pos, torch.Tensor) and pos.ndim >= 1
     S = cache["k"].shape[1]
-    ar = torch.arange(S, device=x.device)
-    if window < NO_WINDOW and S <= window:
-        k_cache = torch.cat([cache["k"][:, 1:], k.to(cache["k"].dtype)], dim=1)
-        v_cache = torch.cat([cache["v"][:, 1:], v.to(cache["v"].dtype)], dim=1)
+    total = lay.total or S
+    ar = lay.lo + torch.arange(S, device=x.device)
+    if window < NO_WINDOW and total <= window:
+        k_new, v_new = k, v
+        if lay.seq:
+            # each block's first row moves to the block before it; the
+            # last block takes the new row
+            nxt = col.shift_down(torch.cat([cache["k"][:, :1],
+                                            cache["v"][:, :1]], dim=-1),
+                                 lay.seq)
+            if lay.lo + S < total:
+                k_new, v_new = nxt.split(cache["k"].shape[-1], dim=-1)
+        k_cache = torch.cat([cache["k"][:, 1:], k_new.to(cache["k"].dtype)],
+                            dim=1)
+        v_cache = torch.cat([cache["v"][:, 1:], v_new.to(cache["v"].dtype)],
+                            dim=1)
         if ragged:
-            mask = (positions - (S - 1) + ar[None]) >= 0            # (B,S)
+            mask = (positions - (total - 1) + ar[None]) >= 0        # (B,S)
         else:
-            mask = (int(pos) - (S - 1) + ar) >= 0
+            mask = (int(pos) - (total - 1) + ar) >= 0
     else:
-        k_cache = nn.update_cache(cache["k"], k, pos)
-        v_cache = nn.update_cache(cache["v"], v, pos)
+        if lay.seq:
+            k_cache = update_cache_block(cache["k"], k, pos, lay.lo)
+            v_cache = update_cache_block(cache["v"], v, pos, lay.lo)
+        else:
+            k_cache = nn.update_cache(cache["k"], k, pos)
+            v_cache = nn.update_cache(cache["v"], v, pos)
         if ragged:
             mask = (ar[None] <= positions) & (ar[None] > positions - window)
         else:
             mask = (ar <= int(pos)) & (ar > int(pos) - window)
 
-    o = masked_decode_attention(q, k_cache, v_cache, mask)
-    return nn.out_project(p, o), {**cache, "k": k_cache, "v": v_cache}
+    o = (split_decode_attention(q, k_cache, v_cache, mask, lay.seq)
+         if lay.seq else masked_decode_attention(q, k_cache, v_cache, mask))
+    return (nn.out_project(p, o, tp_axis=lay.heads),
+            {**cache, "k": k_cache, "v": v_cache})
 
 
 def _attn_decode_paged(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                        cache: Dict, block_table: torch.Tensor,
                        pos: torch.Tensor, window: int, max_seq: int,
-                       write_rows: Optional[torch.Tensor]
-                       ) -> Tuple[torch.Tensor, Dict]:
+                       write_rows: Optional[torch.Tensor],
+                       heads_axis=None) -> Tuple[torch.Tensor, Dict]:
     """The paged analogue of :func:`_attn_decode`: write this token's K/V
     into the physical pages through the block table, then attend over a
     gather whose width matches the dense layer's cache length — so the
-    outputs are bit-identical to the slot path's."""
+    outputs are bit-identical to the slot path's.  ``heads_axis``: the
+    pages hold this rank's block of KV heads."""
     B = x.shape[0]
     positions = decode_positions(pos, B, x.device)
     q, k, v = _project_qkv(cfg, p, x, positions)
@@ -207,20 +287,24 @@ def _attn_decode_paged(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     width = max_seq if window >= NO_WINDOW else min(window, max_seq)
     o = paged_decode_attention(q, k_pages, v_pages, block_table, pos,
                                window=window, width=width)
-    return nn.out_project(p, o), {"k": k_pages, "v": v_pages}
+    return (nn.out_project(p, o, tp_axis=heads_axis),
+            {"k": k_pages, "v": v_pages})
 
 
 def _cross_decode(cfg: ModelConfig, p: Dict, h: torch.Tensor,
-                  cache: Dict) -> torch.Tensor:
+                  cache: Dict, lay: _Layout = _WHOLE) -> torch.Tensor:
     """One query of each row against all of its cache's ``ck`` / ``cv``
     frames: the biased q projection (no rope), then the decode softmax
-    under an all-ones mask."""
+    under an all-ones mask (``lay``: the cross caches' block)."""
     B = h.shape[0]
-    q = apply_dense(p["wq"], h).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+    q = apply_dense(p["wq"], h).reshape(B, 1, _heads(cfg, p["wq"]),
+                                        cfg.head_dim)
     mask = torch.ones(cache["ck"].shape[1], dtype=torch.bool,
                       device=h.device)
-    return nn.out_project(p, masked_decode_attention(q, cache["ck"],
-                                                     cache["cv"], mask))
+    o = (split_decode_attention(q, cache["ck"], cache["cv"], mask, lay.seq)
+         if lay.seq else
+         masked_decode_attention(q, cache["ck"], cache["cv"], mask))
+    return nn.out_project(p, o, tp_axis=lay.heads)
 
 
 # ---------------------------------------------------------------------------
@@ -231,86 +315,292 @@ def _as_tokens(token, device) -> torch.Tensor:
     return torch.as_tensor(token, device=device).long()
 
 
+class _OnMesh:
+    """What one decode step on a mesh needs: the parameters' placement
+    (:class:`repro_torch.models.lm.Placement`), and where each cache
+    entry's blocks lie (``specs``, parallel to ``caches``)."""
+
+    def __init__(self, cfg: ModelConfig, mesh, caches: List, specs):
+        from repro_torch.launch.mesh import require_group
+        require_group()
+        if specs is None:
+            raise ValueError("a decode step on a mesh needs the caches' "
+                             "specs (specs=, decode_cache_shardings or "
+                             "kv_pool_shardings of the global caches)")
+        from repro_torch.models import encdec, lm
+        model = encdec if cfg.family == "encdec" else lm
+        self.cfg, self.mesh = cfg, mesh
+        self.place = Placement(cfg, mesh, 1, model.model_spec(cfg))
+        self.tp = self.place.tp
+        self._layer_specs: Dict = {}
+        self.ssm_keep = set()
+        # the batch's entry where it shards the batch over the data axes
+        batch = next(iter(specs[0].values()))[0]
+        self.batch = batch if shd.live_axes(mesh, batch) else None
+        self.lays: List[Dict] = []
+        for c, sp in zip(caches, specs):
+            if "state" in c:          # SSM: heads of the state, channels
+                if shd.live_axes(mesh, sp["conv"][1]):   # of the conv tail
+                    raise NotImplementedError(
+                        "a conv tail sharded on its window")
+                self.lays.append({"heads_axis": self._model(sp["state"][1]),
+                                  "channels_axis":
+                                      self._model(sp["conv"][2])})
+            else:
+                self.lays.append({k: _Layout.of(
+                    mesh, sp[k], tuple(a.shape), 2 if a.ndim == 4 else None)
+                    for k, a in c.items()})
+        if cfg.family in ("ssm", "hybrid"):
+            self._ssm_params()
+
+    def _model(self, entry):
+        """The ``model`` axis where ``entry`` shards over it, else None."""
+        return self.tp if self.tp is not None and "model" in \
+            shd.entry_axes(entry) else None
+
+    def _ssm_params(self):
+        """The Mamba-2 layers' ``model`` blocks that decode computes on:
+        ``in_proj``'s columns, ``out_proj``'s rows, and the conv
+        weights' channels where the conv tail holds the same block."""
+        specs = _layer_specs(self.place.specs["layers"])["ssm"]
+        self.ssm_axes = {"in_axis": self._model(specs["in_proj"]["w"][1]),
+                         "out_axis": self._model(specs["out_proj"]["w"][0])}
+        self.ssm_keep = {k for k, v in (("in_proj", "in_axis"),
+                                        ("out_proj", "out_axis"))
+                         if self.ssm_axes[v] is not None}
+        if self._model(specs["conv_w"][1]) is not None:
+            self.ssm_keep |= {"conv_w", "conv_b"}
+
+    def ssm(self, ci: int) -> Dict:
+        """``apply_ssm_decode``'s axes for cache entry ``ci``."""
+        lay = self.lays[ci]
+        if (lay["channels_axis"] is None) != ("conv_w" not in self.ssm_keep):
+            raise NotImplementedError("conv weights and tail sharded apart")
+        return {**self.ssm_axes, **lay}
+
+    def heads(self, ci: int, key: str = "k") -> bool:
+        lay = self.lays[ci].get(key)
+        return lay is not None and lay.heads is not None
+
+    def gather(self, p: Dict, specs: Dict, ci: Optional[int]) -> Dict:
+        """A block's parameters for use: an attention over a head-sharded
+        cache (entry ``ci``) keeps its ``model`` shards, as do the MLP's
+        columns and the experts (``Placement``'s rule); everything else
+        is gathered whole."""
+        def walk(node, spec, tp, path):
+            if isinstance(node, dict):
+                return {k: walk(node[k], spec[k], tp, path + (k,))
+                        for k in node}
+            keep = ("model",) if (tp and self.place._keeps_model(
+                path, spec)) or (path[0] == "ssm" and path[1]
+                                 in self.ssm_keep) else ()
+            return shd.gather_for_use(node, spec, self.mesh, keep)
+
+        out = {}
+        for k, v in p.items():
+            if k in ("attn", "cross"):
+                tp = ci is not None and self.heads(
+                    ci, "k" if k == "attn" else "ck")
+                # the rule reads an attention's leaves by their path
+                out[k] = walk(v, specs[k], tp, ("attn",))
+            else:
+                out[k] = walk(v, specs[k], k in ("mlp", "moe"), (k,))
+        return out
+
+    def layer(self, params: Dict, key: str, li: int,
+              ci: Optional[int]) -> Dict:
+        if key not in self._layer_specs:
+            self._layer_specs[key] = _layer_specs(self.place.specs[key])
+        return self.gather(_layer_params(params[key], li),
+                           self._layer_specs[key], ci)
+
+    def mlp_axis(self, p: Dict):
+        """``model`` where the MLP holds a column shard (its product is
+        then psummed), else None."""
+        w = p["up" if self.cfg.mlp == "gelu" else "gate"]["w"]
+        return self.tp if w.shape[1] < self.cfg.d_ff else None
+
+    def _split(self, spec):
+        """(vocab axis, embed axes) of a table's or head's spec entries
+        ``spec`` = (vocabulary entry, model-width entry)."""
+        return self._model(spec[0]), shd.live_axes(self.mesh, spec[1])
+
+    def _rows(self, x: torch.Tensor, whole: bool) -> torch.Tensor:
+        """Every rank's rows of ``x`` (``whole``), or this rank's block of
+        all of them, where the batch is sharded (else ``x``)."""
+        if self.batch is None:
+            return x
+        spec = shd.P(self.batch, *[None] * (x.ndim - 1))
+        return (shd.gather_leaf(x, spec, self.mesh) if whole
+                else shd.shard_leaf(x, spec, self.mesh))
+
+    def embed(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+        """The lookup in this rank's block of the table: every rank's
+        tokens in its vocabulary block (others' read zeros, psummed over
+        ``model``), its width block all-gathered (FSDP's ``data``), then
+        this rank's rows."""
+        spec = self.place.specs["embed"]["table"]
+        table = params["embed"]["table"]
+        vocab, width = self._split(spec)
+        tokens = self._rows(tokens, True)
+        if vocab is None:
+            e = table[tokens]
+        else:
+            n = table.shape[0]
+            t = tokens - vocab.index * n
+            hit = ((t >= 0) & (t < n)).to(table.dtype)
+            e = col.psum(table[t.clamp(0, n - 1)] * hit[..., None], vocab)
+        for ax in reversed(width):
+            e = col.all_gather(e, ax, e.ndim - 1, tiled=True)
+        return scale_embedding(self._rows(e, False), self.cfg)
+
+    def head(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
+        """The final norm, then the head on this rank's block of the
+        table (or ``lm_head``): every rank's rows on its width block,
+        contracted and psummed over ``data``, then this rank's rows; the
+        logits of its vocabulary block all-gathered over ``model``."""
+        specs = self.place.specs
+        norm = self.gather({"n": params["final_norm"]},
+                           {"n": specs["final_norm"]}, None)["n"]
+        x = _apply_norm(self.cfg, norm, x)
+        if self.cfg.tie_embeddings:
+            w, spec = params["embed"]["table"].T, specs["embed"]["table"]
+        else:           # (d, vocab), no bias (``nn.lm_head_spec``)
+            w, spec = params["lm_head"]["out"]["w"], \
+                specs["lm_head"]["out"]["w"]
+            spec = (spec[1], spec[0])
+        vocab, width = self._split(spec)
+        if width:          # every rank's rows, on this rank's width block
+            x = shd.shard_leaf(self._rows(x, True),
+                               shd.P(None, None, spec[1]), self.mesh)
+        xf = wide(x)
+        logits = matmul(xf, w.to(xf.dtype))
+        if width:
+            logits = self._rows(col.psum(logits, width), False)
+        return (logits if vocab is None else
+                col.all_gather(logits, vocab, logits.ndim - 1, tiled=True))
+
+
 def _attn_mlp(cfg: ModelConfig, p: Dict, x: torch.Tensor, caches: List,
-              ci: int, window: int, attend) -> torch.Tensor:
+              ci: int, window: int, attend, ms) -> torch.Tensor:
     """A dense or moe block's decode: attention through ``attend`` on
     cache ``ci`` (updated in ``caches``), then the MLP, or the MoE where
     the block has one."""
     a, caches[ci] = attend(p["attn"], _apply_norm(cfg, p["ln1"], x),
-                           caches[ci], window)
+                           caches[ci], window, ci)
     x = x + a
     h = _apply_norm(cfg, p["ln2"], x)
     if "moe" in p:
-        return x + apply_moe(p["moe"], h, moe_config(cfg))
-    return x + _apply_mlp(cfg, p["mlp"], h)
+        return x + apply_moe(p["moe"], h, moe_config(cfg),
+                             mesh=None if ms is None else ms.mesh)
+    return x + _apply_mlp(cfg, p["mlp"], h,
+                          tp_axis=None if ms is None else ms.mlp_axis(
+                              p["mlp"]))
 
 
 def _decode_layers(params: Dict, caches: List, x: torch.Tensor,
-                   cfg: ModelConfig, attend) -> Tuple[torch.Tensor, List]:
-    """The layers of one decode step, ``attend(p, h, cache, window)``
-    giving an attention layer's output and its updated cache.  SSM layers
-    carry no position: they advance one step per call, whatever ``pos``
-    their attention layers see.  The hybrid's shared block writes cache
-    ``n_layers + g`` after group ``g``, unwindowed.  An moe model's
+                   cfg: ModelConfig, attend,
+                   ms: Optional[_OnMesh] = None) -> Tuple[torch.Tensor, List]:
+    """The layers of one decode step, ``attend(p, h, cache, window, ci)``
+    giving an attention layer's output and its updated cache ``ci``.  SSM
+    layers carry no position: they advance one step per call, whatever
+    ``pos`` their attention layers see.  The hybrid's shared block writes
+    cache ``n_layers + g`` after group ``g``, unwindowed.  An moe model's
     first ``first_dense_layers`` layers come from ``dense_layers``.  An
     encdec decoder layer attends to itself, then to its cache's ``ck`` /
-    ``cv`` under an all-ones mask, then runs its MLP."""
+    ``cv`` under an all-ones mask, then runs its MLP.  ``ms``: the step
+    runs on a mesh."""
     new = list(caches)
+
+    def layer(key, li, ci):
+        if ms is None:
+            return _layer_params(params[key], li)
+        return ms.layer(params, key, li, ci)
+
     if cfg.family == "encdec":
         for li in range(cfg.dec_layers):
-            p = _layer_params(params["dec_layers"], li)
+            p = layer("dec_layers", li, li)
             a, new[li] = attend(p["attn"], _apply_norm(cfg, p["ln1"], x),
-                                caches[li], NO_WINDOW)
+                                caches[li], NO_WINDOW, li)
             x = x + a
             x = x + _cross_decode(cfg, p["cross"],
-                                  _apply_norm(cfg, p["ln_x"], x), caches[li])
-            x = x + _apply_mlp(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x))
+                                  _apply_norm(cfg, p["ln_x"], x), caches[li],
+                                  _WHOLE if ms is None else
+                                  ms.lays[li]["ck"])
+            x = x + _apply_mlp(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x),
+                               tp_axis=None if ms is None else
+                               ms.mlp_axis(p["mlp"]))
         return x, new
     if cfg.family in ("dense", "moe"):
         head = cfg.first_dense_layers if cfg.family == "moe" else 0
         for li, win in enumerate(window_schedule(cfg)):
-            p = (_layer_params(params["dense_layers"], li) if li < head
-                 else _layer_params(params["layers"], li - head))
-            x = _attn_mlp(cfg, p, x, new, li, int(win), attend)
+            p = (layer("dense_layers", li, li) if li < head
+                 else layer("layers", li - head, li))
+            x = _attn_mlp(cfg, p, x, new, li, int(win), attend, ms)
         return x, new
     scfg = ssm_config(cfg)
+    shared = params.get("shared_block")
+    if shared is not None and ms is not None:
+        shared = ms.gather(shared, ms.place.specs["shared_block"],
+                           cfg.n_layers)
     for li in range(cfg.n_layers):
-        p = _layer_params(params["layers"], li)
+        p = layer("layers", li, None)
         y, new[li] = apply_ssm_decode(p["ssm"], _apply_norm(cfg, p["ln1"], x),
-                                      caches[li], scfg)
+                                      caches[li], scfg,
+                                      **({} if ms is None else ms.ssm(li)))
         x = x + y
         if cfg.family == "hybrid" and (li + 1) % cfg.shared_attn_every == 0:
-            x = _attn_mlp(cfg, params["shared_block"], x, new,
+            x = _attn_mlp(cfg, shared, x, new,
                           cfg.n_layers + li // cfg.shared_attn_every,
-                          NO_WINDOW, attend)
+                          NO_WINDOW, attend, ms)
     return x, new
 
 
+def _on_mesh(cfg, mesh, caches, specs) -> Optional[_OnMesh]:
+    return None if mesh is None else _OnMesh(cfg, mesh, caches, specs)
+
+
+def _ends(ms: Optional[_OnMesh], params: Dict, cfg: ModelConfig):
+    """(embedding, head) of a step, on the mesh or not."""
+    if ms is None:
+        return (lambda t: embed_forward(params, t, cfg),
+                lambda x: head_forward(params, x, cfg))
+    return (lambda t: ms.embed(params, t), lambda x: ms.head(params, x))
+
+
 def decode_step(params: Dict, caches: List, token, pos,
-                cfg: ModelConfig) -> Tuple[torch.Tensor, List]:
+                cfg: ModelConfig, mesh=None,
+                specs=None) -> Tuple[torch.Tensor, List]:
     """token (B, 1) int -> logits (B, vocab) f32; updates caches.
 
     ``pos`` is an int (all rows decode the same position — the static
     generate path) or a ``(B,)`` int tensor of per-row positions (the
     continuous-batching ragged path; each row reads/writes its own cache
-    position)."""
+    position).  ``mesh``: run by every rank, on this rank's blocks, the
+    caches' placed by ``specs`` (see the module docstring); the logits
+    are those of this rank's rows, whole on every rank."""
     device = _device(params)
     if isinstance(pos, torch.Tensor) and pos.ndim >= 1:
         pos = pos.to(device)
-    x = embed_forward(params, _as_tokens(token, device), cfg)
+    ms = _on_mesh(cfg, mesh, caches, specs)
+    embed, head = _ends(ms, params, cfg)
+    x = embed(_as_tokens(token, device))
 
-    def attend(p, h, cache, window):
+    def attend(p, h, cache, window, ci):
         if cfg.mla:
-            return apply_mla_decode(p, h, cache, pos, mla_config(cfg))
-        return _attn_decode(cfg, p, h, cache, pos, window)
+            lay = _WHOLE if ms is None else ms.lays[ci]["c_kv"]
+            return apply_mla_decode(p, h, cache, pos, mla_config(cfg),
+                                    lay.seq, lay.lo)
+        return _attn_decode(cfg, p, h, cache, pos, window,
+                            _WHOLE if ms is None else ms.lays[ci]["k"])
 
-    x, new_caches = _decode_layers(params, caches, x, cfg, attend)
-    return head_forward(params, x, cfg)[:, 0], new_caches
+    x, new_caches = _decode_layers(params, caches, x, cfg, attend, ms)
+    return head(x)[:, 0], new_caches
 
 
 def paged_decode_step(params: Dict, caches: List, block_table, token, pos,
-                      write_mask, cfg: ModelConfig,
-                      max_seq: int) -> Tuple[torch.Tensor, List]:
+                      write_mask, cfg: ModelConfig, max_seq: int, mesh=None,
+                      specs=None) -> Tuple[torch.Tensor, List]:
     """token (B, 1) int -> logits (B, vocab) f32 through the block table.
 
     The paged analogue of :func:`decode_step`: ``"paged"`` cache entries
@@ -323,22 +613,28 @@ def paged_decode_step(params: Dict, caches: List, block_table, token, pos,
     by a shared block (the stored value is bit-identical, so skipping the
     write avoids a spurious copy-on-write fork).  The mask becomes lane
     indices on the host once per pass (a host sync if it lies on the
-    card; the engine hands it over from the host)."""
+    card; the engine hands it over from the host).  ``mesh``/``specs``
+    as for :func:`decode_step`: pages hold this rank's KV heads where
+    ``model`` divides them (MLA's latent pages are whole)."""
     _paged_family(cfg)
     device = _device(params)
     block_table = torch.as_tensor(block_table, device=device)
     pos = torch.as_tensor(pos, device=device)
     rows = torch.nonzero(torch.as_tensor(write_mask).cpu()).squeeze(1)
     write_rows = None if len(rows) == len(pos) else rows.to(device)
-    x = embed_forward(params, _as_tokens(token, device), cfg)
+    ms = _on_mesh(cfg, mesh, caches, specs)
+    embed, head = _ends(ms, params, cfg)
+    x = embed(_as_tokens(token, device))
 
-    def attend(p, h, cache, window):
+    def attend(p, h, cache, window, ci):
         if cfg.mla:
             return apply_mla_paged_decode(p, h, cache, block_table, pos,
                                           mla_config(cfg), width=max_seq,
                                           write_rows=write_rows)
         return _attn_decode_paged(cfg, p, h, cache, block_table, pos,
-                                  window, max_seq, write_rows)
+                                  window, max_seq, write_rows,
+                                  None if ms is None else
+                                  ms.lays[ci]["k"].heads)
 
-    x, new_caches = _decode_layers(params, caches, x, cfg, attend)
-    return head_forward(params, x, cfg)[:, 0], new_caches
+    x, new_caches = _decode_layers(params, caches, x, cfg, attend, ms)
+    return head(x)[:, 0], new_caches

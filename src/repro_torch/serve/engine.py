@@ -40,9 +40,20 @@ The module-level :func:`generate` is the one-shot static-batch
 convenience wrapper over the same ``decode_step``; under greedy decoding
 the engine matches it token for token per request.
 
-The engine runs on the card unless ``device`` says otherwise.  The
-reference's ``mesh`` parameter (placement by ``kv_pool_shardings``)
-is serving with a mesh, ROADMAP A14b-serve.
+The engine runs on the card unless ``device`` says otherwise.  With
+``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`; every rank builds the
+engine and runs its host side identically — scheduler, pool, block
+tables, spills, prefix sharing) each rank holds its block of every
+parameter (``param_shardings``) and of the pool (``kv_pool_shardings``),
+gathers and scatters slot rows, copies pages and spills and uploads them
+block by block, and the only exchange between ranks is the decode
+step's own collectives (:mod:`repro_torch.serve.decode`) and, where
+the slot rows divide over the data axes, the assembly of a pass's lanes
+from the ranks that hold their rows (a sum over those axes: a lane's
+row may be any slot's, so the lanes are whole there for the pass, on
+their blocks of ``model``; each stepped row is written back by its
+holder).
+:func:`generate` takes a mesh too, and shards the prompt's batch.
 """
 
 from __future__ import annotations
@@ -55,6 +66,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import collectives as col
+from repro_torch.dist import sharding as shd
 from repro_torch.sched.cache import ScheduleCache
 # schedule_plan is re-exported here: the serve-facing API
 from repro_torch.sched.lowering import schedule_plan
@@ -66,6 +79,7 @@ from repro_torch.serve.pool import KVBlockPool, PoolCapacityError
 from repro_torch.serve.scheduler import (DEFAULT_TENANT, FairScheduler,
                                          Request, Tenant)
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import tree_map
 
 
 @dataclasses.dataclass
@@ -99,7 +113,9 @@ class ServeEngine:
     ``params`` defaults to seeded random weights (``rng_seed``) made on
     ``device``.  ``admission="gang"`` degrades the engine to static
     batching (admit only into an idle engine, wait for the whole gang to
-    finish).
+    finish).  ``mesh``: ``params`` (the global tree) is placed on the
+    ranks and the pool made in blocks (see the module docstring); the
+    device is the mesh's.
     """
 
     def __init__(self, cfg: ModelConfig, *, params: Optional[Dict] = None,
@@ -112,7 +128,7 @@ class ServeEngine:
                  debug_invariants: bool = False,
                  schedule_cache: Optional[Union[ScheduleCache, str]] = None,
                  on_missing: str = "baseline", rng_seed: int = 0,
-                 device=None):
+                 device=None, mesh=None):
         if cfg.family == "encdec":
             raise ValueError("ServeEngine serves decoder-only families")
         if admission not in ("continuous", "gang"):
@@ -120,6 +136,11 @@ class ServeEngine:
                              f"got {admission!r}")
         if max_batch < 1 or prefill_chunk < 0:
             raise ValueError("need max_batch >= 1 and prefill_chunk >= 0")
+        self.mesh = mesh
+        if mesh is not None:
+            from repro_torch.launch.mesh import require_group
+            require_group()
+            device = mesh.device
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_batch = int(max_batch)
@@ -145,15 +166,37 @@ class ServeEngine:
             gen = torch.Generator(device=self.device).manual_seed(rng_seed)
             params = lm.init_model(cfg, gen)
         self.params = params
+        where = "meta" if mesh is not None else self.device
         if self.paged:
             self.caches = init_paged_caches(cfg, self.pool.num_blocks,
                                             self.pool.block_size,
-                                            self.max_batch, self.device)
+                                            self.max_batch, where)
             self._kinds = paged_cache_kinds(cfg)
         else:
             self.caches = init_caches(cfg, self.max_batch + 1, self.max_seq,
-                                      self.device)
+                                      where)
             self._kinds = ["slot"] * len(self.caches)
+        self._specs = self._step_specs = self._row_block = None
+        if mesh is not None:
+            self.params = _place(params, cfg, mesh)
+            self._specs = shd.kv_pool_shardings(
+                cfg, self.caches, mesh,
+                kinds=self._kinds if self.paged else None)
+            self._step_specs = list(self._specs)
+            for i in self._entries("slot"):
+                row = next(iter(self._specs[i].values()))[0]
+                axes = shd.live_axes(mesh, row)
+                if axes:
+                    # slot rows divide over the data axes: a pass's lanes
+                    # are assembled whole there (see _take_rows)
+                    at, n = shd.block_index(mesh, row)
+                    rows = (self.max_batch + 1) // n
+                    self._row_block = (at * rows, rows, axes)
+                self._step_specs[i] = {
+                    k: shd.P(None, *tuple(sp)[1:])
+                    for k, sp in self._specs[i].items()}
+            self.caches = shd.shard_zeros(self.caches, self._specs, mesh,
+                                          self.device)
 
         if isinstance(schedule_cache, str):
             schedule_cache = ScheduleCache(schedule_cache)
@@ -268,25 +311,53 @@ class ServeEngine:
     def _entries(self, kind: str) -> List[int]:
         return [i for i, k in enumerate(self._kinds) if k == kind]
 
+    def _own(self, slots: np.ndarray):
+        """(lanes whose slot row this rank holds, their rows in its
+        block) of the slots ``slots``."""
+        if self._row_block is None:
+            return np.arange(len(slots)), slots
+        lo, n, _ = self._row_block
+        mine = np.flatnonzero((slots >= lo) & (slots < lo + n))
+        return mine, slots[mine] - lo
+
+    def _take_rows(self, a: torch.Tensor, slots: np.ndarray) -> torch.Tensor:
+        """The rows of ``a`` (a ``"slot"`` leaf) at ``slots``.  Where the
+        rows divide over the data axes, each row's holder contributes it
+        and the rest zeros, summed over those axes (exact): every rank
+        gets the rows whole there, on its blocks of the other axes."""
+        mine, local = self._own(slots)
+        if self._row_block is None:
+            return a.index_select(0, self._tensor(local))
+        out = a.new_zeros((len(slots),) + tuple(a.shape[1:]))
+        out[self._tensor(mine)] = a.index_select(0, self._tensor(local))
+        return col.psum(out, self._row_block[2])
+
+    def _put_rows(self, a: torch.Tensor, slots: np.ndarray,
+                  rows: torch.Tensor) -> None:
+        """Write ``rows`` (whole over the data axes) at ``slots`` of
+        ``a``, each on the rank that holds its slot; the scratch row is
+        not written (the reference's out-of-range ``mode="drop"``)."""
+        mine, local = self._own(slots)
+        keep = slots[mine] != self.scratch_slot
+        mine, local = mine[keep], local[keep]
+        a.index_copy_(0, self._tensor(local),
+                      rows[self._tensor(mine)].to(a.dtype))
+
     @torch.inference_mode()
     def _step_rows(self, idx: np.ndarray, step) -> np.ndarray:
         """Gather the ``"slot"`` entries' rows of the lanes ``idx``, run
         ``step(caches)`` (the ``"paged"`` entries passed whole), scatter
         the stepped rows back and return the lanes' greedy tokens.  Idle
-        lanes (gathered from the scratch row) are not written back: the
-        reference's out-of-range ``mode="drop"``."""
-        idx_t = self._tensor(idx)
+        lanes (gathered from the scratch row) are not written back."""
         slots = self._entries("slot")
         caches = list(self.caches)
         for i in slots:
-            caches[i] = {k: a.index_select(0, idx_t)
+            caches[i] = {k: self._take_rows(a, idx)
                          for k, a in caches[i].items()}
         logits, new = step(caches)
-        keep = self._tensor(np.flatnonzero(idx != self.scratch_slot))
-        dst = idx_t[keep]
         for i in slots:
             for k, a in self.caches[i].items():
-                a.index_copy_(0, dst, new[i][k][keep].to(a.dtype))
+                self._put_rows(a, idx, new[i][k])
         for i in self._entries("paged"):     # written in place
             self.caches[i] = new[i]
         return logits.argmax(dim=-1).cpu().numpy()
@@ -296,7 +367,8 @@ class ServeEngine:
         """Step the advancing rows at their own positions."""
         return self._step_rows(idx, lambda caches: decode_step(
             self.params, caches, self._tensor(tok)[:, None],
-            self._tensor(pos), self.cfg))
+            self._tensor(pos), self.cfg, mesh=self.mesh,
+            specs=self._step_specs))
 
     def _paged_step(self, idx: np.ndarray, table: np.ndarray,
                     tok: np.ndarray, pos: np.ndarray,
@@ -307,7 +379,7 @@ class ServeEngine:
         return self._step_rows(idx, lambda caches: paged_decode_step(
             self.params, caches, self._tensor(table),
             self._tensor(tok)[:, None], self._tensor(pos), pos >= wstart,
-            self.cfg, self.max_seq))
+            self.cfg, self.max_seq, mesh=self.mesh, specs=self._step_specs))
 
     @torch.inference_mode()
     def _reset_rows(self, idx: List[int]) -> None:
@@ -317,7 +389,7 @@ class ServeEngine:
         # cache a pure function of the live requests, as the reference
         # does.  Page contents are never read unmasked before being
         # written, so pages are not reset.
-        rows = self._tensor(np.asarray(idx))
+        rows = self._tensor(self._own(np.asarray(idx))[1])
         for i in self._entries("slot"):
             for a in self.caches[i].values():
                 a.index_fill_(0, rows, 0)
@@ -446,8 +518,9 @@ class ServeEngine:
         computed KV — resume is a remap + upload, not a recompute."""
         t = self.pool.table(victim.request.id)
         ids = self._tensor(np.asarray(t.blocks))
+        slot = np.asarray([victim.slot])
         data = [{k: (a.index_select(0, ids) if kind == "paged"
-                     else a[victim.slot]).to("cpu", copy=True)
+                     else self._take_rows(a, slot)[0]).to("cpu", copy=True)
                  for k, a in c.items()}
                 for c, kind in zip(self.caches, self._kinds)]
         return _Spill(tokens=list(victim.tokens), pos=victim.pos,
@@ -464,7 +537,7 @@ class ServeEngine:
                 if kind == "paged":
                     a.index_copy_(0, ids, h)
                 else:
-                    a[table.slot].copy_(h)
+                    self._put_rows(a, np.asarray([table.slot]), h[None])
 
     def _evict(self) -> None:
         done = [s for s in self._active if s.done]
@@ -536,9 +609,10 @@ class ServeEngine:
                    for a in self.caches[i].values())
 
     def kv_bytes_allocated(self) -> int:
-        """Device bytes backing the KV cache.  Paged mode scales with
-        ``kv_blocks × block_size``; dense mode with
-        ``(max_batch + 1) × max_seq`` regardless of occupancy."""
+        """Device bytes backing the KV cache (on a mesh, this rank's
+        blocks).  Paged mode scales with ``kv_blocks × block_size``;
+        dense mode with ``(max_batch + 1) × max_seq`` regardless of
+        occupancy."""
         return self._bytes("slot") + self._bytes("paged")
 
     def peak_kv_bytes(self) -> int:
@@ -576,7 +650,7 @@ class ServeEngine:
 
 @torch.inference_mode()
 def generate(params: Dict, cfg: ModelConfig, prompt, max_new_tokens: int,
-             max_seq: Optional[int] = None) -> torch.Tensor:
+             max_seq: Optional[int] = None, mesh=None) -> torch.Tensor:
     """One-shot static-batch convenience: (B, P) int prompt ->
     (B, P + max_new_tokens) greedy tokens, one ``decode_step`` per
     position on the parameters' device.
@@ -588,17 +662,46 @@ def generate(params: Dict, cfg: ModelConfig, prompt, max_new_tokens: int,
     the engine's ``max_seq`` here so the cache geometry — and hence the
     float summation order — is identical).  An encoder-decoder decodes
     over its caches' cross keys and values, zeros here, as in the
-    reference; the engine refuses it."""
-    device = params["embed"]["table"].device
-    prompt = torch.as_tensor(prompt, dtype=torch.long, device=device)
+    reference; the engine refuses it.
+
+    With ``mesh`` (run by every rank) ``params`` is the global tree: each
+    rank places its blocks by ``param_shardings``, makes its blocks of
+    the caches by ``decode_cache_shardings`` and decodes its block of the
+    prompt's batch (``batch_spec``); every rank returns the whole
+    tokens."""
+    prompt = torch.as_tensor(prompt, dtype=torch.long)
     B, P = prompt.shape
     total = P + max_new_tokens
-    caches = init_caches(cfg, B, max_seq or total, device)
-    tokens = torch.zeros((B, total), dtype=torch.long, device=device)
+    specs = None
+    if mesh is None:
+        device = params["embed"]["table"].device
+        caches = init_caches(cfg, B, max_seq or total, device)
+    else:
+        from repro_torch.launch.mesh import require_group
+        require_group()
+        device = mesh.device
+        params = _place(params, cfg, mesh)
+        meta = init_caches(cfg, B, max_seq or total, "meta")
+        specs = shd.decode_cache_shardings(cfg, meta, mesh)
+        caches = shd.shard_zeros(meta, specs, mesh, device)
+        prompt = shd.shard_leaf(prompt, shd.batch_spec(mesh, B), mesh)
+    tokens = torch.zeros((prompt.shape[0], total), dtype=torch.long,
+                         device=device)
     tokens[:, :P] = prompt
     for pos in range(total - 1):
         logits, caches = decode_step(params, caches, tokens[:, pos:pos + 1],
-                                     pos, cfg)
+                                     pos, cfg, mesh=mesh, specs=specs)
         if pos + 1 >= P:    # teacher-force inside the prompt
             tokens[:, pos + 1] = logits.argmax(dim=-1)
+    if mesh is not None:
+        tokens = shd.gather_leaf(tokens, shd.batch_spec(mesh, B), mesh)
     return tokens
+
+
+def _place(params: Dict, cfg: ModelConfig, mesh) -> Dict:
+    """This rank's blocks of the global ``params`` by ``param_shardings``,
+    on the mesh's device."""
+    from repro_torch.models import for_config
+    specs = shd.param_shardings(for_config(cfg).model_spec(cfg), mesh)
+    return tree_map(lambda x, s: shd.NamedSharding(mesh, s).shard(x),
+                    params, specs)

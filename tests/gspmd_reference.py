@@ -194,3 +194,144 @@ def trainer_reference(subproc, tmp_dir, tcfg_kw, archs, meshes):
                               seed=tc.seed,
                               opt=[tc.lr, tc.warmup, tc.steps]))
     return run_reference(subproc, tmp_dir, cases)
+
+
+
+_SERVE_SCRIPT = r"""
+import json
+import numpy as np
+import jax, jax.numpy as jnp
+from jax.sharding import AxisType
+from repro.configs import get_config
+from repro.dist import sharding as shd
+from repro.launch.mesh import host_mesh_shape
+from repro.models import encdec, lm
+from repro.serve import engine as jengine
+from repro.serve.decode import decode_step, init_caches
+
+def unflat(pairs):
+    out = {}
+    for path, leaf in pairs.items():
+        node = out
+        keys = path.strip("/").split("/")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = jnp.asarray(leaf)
+    return out
+
+def drive(cfg, params, mode, kw, jobs):
+    eng = jengine.ServeEngine(cfg, params=params, mesh=mesh,
+                              paged=mode == "paged", **kw)
+    reqs = [eng.submit(p, n) for p, n in jobs[:2]]
+    for _ in range(3):
+        eng.step()
+    reqs += [eng.submit(p, n) for p, n in jobs[2:]]
+    eng.run()
+    return [list(map(int, r.output)) for r in reqs]
+
+def logits_run(cfg, params, arch):
+    model = encdec if cfg.family == "encdec" else lm
+    steps = np.asarray(spec["logits"]["tokens"][arch], np.int32)
+    caches = init_caches(cfg, steps.shape[1], spec["generate"]["max_seq"])
+    caches = jax.device_put(
+        caches, shd.decode_cache_shardings(cfg, caches, mesh))
+    placed = jax.device_put(
+        params, shd.param_shardings(model.model_spec(cfg), mesh))
+    step = jax.jit(lambda p, c, t, pos: decode_step(p, c, t, pos, cfg,
+                                                    mesh=mesh))
+    out = []
+    for i, tok in enumerate(steps):
+        logits, caches = step(placed, caches, jnp.asarray(tok), jnp.int32(i))
+        out.append(np.asarray(logits))
+    return out
+
+spec = json.loads(open("SPEC_PATH").read())
+mname = "MESH_LABEL"
+arrays, streams = {}, {}
+shape, names = host_mesh_shape(4, **spec["meshes"][mname])
+mesh = jax.make_mesh(shape, names, axis_types=(AxisType.Auto,) * len(shape))
+with jax.set_mesh(mesh):
+    for arch in spec["archs"]:
+        cfg = get_config(arch, reduced=True)
+        params = unflat(dict(np.load(spec["params"][arch])))
+        g = spec["generate"]
+        prompt = jnp.asarray(np.asarray(g["prompts"][arch]), jnp.int32)
+        toks = jengine.generate(params, cfg, prompt, g["new"],
+                                max_seq=g["max_seq"], mesh=mesh)
+        arrays[f"{mname}/{arch}/tokens"] = np.asarray(toks)
+        for i, lg in enumerate(logits_run(cfg, params, arch)):
+            arrays[f"{mname}/{arch}/logits{i}"] = lg
+        if cfg.family == "encdec":
+            continue
+        for mode in ("slot", "paged"):
+            streams[f"{mname}/{arch}/{mode}"] = drive(
+                cfg, params, mode, spec["engine"], spec["jobs"][arch])
+    init = spec["init_draw"]
+    params = unflat(dict(np.load(init["params"])))
+    cfg = get_config(init["arch"], reduced=True)
+    for i, lg in enumerate(logits_run(cfg, params, init["arch"])):
+        arrays[f"{mname}/init_draw/logits{i}"] = lg
+    rows = spec["rows_on_data"]
+    for arch, mode in (rows["cases"] if mname == rows["mesh"] else ()):
+        cfg = get_config(arch, reduced=True)
+        params = unflat(dict(np.load(spec["params"][arch])))
+        streams[f"{mname}/{arch}/{mode}/rows_on_data"] = drive(
+            cfg, params, mode, rows["engine"], spec["jobs"][arch])
+np.savez("OUT_NPZ", **arrays)
+open("OUT_JSON", "w").write(json.dumps(streams))
+"""
+
+
+def start_serve_reference(tmp_dir, spec):
+    """Start the reference's serving, one subprocess with 4 host devices
+    a mesh of ``spec["meshes"]`` ({label: keywords of
+    ``host_mesh_shape``}; ``AxisType.Auto`` axes under ``jax.set_mesh``),
+    for each of ``spec["archs"]`` from its parameters (``spec["params"]``:
+    {arch: an ``.npz`` of flat parameters}): ``generate(mesh=)`` of
+    ``spec["generate"]`` (``prompts`` by arch, ``new``, ``max_seq``), the
+    logits of ``decode_step(mesh=)`` over ``spec["logits"]["tokens"]
+    [arch]`` ((passes, B, 1), pass ``i`` at position ``i``, caches of
+    ``max_seq``; and the same for ``spec["init_draw"]["arch"]`` from the
+    parameters ``spec["init_draw"]["params"]``), and for the decoder-only
+    families the streams of a slot
+    and a paged ``ServeEngine(mesh=)`` (keywords ``spec["engine"]``) over
+    ``spec["jobs"][arch]`` ((prompt, new tokens) pairs: two submitted,
+    three steps, the rest submitted, drained), and on
+    ``spec["rows_on_data"]["mesh"]`` the same for each (arch, mode) of its
+    ``cases`` by an engine of its ``engine`` keywords.  Returns a function
+    that waits for them and returns ({"mesh/arch/tokens" |
+    "mesh/arch/logits{i}" | "mesh/init_draw/logits{i}": array},
+    {"mesh/arch/slot" | "mesh/arch/paged" | "mesh/arch/mode/rows_on_data":
+    streams})."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ,
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    (tmp_dir / "serve_spec.json").write_text(json.dumps(spec))
+    procs = {}
+    for label in spec["meshes"]:
+        code = (_SERVE_SCRIPT
+                .replace("SPEC_PATH", str(tmp_dir / "serve_spec.json"))
+                .replace("MESH_LABEL", label)
+                .replace("OUT_NPZ", str(tmp_dir / f"serve_{label}.npz"))
+                .replace("OUT_JSON", str(tmp_dir / f"serve_{label}.json")))
+        procs[label] = subprocess.Popen(
+            [sys.executable, "-c", code], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+    def wait(timeout=600):
+        arrays, streams = {}, {}
+        for label, proc in procs.items():
+            out, err = proc.communicate(timeout=timeout)
+            if proc.returncode:
+                raise AssertionError(f"reference serving on {label} failed "
+                                     f"(rc={proc.returncode})\n{err[-4000:]}")
+            arrays.update(np.load(tmp_dir / f"serve_{label}.npz"))
+            streams.update(json.loads(
+                (tmp_dir / f"serve_{label}.json").read_text()))
+        return arrays, streams
+    return wait

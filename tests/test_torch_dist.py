@@ -168,6 +168,16 @@ def test_a_mesh_needs_a_process_group():
     assert tmesh.pick_backend("cpu", 4) == "gloo"
 
 
+def test_a_finished_rank_skips_the_interpreter_teardown(tmp_path):
+    """A rank whose work is done leaves without the interpreter's
+    teardown: a teardown that aborts (here an ``atexit`` abort; under
+    load, gloo's native state in ``test_sharded_step_matches_meshless_step
+    [pipe4]``, ROADMAP §C) no longer fails a run whose results are
+    written."""
+    _run(tmp_path, ranks.abort_at_exit, 2, str(tmp_path))
+    assert [_load(tmp_path, f"done_{r}.pt") for r in range(2)] == [0, 1]
+
+
 # ---------------------------------------------------------------------------
 # sharding rules, on the same abstract meshes
 # ---------------------------------------------------------------------------

@@ -214,3 +214,22 @@ def test_moe_ep_matches_reference(tmp_path, reference, cf):
                                   for m in range(2)])
         np.testing.assert_allclose(got, want.numpy(), atol=1e-5, rtol=0,
                                    err_msg=path)
+
+
+def test_staged_sums_and_shift(tmp_path):
+    """The host-staged transport's small sums (an all-gather summed in the
+    group's rank order, ``collectives.GATHER_SUM_BYTES``) equal
+    ``all_reduce``'s within f32 rounding and are the same bits on every
+    rank; a larger sum takes ``all_reduce``.  ``shift_down`` over
+    (data, model) hands each combined index its successor's block and the
+    last zeros."""
+    outs = _spawn(tmp_path, ranks.staged_sums)
+    for o in outs:
+        for name, (plain, staged) in o["sums"].items():
+            np.testing.assert_allclose(staged, plain, rtol=1e-6, atol=1e-6,
+                                       err_msg=name)
+            np.testing.assert_array_equal(staged, outs[0]["sums"][name][1])
+        i = o["index"]
+        want = (ranks.rank_inputs(i + 1, (3, 4))[0] if i < 3
+                else np.zeros((3, 4), np.float32))
+        np.testing.assert_array_equal(o["shifted"], want)

@@ -18,6 +18,14 @@ def _save(out_dir, name, obj):
     os.replace(path + ".tmp", path)
 
 
+def abort_at_exit(rank, out_dir):
+    """Write this rank's result, then arm an abort for the interpreter's
+    teardown."""
+    import atexit
+    _save(out_dir, f"done_{rank}.pt", rank)
+    atexit.register(os.abort)
+
+
 def collectives(rank, out_dir):
     """psum over ``model``, over (``pipe``, ``model``), pmean over
     ``pipe``, and a ring ppermute over ``pipe`` on a (pipe=2, model=2)

@@ -271,3 +271,212 @@ def _like(cfg):
                        torch.zeros((), dtype=torch.int32))
     return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
                                           device="meta"), state)
+
+
+# ---------------------------------------------------------------------------
+# serving with a mesh
+# ---------------------------------------------------------------------------
+
+def drive(engine, jobs, check=lambda: None):
+    """Submit two of ``jobs`` ((prompt, new tokens) pairs), step three
+    times, submit the rest and drain, calling ``check`` after every step;
+    the streams, by job."""
+    reqs = [engine.submit(p, n) for p, n in jobs[:2]]
+    for _ in range(3):
+        engine.step()
+        check()
+    reqs += [engine.submit(p, n) for p, n in jobs[2:]]
+    while engine.active or engine.scheduler.pending():
+        engine.step()
+        check()
+    return [list(map(int, r.output)) for r in reqs]
+
+
+# the counters the spill and fork runs compare
+RUN_COUNTERS = ("prefix_hits", "cow_forks", "preempt_spills",
+                "resume_uploads", "passes", "admissions")
+
+
+def spill_run(cfg, params, check=lambda e: None, **kw):
+    """A paged run of reduced zamba2-2.7b over an oversubscribed pool
+    (``tests/test_torch_serve.py``'s spill test): 3 prompts of 12 tokens,
+    20 new each, 6 blocks of 8 positions, 4 lanes unless ``kw`` says
+    otherwise.  (streams, counters)."""
+    import numpy as np
+
+    from repro_torch.serve import ServeEngine
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, 12).tolist() for _ in range(3)]
+    engine = ServeEngine(cfg, params=params, **{
+        **dict(max_batch=4, max_seq=48, block_size=8, kv_blocks=6,
+               paged=True, share_prefix=False), **kw})
+    reqs = [engine.submit(p, 20) for p in prompts]
+    while engine.active or engine.scheduler.pending():
+        engine.step()
+        check(engine)
+    return ([list(map(int, r.output)) for r in reqs],
+            {k: engine.counters[k] for k in RUN_COUNTERS})
+
+
+def fork_run(cfg, params, check=lambda e: None, **kw):
+    """The shared-prefix trace of ``tests/test_torch_moe.py`` through a
+    paged engine of reduced deepseek-v2-lite-16b: identical prompts map
+    and fork MLA pages, and the pool spills.  (streams, counters)."""
+    from repro_torch.serve import ServeEngine, TrafficConfig, poisson_trace
+    traffic = TrafficConfig(qps=100.0, n_requests=10, n_tenants=2,
+                            prompt_len=(0, 2), output_len=(4, 16),
+                            vocab=cfg.vocab, seed=1, prefix_tokens=10,
+                            prefix_groups=2)
+    engine = ServeEngine(cfg, params=params, max_batch=4, max_seq=48,
+                         block_size=4, kv_blocks=16, paged=True,
+                         prefill_chunk=2, **kw)
+    reqs = [engine.submit(a.prompt, a.max_new_tokens)
+            for a in poisson_trace(traffic, ["t0", "t1"])]
+    while engine.active or engine.scheduler.pending():
+        engine.step()
+        check(engine)
+    return ([list(map(int, r.output)) for r in reqs],
+            {k: engine.counters[k] for k in RUN_COUNTERS})
+
+
+def _block_shapes(caches, specs, like, mesh):
+    """The cache leaves whose shape is not this rank's block of ``like``
+    (the global caches on the meta device) under ``specs``."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.utils.tree import tree_leaves
+    return [(tuple(c.shape), tuple(shd.shard_leaf(g, s, mesh).shape))
+            for c, s, g in zip(tree_leaves(caches), tree_leaves(specs),
+                               tree_leaves(like))
+            if tuple(c.shape) != tuple(shd.shard_leaf(g, s, mesh).shape)]
+
+
+def _engine_like(engine):
+    """The global caches of ``engine`` on the meta device."""
+    from repro_torch.serve.decode import init_caches, init_paged_caches
+    if engine.paged:
+        return init_paged_caches(engine.cfg, engine.pool.num_blocks,
+                                 engine.pool.block_size, engine.max_batch,
+                                 "meta")
+    return init_caches(engine.cfg, engine.max_batch + 1, engine.max_seq,
+                       "meta")
+
+
+def serve_runs(rank, out_dir, spec, params_np):
+    """Serving with a mesh for each mesh and arch of ``spec`` (as
+    ``gspmd_reference.run_serve_reference`` takes it) from the global
+    parameters ``params_np`` ({arch: flat numpy}): ``generate(mesh=)``'s
+    tokens, the logits of ``decode_step(mesh=)`` (gathered over the
+    batch), the slot and paged engines' streams, and a zamba2 spill run
+    and a deepseek fork run with their counters, the logits of
+    ``spec["init_draw"]``'s arch from its parameters
+    (``params_np["init_draw"]``), and on
+    ``spec["rows_on_data"]["mesh"]`` the streams of its cases' engines,
+    whose slot rows divide over ``data``; after every pass and
+    every engine step, the cache leaves whose shape left this rank's
+    block (``bad``).  Every rank saves its results."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import for_config
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.serve import ServeEngine, decode_step, generate
+    from repro_torch.serve.decode import init_caches
+    out = {"bad": []}
+    for mname, mkw in spec["meshes"].items():
+        mesh = make_host_mesh(device="cpu", **mkw)
+        out[mname] = {"coords": dict(mesh.coords)}
+
+        def logits_run(cfg, params, arch, where):
+            """The logits of ``decode_step(mesh=)`` over the arch's
+            passes, gathered over the batch."""
+            steps = torch.tensor(spec["logits"]["tokens"][arch])
+            B = steps.shape[1]
+            like = init_caches(cfg, B, spec["generate"]["max_seq"], "meta")
+            specs = shd.decode_cache_shardings(cfg, like, mesh)
+            caches = shd.shard_zeros(like, specs, mesh, "cpu")
+            local = shd.shard_tree(params, shd.param_shardings(
+                for_config(cfg).model_spec(cfg), mesh), mesh)
+            bspec = shd.batch_spec(mesh, B)
+            got = []
+            for i, tok in enumerate(steps):
+                logits, caches = decode_step(
+                    local, caches, shd.shard_leaf(tok, bspec, mesh), i, cfg,
+                    mesh=mesh, specs=specs)
+                got.append(shd.gather_leaf(
+                    logits, shd.P(bspec[0], None), mesh).numpy())
+                out["bad"] += [(where + (i,), b) for b in
+                               _block_shapes(caches, specs, like, mesh)]
+            return got
+
+        def check(engine, where):
+            out["bad"] += [(where, b) for b in _block_shapes(
+                engine.caches, engine._specs, _engine_like(engine), mesh)]
+
+        for arch in spec["archs"]:
+            cfg = get_config(arch, reduced=True)
+            params = params_from_jax(unflat(params_np[arch]), cfg)
+            g = spec["generate"]
+            res = out[mname][arch] = {}
+            res["tokens"] = generate(
+                params, cfg, torch.tensor(g["prompts"][arch]), g["new"],
+                max_seq=g["max_seq"], mesh=mesh).numpy()
+            res["logits"] = logits_run(cfg, params, arch, (mname, arch))
+            if cfg.family == "encdec":
+                continue
+            for mode in ("slot", "paged"):
+                engine = ServeEngine(cfg, params=params, mesh=mesh,
+                                     paged=mode == "paged", **spec["engine"])
+                res[mode] = drive(engine, spec["jobs"][arch], lambda: check(
+                    engine, (mname, arch, mode)))
+                res[mode + "_pool_bytes"] = engine.kv_bytes_allocated()
+        init = spec["init_draw"]
+        cfg = get_config(init["arch"], reduced=True)
+        out[mname]["init_draw"] = logits_run(
+            cfg, params_from_jax(unflat(params_np["init_draw"]), cfg),
+            init["arch"], (mname, "init_draw"))
+        rows = spec["rows_on_data"]
+        for arch, mode in (rows["cases"] if mname == rows["mesh"] else ()):
+            cfg = get_config(arch, reduced=True)
+            engine = ServeEngine(cfg, mesh=mesh, paged=mode == "paged",
+                                 params=params_from_jax(
+                                     unflat(params_np[arch]), cfg),
+                                 **rows["engine"])
+            out[mname][arch][mode + "/rows_on_data"] = drive(
+                engine, spec["jobs"][arch], lambda: check(
+                    engine, (mname, arch, mode, "rows_on_data")))
+        for arch, run in (("zamba2-2.7b", spill_run),
+                          ("deepseek-v2-lite-16b", fork_run)):
+            cfg = get_config(arch, reduced=True)
+            params = params_from_jax(unflat(params_np[arch]), cfg)
+            out[mname][run.__name__] = run(
+                cfg, params, lambda e: check(e, (mname, run.__name__)),
+                mesh=mesh)
+            if run is spill_run and mname == rows["mesh"]:
+                out[mname]["spill_run/rows_on_data"] = spill_run(
+                    cfg, params, lambda e: check(e, (mname, "rows")),
+                    mesh=mesh, max_batch=rows["engine"]["max_batch"])
+    _save(out_dir, f"serve_{rank}.pt", out)
+
+
+def staged_sums(rank, out_dir):
+    """On (data=2, model=2), rank (d, m) with index 2d + m: ``psum`` over
+    both axes of a small and of a large input, by the CPU transport and
+    with the mesh marked host-staged; and ``shift_down`` of its input over
+    (data, model)."""
+    from repro_torch.dist import collectives as col
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(model=2, device="cpu")
+    index = 2 * mesh.coords["data"] + mesh.coords["model"]
+    axes = [mesh.axis("data"), mesh.axis("model")]
+    out = {"index": index, "sums": {}}
+    for name, shape in (("small", (8, 1, 64)),
+                        ("large", (col.GATHER_SUM_BYTES // 4 + 1,))):
+        x = torch.from_numpy(rank_inputs(index, shape)[0])
+        mesh.staged = False
+        plain = col.psum(x, axes).numpy()
+        mesh.staged = True
+        out["sums"][name] = (plain, col.psum(x, axes).numpy())
+    mesh.staged = False
+    out["shifted"] = col.shift_down(
+        torch.from_numpy(rank_inputs(index, (3, 4))[0]), axes).numpy()
+    _save(out_dir, f"staged_sums_{rank}.pt", out)
