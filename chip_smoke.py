@@ -127,7 +127,10 @@ Phases, each printed on lines of its own:
    (1.54 B parameters) on the pipeline's stub frames, K6 alone at 2 (E +
    2D) = 192 a step (each encoder layer's self-attention and each
    decoder layer's self- and cross-attention, in the forward and in
-   remat's recompute);
+   remat's recompute); beside stablelm-3b's measured step, its roofline
+   terms (``launch.jcost`` on fake tensors on the host at 1 and 2
+   layers, extrapolated to the depth, over ``launch.roofline``'s H100
+   peaks) and model_flops / (step_s x 989e12);
 5b. the pipeline train step — stablelm-3b at full width on 4 ranks
    spawned on the one card (``launch.mesh.run_ranks``: gloo, every
    collective staged through the host; NCCL refuses two ranks on one
@@ -272,10 +275,6 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
-
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 and compute by type.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 # Serving path shapes at qwen1.5-4b full width with 8 lanes.
 LANES, D_MODEL, D_FF = 8, 2560, 6912
@@ -454,8 +453,10 @@ def timed(fn, iters: int = 30):
 
 
 def bound(nbytes: float, ops: float, dtype: str):
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    # the H100 SXM peaks, kept in one place with their sources
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+    t_bytes = nbytes / HBM_BW * 1e3
+    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2142,9 +2143,49 @@ def train_sites(cfg):
                     else 0)}
 
 
-def train_phase(arch, profile_dir):
+def train_roofline(cfg, step_s: float) -> None:
+    """The roofline terms of one train step of ``cfg`` at the phase's
+    global batch, mesh-less, beside its measured ``step_s``: flops and
+    ``bytes_fused`` from ``launch.jcost.cost_of`` on fake tensors on the
+    host (nothing runs on the card) at 1 and 2 layers, extrapolated
+    linearly to ``cfg.n_layers``, over the H100 peaks of
+    ``launch.roofline``; and ``model_flops / (step_s x peak)``, the model
+    flops utilisation of the measured step."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.jcost import cost_of
+    from repro_torch.launch.specs import cell
+
+    t0 = time.perf_counter()
+    at = {}
+    for n in (1, 2):
+        with FakeTensorMode():
+            fn, args = cell(cfg.replace(n_layers=n), "train", SEQ, BATCH)
+            at[n] = cost_of(fn, *args)
+    est = {k: at[1][k] + (cfg.n_layers - 1) * (at[2][k] - at[1][k])
+           for k in ("flops", "bytes_fused")}
+    peak = rl.PEAK_FLOPS[cfg.dtype]
+    model_flops = 6.0 * cfg.n_active_params() * SEQ * BATCH
+    line = {"n_layers": cfg.n_layers, "tokens": SEQ * BATCH,
+            "flops": est["flops"], "bytes_fused": est["bytes_fused"],
+            "compute_s": est["flops"] / peak,
+            "memory_s": est["bytes_fused"] / rl.HBM_BW,
+            "step_s": step_s, "model_flops": model_flops,
+            "model_flops_per_step_s_peak": model_flops / (step_s * peak),
+            "counted_s": time.perf_counter() - t0}
+    print(f"  roofline of the step ({cfg.name}, launch.jcost at 1 and 2 "
+          f"layers to {cfg.n_layers}, peak {peak:.3g} FLOP/s, "
+          f"{rl.HBM_BW:.3g} B/s) " + json.dumps(line), flush=True)
+    if not (line["flops"] > 0 and line["bytes_fused"] > 0
+            and 0 < line["model_flops_per_step_s_peak"] < 1):
+        fail("the step's roofline terms are out of range")
+
+
+def train_phase(arch, profile_dir, roofline=False):
     """``TRAIN_STEPS`` steps of ``arch`` at full width, with the layers of
-    ``TRAIN_LAYERS`` where the full depth does not fit one card."""
+    ``TRAIN_LAYERS`` where the full depth does not fit one card; with
+    ``roofline``, its roofline terms beside the measured step
+    (:func:`train_roofline`)."""
     import math
 
     import torch
@@ -2219,6 +2260,8 @@ def train_phase(arch, profile_dir):
         "max_memory_allocated_gb": peak_gb,
     }
     print(f"  training main path ({arch}) " + json.dumps(stats), flush=True)
+    if roofline:
+        train_roofline(cfg, stats["steady_step_s"])
     if profile_dir:
         profile_train_step(trainer, profile_dir)
     del trainer
@@ -4305,7 +4348,8 @@ def main() -> int:
                                                    args.profile)}
 
     phase("5 training main paths")
-    launches["train"] = train_phase("stablelm-3b", args.profile)
+    launches["train"] = train_phase("stablelm-3b", args.profile,
+                                    roofline=True)
     launches["train_ssm"] = train_phase(SSM_ARCH, args.profile)
     launches["train_hybrid"] = train_phase(HYBRID_ARCH, args.profile)
     launches["train_moe"] = train_phase(MOE_ARCH, args.profile)

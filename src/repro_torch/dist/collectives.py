@@ -28,6 +28,15 @@ an all-to-all's the all-to-all that swaps its split and concat
 dimensions.  A ``psum_scatter`` is an all-reduce followed by this
 rank's block (gloo has no reduce-scatter on every build).
 
+Every collective reports itself, once where it is issued, to each
+observer in :data:`OBSERVERS` (``launch.roofline.count_collectives``
+opens one): its kind (the reference's HLO names: ``psum``/``pmean`` an
+``all-reduce`` an axis, ``all_gather`` an ``all-gather``,
+``psum_scatter`` a ``reduce-scatter``, ``all_to_all`` an
+``all-to-all``, ``ppermute``/``shift_down`` a ``collective-permute``),
+its result on this rank and the global ranks of its group.  With no
+observer open a report costs one test of an empty list.
+
 Transport: when the mesh runs the ``gloo`` backend on CUDA tensors (ranks
 that share one card, which NCCL refuses), every collective stages its
 tensor through the host explicitly (gloo takes no CUDA tensor for a
@@ -36,7 +45,7 @@ point-to-point send); ``nccl`` and CPU tensors go as they are.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Callable, List, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -59,6 +68,16 @@ class Axis:
 
 
 Axes = Union[Axis, Sequence[Axis]]
+
+
+# open observers of the collectives: each is called as
+# ``observer(kind, result, ranks)``
+OBSERVERS: List[Callable[[str, torch.Tensor, Tuple[int, ...]], None]] = []
+
+
+def _report(kind: str, result: torch.Tensor, ranks) -> None:
+    for observer in OBSERVERS:
+        observer(kind, result, tuple(ranks))
 
 
 def _axes(axis: Axes) -> Tuple[Axis, ...]:
@@ -101,16 +120,20 @@ def _wire_on(x: torch.Tensor, mesh) -> torch.Tensor:
 GATHER_SUM_BYTES = 1 << 20
 
 
-def _all_reduce(x: torch.Tensor, axes: Tuple[Axis, ...]) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, axes: Tuple[Axis, ...],
+                kind: str = "all-reduce") -> torch.Tensor:
     """Sum of ``x`` over ``axes`` (one collective an axis of size > 1, in
     the order given): an all-reduce, or where the mesh stages through the
     host and ``x`` is small, an all-gather summed in the group's rank
-    order, the same on every rank."""
+    order, the same on every rank.  Each is reported as ``kind`` (none
+    where ``kind`` is empty: the caller reports)."""
     live = [a for a in axes if a.size > 1]
     if not live:
         return x.clone()
     buf = _wire(x, live[0])
     for a in live:
+        if kind:
+            _report(kind, x, a.ranks)
         if a.mesh.staged and \
                 buf.numel() * buf.element_size() <= GATHER_SUM_BYTES:
             buf = _gather_flat(buf, a).sum(dim=0)
@@ -137,6 +160,7 @@ def _permute_ranks(x: torch.Tensor, mesh, ranks, me: int, perm,
         raise ValueError(f"ppermute: index {me} receives twice in {perm}")
     if sends == [me] and recvs == [me]:
         return x.clone()
+    _report("collective-permute", x, ranks)
     buf = _wire_on(x, mesh)
     out = torch.zeros_like(buf)
     ops = [dist.P2POp(dist.isend, buf, ranks[d], group) for d in sends]
@@ -239,7 +263,9 @@ class _AllGather(torch.autograd.Function):
         if axis.size == 1:
             return x.unsqueeze(dim).clone() if not tiled else x.clone()
         parts = _gather_parts(x, axis)
-        return torch.cat(parts, dim) if tiled else torch.stack(parts, dim)
+        out = torch.cat(parts, dim) if tiled else torch.stack(parts, dim)
+        _report("all-gather", out, axis.ranks)
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -253,7 +279,11 @@ class _PSumScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, dim):
         ctx.axis, ctx.dim = axis, dim
-        return block_of(_all_reduce(x, (axis,)), axis, dim).contiguous()
+        out = block_of(_all_reduce(x, (axis,), kind=""), axis,
+                       dim).contiguous()
+        if axis.size > 1:
+            _report("reduce-scatter", out, axis.ranks)
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -275,6 +305,7 @@ def _exchange(x: torch.Tensor, axis: Axis, split: int,
     order = [dist.get_group_rank(axis.group, r) for r in axis.ranks]
     blocks = x.unbind(split)
     send = torch.stack([blocks[order.index(g)] for g in range(axis.size)])
+    _report("all-to-all", send, axis.ranks)
     buf = _wire(send, axis)
     out = torch.empty_like(buf)
     dist.all_to_all_single(out, buf, group=axis.group)

@@ -89,12 +89,32 @@ def softmax(x: torch.Tensor, *, br: Optional[int] = None,
     return _sm_mod.softmax(x, br=br)
 
 
+# Open observers of :func:`flash_attention` (``launch.jcost.cost_of``
+# with ``fused_attn``): each is a context manager factory called as
+# ``observer(q, k, v)`` around the call, whose ``__enter__`` returns a
+# callable that takes the output.  Empty, a call costs one test.
+ATTENTION_OBSERVERS: list = []
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = ref.NO_WINDOW,
                     q_offset: int = 0, scale: Optional[float] = None,
                     impl: Impl = None) -> torch.Tensor:
     """q: (B, H, Sq, D); k: (B, KH, Sk, D); v: (B, KH, Sk, Dv) ->
     (B, H, Sq, Dv)."""
+    if ATTENTION_OBSERVERS:
+        with contextlib.ExitStack() as stack:
+            seen = [stack.enter_context(obs(q, k, v))
+                    for obs in ATTENTION_OBSERVERS]
+            out = _flash_attention(q, k, v, causal, window, q_offset, scale,
+                                   impl)
+            for done in seen:
+                done(out)
+        return out
+    return _flash_attention(q, k, v, causal, window, q_offset, scale, impl)
+
+
+def _flash_attention(q, k, v, causal, window, q_offset, scale, impl):
     if _use_ref(impl, "flash_attention", q, k, v):
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, scale=scale)

@@ -27,6 +27,7 @@ import sys
 import time
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -73,6 +74,10 @@ class Mesh(AbstractMesh):
             mesh_dim_names=self.axis_names)
         self.coords: Dict[str, int] = dict(
             zip(self.axis_names, self.device_mesh.get_coordinate()))
+        # a host copy of the rank grid, read by :meth:`axis_ranks`: no
+        # method of a mesh reads a tensor's value, so a mesh serves
+        # under ``FakeTensorMode`` too (the dry run, launch.dryrun)
+        self.grid = np.array(self.device_mesh.mesh.tolist(), dtype=np.int64)
         self._axes = {}
 
     def group(self, name: str):
@@ -83,10 +88,9 @@ class Mesh(AbstractMesh):
         mesh order) through this rank, by their combined coordinate,
         major to minor."""
         names = (names,) if isinstance(names, str) else tuple(names)
-        grid = self.device_mesh.mesh
         index = tuple(slice(None) if a in names else self.coords[a]
                       for a in self.axis_names)
-        return tuple(int(r) for r in grid[index].reshape(-1).tolist())
+        return tuple(int(r) for r in self.grid[index].reshape(-1))
 
     def axis(self, name: str):
         """The bound :class:`repro_torch.dist.collectives.Axis` ``name``."""

@@ -118,16 +118,16 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, mesh=None,
     The optimizer updates the moments of ``state`` in place (see
     :mod:`repro_torch.optim.adamw`): pass each state once.
 
-    With ``mesh`` (a mesh with no ``pipe`` axis > 1; every rank calls
-    the step) it is the GSPMD step: ``state`` holds this rank's blocks
-    (``shard_tree`` of the global state by :func:`sharded_state_specs`)
-    and ``batch`` the global batch, whose microbatches (contiguous
-    slices, as the reference's scan takes them) each rank cuts to its
-    block.  The metrics are global, the same on every rank."""
+    With ``mesh`` (every rank calls the step) it is the GSPMD step:
+    ``state`` holds this rank's blocks (``shard_tree`` of the global
+    state by :func:`sharded_state_specs`) and ``batch`` the global
+    batch, whose microbatches (contiguous slices, as the reference's
+    scan takes them) each rank cuts to its block.  The metrics are
+    global, the same on every rank.  A ``pipe`` axis is ignored, as
+    the reference's jit step ignores it: no rule shards over it, so its
+    ranks are replicas, and its rank 0 owns the loss.  A mesh with
+    ``pipe`` runs a pipeline with ``make_sharded_train_step``."""
     if mesh is not None:
-        if shd.pipe_size(mesh) > 1:
-            raise ValueError("make_train_step: a mesh with a pipe axis > 1 "
-                             "runs make_sharded_train_step")
         return _gspmd_train_step(cfg, opt, mesh, num_microbatches)
 
     def train_step(state: TrainState, batch: Dict):
@@ -190,8 +190,9 @@ def _gspmd_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
                              f"{n} microbatches")
         mb = size // n
         split = shd.batch_spec(mesh, mb)[0] is not None
-        owns = mesh.coords.get("model", 0) == 0 and (
-            split or all(mesh.coords[a] == 0 for a in dp))
+        owns = mesh.coords.get("model", 0) == 0 and \
+            mesh.coords.get("pipe", 0) == 0 and (
+                split or all(mesh.coords[a] == 0 for a in dp))
         weight = (1.0 / shd.dp_size(mesh) if split else 1.0) if owns else 0.0
         leaves = [p.detach().requires_grad_()
                   for p in tree_leaves(state.params)]

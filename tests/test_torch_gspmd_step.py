@@ -3,8 +3,8 @@ stablelm-3b (the dense family) on the CPU, over 4 gloo ranks spawned by
 ``repro_torch.launch.mesh.run_ranks`` (``tests/torch_gspmd_ranks.py``),
 held against the reference's own ``make_train_step(mesh=...)`` on the
 same mesh shape with ``AxisType.Auto`` axes (``tests/gspmd_reference.py``,
-run once for the file): (data=2, model=2), (model=4) and (pod=2,
-data=2), two microbatches on (data=2, model=2), and ``seq_parallel`` on
+run once for the file): (data=2, model=2), (model=4), (pod=2,
+data=2) and (pipe=2, data=2), two microbatches on (data=2, model=2), and ``seq_parallel`` on
 (data=2, model=2) and (model=4), on the inputs of
 ``tests/test_torch_train.py::test_train_step_matches_jax`` (whose
 bounds these are).  The dense function does not depend on the mesh, so
@@ -33,6 +33,10 @@ CASES = {
     "data2_model2_sp": dict(mesh=dict(model=2),
                             cfg_kw=dict(seq_parallel=True)),
     "model4_sp": dict(mesh=dict(model=4), cfg_kw=dict(seq_parallel=True)),
+    # the GSPMD step ignores a pipe axis (its ranks replicas), as the
+    # reference's jit does: the dry run's fallback where the pipeline step
+    # cannot stage a config
+    "pipe2_data2": dict(mesh=dict(pipe=2)),
 }
 
 

@@ -28,7 +28,7 @@ SUBPACKAGES = ["repro_torch", "repro_torch.configs", "repro_torch.kernels",
                "repro_torch.dist.sharding", "repro_torch.nn.moe",
                "repro_torch.models.lm", "repro_torch.models.encdec",
                "repro_torch.train.step", "repro_torch.train.loop",
-               "repro_torch.ckpt.checkpoint"]
+               "repro_torch.ckpt.checkpoint", "repro_torch.launch.dryrun"]
 
 
 def test_import_loads_no_jax_and_no_repro():

@@ -168,8 +168,9 @@ def gspmd_steps(rank, out_dir, name, cases):
     from repro_torch.dist import sharding as shd
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.convert import params_from_jax
-    from repro_torch.train.step import (TrainState, make_train_step,
-                                        sharded_state_specs)
+    from repro_torch.models import for_config
+    from repro_torch.optim.adamw import AdamState
+    from repro_torch.train.step import TrainState, make_train_step
     results = {}
     for label, case in cases.items():
         cfg = get_config(case["arch"], reduced=True).replace(
@@ -178,7 +179,10 @@ def gspmd_steps(rank, out_dir, name, cases):
             cfg = cfg.replace(dtype=case["dtype"])
         mesh = make_host_mesh(device="cpu", **case["mesh_kw"])
         opt = optimizer(case.get("opt", "grads"))
-        specs = sharded_state_specs(cfg, mesh)
+        # the GSPMD step's specs, on a mesh with pipe too (its replicas)
+        p_specs = shd.param_shardings(for_config(cfg).model_spec(cfg), mesh)
+        specs = TrainState(p_specs, AdamState(shd.P(), p_specs, p_specs),
+                           shd.P())
         global_p = params_from_jax(unflat(case["params"]), cfg)
         params = shd.shard_tree(global_p, specs.params, mesh)
         state = TrainState(params, opt.init(params),
