@@ -84,7 +84,11 @@ Phases, each printed on lines of its own:
    fan-in makes this cut chaotic), within 1e-5 of the logit scale of
    the host's (or, where the host's own f32 error exceeds that, no
    further from the host's f64 evaluation than the host plus 1e-5 of
-   the scale); and its train step as above;
+   the scale); and its train step as above.  Phase 6's command lines
+   (its searches, their ``--deploy`` runs, (f)'s ``launch.evaluate``
+   and (g)'s refusal) run beside this phase, which times nothing: they
+   are host-bound, and side by side they take about what the slowest
+   takes;
 4. serving main paths — qwen1.5-4b, mamba2-1.3b, zamba2-2.7b,
    olmoe-1b-7b and deepseek-v2-lite-16b at full width and about a
    quarter of their depth (``SERVE_LAYERS``: 10, 12, 12, 4 and 7 layers), bf16, seeded
@@ -130,7 +134,16 @@ Phases, each printed on lines of its own:
    remat's recompute); beside stablelm-3b's measured step, its roofline
    terms (``launch.jcost`` on fake tensors on the host at 1 and 2
    layers, extrapolated to the depth, over ``launch.roofline``'s H100
-   peaks) and model_flops / (step_s x 989e12);
+   peaks) and model_flops / (step_s x 989e12); then the remat policies:
+   stablelm-3b at full width cut to 4 layers (``DOTS_LAYERS``), bf16,
+   one step each from the same seeded parameters and batch without
+   remat, under ``remat_policy="nothing"`` and under ``"dots"``:
+   ``"dots"``'s loss equal to ``"nothing"``'s and its grad-norm within
+   1e-6 relative, peak memory ordered ``"nothing"`` < ``"dots"`` < no
+   remat, and the K1/K2/K6 launches of ``remat_sites``: 9 / 4 / 4
+   without remat, 17 / 8 / 8 under ``"nothing"``, 17 / 4 / 4 under
+   ``"dots"`` (its products' outputs saved, K2 and K6 among them: not
+   launched again in the recompute);
 5b. the pipeline train step — stablelm-3b at full width on 4 ranks
    spawned on the one card (``launch.mesh.run_ranks``: gloo, every
    collective staged through the host; NCCL refuses two ranks on one
@@ -167,7 +180,9 @@ Phases, each printed on lines of its own:
    and 17 / 0 / 4 a step), on the tilings ``select_tiling`` names, with
    the operand shapes the calls took held to the shard shapes
    (``gspmd_shapes``: K2 4096 x 2560 . 2560 x 3456, K6 (2, 16, 2048, 80)
-   and (4, 4, 2048, 128));
+   and (4, 4, 2048, 128)), and every rank's head computing the logits of
+   its vocabulary block alone (50304 / model columns: the embedding,
+   head and loss are vocabulary-parallel);
 5d. serving with a mesh (``generate(mesh=)``, ``ServeEngine(mesh=)``) on
    4 ranks spawned on the one card as in 5b, each holding its blocks of
    the parameters and caches: (a) f32 parity at full width cut to 2
@@ -189,7 +204,8 @@ Phases, each printed on lines of its own:
    streams equal on every rank, K1/K2 launches = passes x
    ``serve_sites`` (9 / 4 a pass), K2 on ``gemv_m8`` and every K1/K2
    call at the shard shapes (8 x 2560; 8 x 2560 . 2560 x 1728);
-6. optimizer main paths — (a) ``python -m repro_torch.launch.optimize
+6. optimizer main paths (their command lines run beside phase 3, their
+   output held here) — (a) ``python -m repro_torch.launch.optimize
    matmul_leakyrelu bmm --strategy greedy`` into a fresh schedule cache
    must print the reference's cycles (8294 -> 8289, 8275 -> 8271), then
    ``--deploy`` must read the artifacts back; each deployed kernel is
@@ -246,7 +262,7 @@ Phases, each printed on lines of its own:
 7. the ``{"kernels": [...]}`` line (K1-K7, with their launches by path
    — serve, serve_ssm, serve_hybrid, serve_hybrid_spill, serve_moe,
    serve_mla, serve_mla_fork, serve_encdec, train, train_ssm,
-   train_hybrid, train_moe, train_mla, train_encdec, train_pipe,
+   train_hybrid, train_moe, train_mla, train_encdec, train_dots, train_pipe,
    train_gspmd and serve_mesh (each summed over the ranks) and the
    optimizer paths —
    and by path and tiling),
@@ -271,6 +287,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1490,8 +1507,11 @@ def device_host_train_step(arch, **cut):
     sums two applications; whisper-large-v3 cut to 2 encoder and 2
     decoder layers, over the pipeline's stub frames, on weights at each
     layer's own fan-in as ``device_host_encdec`` holds it) at full width
-    cut in depth by ``cut`` (default: 2 layers), f32, on the card and on
-    the host from the same parameters and batch.
+    cut in depth by ``cut`` (default: 2 layers), f32, from the same
+    parameters and batch: on the card through ``make_train_step``, on the
+    host through ``compute_grads``, whose loss and gradients are what
+    that step's metrics read (the host's optimizer update, which no
+    metric reads, is not run).
 
     The loss agrees within 1e-4 relative.  The grad-norm cannot: with the
     reference's initialisation (a tied N(0, 1) embedding at width 2560,
@@ -1515,19 +1535,22 @@ def device_host_train_step(arch, **cut):
     params = for_config(cfg).init_model(cfg, torch.Generator().manual_seed(0))
     if cfg.family == "encdec":     # chaotic as drawn: device_host_encdec
         params = per_layer_fan_in(params)
-    metrics = {}
-    for device in ("cpu", "cuda"):
-        opt = adamw(3e-4, weight_decay=0.1, max_grad_norm=1.0)
-        p = _tree_to(params, device)
-        state = TrainState(p, opt.init(p),
-                           torch.zeros((), dtype=torch.int32, device=device))
-        _, m = make_train_step(cfg, opt)(state, {
-            k: torch.from_numpy(v).to(device) for k, v in batch.items()})
-        metrics[device] = {k: float(v) for k, v in m.items()}
+    host_batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss, grads = compute_grads(params, host_batch, cfg)
+    metrics = {"cpu": {"loss": float(loss),
+                       "grad_norm": float(global_norm(grads)), "step": 1.0}}
+    del grads
+    opt = adamw(3e-4, weight_decay=0.1, max_grad_norm=1.0)
+    p = _tree_to(params, "cuda")
+    state = TrainState(p, opt.init(p),
+                       torch.zeros((), dtype=torch.int32, device="cuda"))
+    _, m = make_train_step(cfg, opt)(state, {
+        k: v.to("cuda") for k, v in host_batch.items()})
+    metrics["cuda"] = {k: float(v) for k, v in m.items()}
+    del state, p
     cfg64 = cfg.replace(dtype="float64")
     _, g64 = compute_grads(_tree_to(params, "cpu", torch.float64),
-                           {k: torch.from_numpy(v) for k, v in batch.items()},
-                           cfg64)
+                           host_batch, cfg64)
     exact = float(global_norm(g64))
     host, dev = metrics["cpu"], metrics["cuda"]
     host_err = abs(host["grad_norm"] - exact) / exact
@@ -2269,6 +2292,92 @@ def train_phase(arch, profile_dir, roofline=False):
     return launches
 
 
+# the remat policies' run: stablelm-3b at full width cut to this depth,
+# one step under each policy (None: no remat)
+DOTS_LAYERS = 4
+REMAT_POLICIES = (None, "nothing", "dots")
+
+
+def remat_sites(cfg, policy):
+    """Kernel launches a train step of ``cfg`` makes under remat
+    ``policy``: ``train_sites``'s (``"nothing"``: forward and recompute);
+    under ``"dots"`` K2, K6 and K7 once, their outputs saved
+    (``models/lm.py::_remat``); without remat every kernel once."""
+    sites = train_sites(cfg)
+    if policy == "nothing":
+        return sites
+    return {name: (n if name == "rmsnorm" and policy == "dots"
+                   else (n - 1) // 2 + 1 if name == "rmsnorm" else n // 2)
+            for name, n in sites.items()}
+
+
+def remat_phase():
+    """One bf16 train step of stablelm-3b at full width and
+    ``DOTS_LAYERS`` layers, seq ``SEQ`` x batch ``BATCH``, under each of
+    ``REMAT_POLICIES`` from the same seeded parameters and batch: each
+    run's loss, grad-norm, seconds, peak memory and K1/K2/K6 launches
+    (held to ``remat_sites``); ``"dots"``'s loss equal to ``"nothing"``'s
+    and its grad-norm within 1e-6 relative; peak memory ordered
+    ``"nothing"`` < ``"dots"`` < no remat.  Returns ``"dots"``'s
+    launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.train import TrainState, make_train_step
+    from repro_torch.utils.tree import tree_map
+
+    base = get_config(PIPE_ARCH).replace(n_layers=DOTS_LAYERS)
+    params = lm.init_model(base, torch.Generator("cuda").manual_seed(0))
+    batch = _pipe_batch(base, 0)
+    opt = _pipe_opt()
+    runs, launches = {}, None
+    for policy in REMAT_POLICIES:
+        cfg = base.replace(remat=policy is not None,
+                           remat_policy=policy or "nothing")
+        state = TrainState(tree_map(torch.clone, params),
+                           opt.init(params),
+                           torch.zeros((), dtype=torch.int32, device="cuda"))
+        step = make_train_step(cfg, opt)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        seconds = time.perf_counter() - t0
+        launches = _read_launches()
+        runs[str(policy)] = {
+            "loss": loss, "grad_norm": gnorm, "step_s": seconds,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "launches": {k: launches[k] for k in
+                         ("rmsnorm", "fused_ff", "flash_attention")}}
+        want = _expected_launches(**remat_sites(cfg, policy))
+        if launches != want:
+            fail(f"remat {policy}: launches {dict(launches)}, expected "
+                 f"{want}")
+        del state, step, m
+    del params, batch
+    torch.cuda.empty_cache()
+    dots, nothing, off = runs["dots"], runs["nothing"], runs["None"]
+    rel = abs(dots["grad_norm"] - nothing["grad_norm"]) / nothing["grad_norm"]
+    print(f"  remat policies ({base.name}, {DOTS_LAYERS} layers, {base.dtype}, "
+          f"{BATCH} x {SEQ}) " + json.dumps(dict(runs, grad_norm_rel=rel)),
+          flush=True)
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in runs.values()):
+        fail("a remat policy's loss or grad-norm is not finite")
+    if dots["loss"] != nothing["loss"] or not rel <= 1e-6:
+        fail("remat_policy 'dots' computes another step than 'nothing' "
+             "(loss equal, grad-norm within 1e-6 relative)")
+    peaks = [r["max_memory_allocated_gb"] for r in (nothing, dots, off)]
+    if not peaks[0] < peaks[1] < peaks[2]:
+        fail(f"peak memory not ordered 'nothing' < 'dots' < no remat: "
+             f"{peaks} GB")
+    return launches
+
+
 def profile_train_step(trainer, out_dir: str):
     """torch.profiler over one more train step: device busy share and time
     by kernel, written to ``out_dir``/profile_train_step_ARCH.txt."""
@@ -2804,8 +2913,18 @@ def gspmd_rank(rank, out_dir):
     torch.use_deterministic_algorithms(False)
     out["parity_s"] = time.perf_counter() - t0
 
-    # (c) timing, bf16: launches, tilings and operand shapes per rank
+    # (c) timing, bf16: launches, tilings, operand shapes and the head's
+    # columns per rank
     seen = _watch_shapes()
+    head = lm.head_forward
+
+    def watched_head(*a, **k):
+        logits = head(*a, **k)
+        seen["head_columns"].add(logits.shape[-1])
+        return logits
+
+    seen["head_columns"] = set()
+    lm.head_forward = watched_head
     out["timing"] = {}
     for arch, (layers, mesh_kw) in GSPMD_TIMING.items():
         cfg = get_config(arch).replace(n_layers=layers)
@@ -2830,11 +2949,14 @@ def gspmd_rank(rank, out_dir):
                 torch.cuda.max_memory_allocated() / 1e9,
             "launches": dict(_read_launches()),
             "tilings": _read_launches().tilings,
-            "shapes": {k: sorted(v) for k, v in seen.items()},
+            "shapes": {k: sorted(v) for k, v in seen.items()
+                       if k != "head_columns"},
+            "head_columns": sorted(seen["head_columns"]),
             "local_params": sum(p.numel() for p in
                                 tree_leaves(trainer.state.params))}
         del trainer
         torch.cuda.empty_cache()
+    lm.head_forward = head
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
@@ -3002,7 +3124,8 @@ def gspmd_phase():
             print(f"  rank {o['rank']} {arch} ({layers} layers): "
                   f"{t['mesh']}: steps {t['step_s']} s, peak "
                   f"{t['max_memory_allocated_gb']:.2f} GB, "
-                  f"{t['local_params'] / 1e6:.1f} M parameters; launches "
+                  f"{t['local_params'] / 1e6:.1f} M parameters, head "
+                  f"columns {t['head_columns']}; launches "
                   f"{t['launches']} by tiling {t['tilings']}; operand "
                   f"shapes {t['shapes']}", flush=True)
             if t["launches"] != want:
@@ -3019,6 +3142,10 @@ def gspmd_phase():
                     problems.append(f"rank {o['rank']} {arch}: {name} took "
                                     f"{sorted(got)}, not the shard shapes "
                                     f"{sorted(want_shapes)}")
+            if t["head_columns"] != [tcfg.vocab // m]:
+                problems.append(f"rank {o['rank']} {arch}: the head "
+                                f"computed {t['head_columns']} columns, not "
+                                f"its vocabulary block of {tcfg.vocab // m}")
             for name, n in t["launches"].items():
                 total[name] += n
             for name, by in t["tilings"].items():
@@ -3510,14 +3637,22 @@ def serve_mesh_phase():
 def _start_cli(module, *args):
     """Start ``python -m MODULE ARGS``, as a user runs it, its output to
     files (a pipe nobody reads could fill and stall it); the process is
-    killed if the script ends first.  For :func:`_finish_cli`."""
+    killed if the script ends first, and its wall time is taken as it
+    ends.  For :func:`_finish_cli`."""
     env = dict(os.environ, PYTHONPATH=SRC)
     cmd = [sys.executable, "-m", module, *args]
     out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=out, stderr=err, text=True, env=env)
     atexit.register(lambda: proc.poll() is None and proc.kill())
-    return {"proc": proc, "cmd": cmd, "t0": t0, "out": out, "err": err}
+    started = {"proc": proc, "cmd": cmd, "t0": t0, "out": out, "err": err}
+
+    def ended():
+        proc.wait()
+        started["wall"] = time.perf_counter() - t0
+    started["ended"] = threading.Thread(target=ended, daemon=True)
+    started["ended"].start()
+    return started
 
 
 def _finish_cli(started, timeout=600):
@@ -3527,8 +3662,7 @@ def _finish_cli(started, timeout=600):
     proc = started["proc"]
     proc.wait(timeout=max(1.0, started["t0"] + timeout
                           - time.perf_counter()))
-    if "wall" not in started:
-        started["wall"] = time.perf_counter() - started["t0"]
+    started["ended"].join()
     for name in ("out", "err"):
         started[name].seek(0)
     proc.stdout, proc.stderr = started["out"].read(), started["err"].read()
@@ -3540,10 +3674,52 @@ def _finish_cli(started, timeout=600):
     return proc, proc.stdout.splitlines(), wall
 
 
+_RAN = {}   # (MODULE, *ARGS) -> a run started by _start_side_by_side
+
+
+def _start_side_by_side(chains):
+    """Start ``chains``, each a list of (MODULE, *ARGS), side by side:
+    every chain's first run now, each later one (a ``--deploy`` reads what
+    its search wrote) once :func:`_step_side_by_side` sees the run before
+    it end.  Each run is kept for :func:`_run_cli`, which reads it
+    instead of running it again."""
+    side = []
+    for run, *rest in chains:
+        _RAN[run] = _start_cli(*run)
+        side.append((_RAN[run], rest))
+    return side
+
+
+def _step_side_by_side(side):
+    """Start the next run of each chain in ``side`` whose run has ended;
+    returns at once."""
+    for item in list(side):
+        started, rest = item
+        if started["proc"].poll() is None:
+            continue
+        side.remove(item)
+        if rest:
+            _RAN[rest[0]] = _start_cli(*rest[0])
+            side.append((_RAN[rest[0]], rest[1:]))
+
+
+def _end_side_by_side(side, timeout=900):
+    """Wait for every run of ``side`` (:func:`_step_side_by_side`)."""
+    deadline = time.perf_counter() + timeout
+    while side:
+        _step_side_by_side(side)
+        if side and time.perf_counter() > deadline:
+            fail(f"still running after {timeout} s: "
+                 f"{[s['cmd'][2:] for s, _ in side]}")
+        time.sleep(0.1)
+
+
 def _run_cli(module, *args, timeout=600):
     """``python -m MODULE ARGS``, as a user runs it: (the process, its
-    output lines, its wall time (s)), the output printed."""
-    return _finish_cli(_start_cli(module, *args), timeout=timeout)
+    output lines, its wall time (s)), the output printed.  A run that
+    :func:`_start_side_by_side` started is read, not run again."""
+    started = _RAN.pop((module, *args), None)
+    return _finish_cli(started or _start_cli(module, *args), timeout=timeout)
 
 
 def _cli(module, *args, timeout=600, started=None):
@@ -3563,36 +3739,27 @@ def _optimize_cli(*args, timeout=600):
     return _cli("repro_torch.launch.optimize", *args, timeout=timeout)
 
 
-def optimize_phase():
+def optimize_phase(cache_dir):
     """(a) The optimizer pipeline on the §5.7 pair, greedy, on the host
     (its measurement is the simulated TSASS machine, as in the reference),
-    then the deployed kernels on the card through the registry."""
-    import shutil
-    import tempfile
-
+    into the fresh cache ``cache_dir``, then the deployed kernels on the
+    card through the registry."""
     from repro_torch.sched import OptimizationSession
 
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_cache_",
-                                 dir=os.path.join(ROOT, "build"))
-    try:
-        pair = [*OPTIMIZE_LINES, "--strategy", "greedy", "--cache-dir",
-                cache_dir]
-        searched, _ = _optimize_cli(*pair)
-        deployed, _ = _optimize_cli(*pair, "--deploy")
-        for name, cycles in OPTIMIZE_LINES.items():
-            if not any(line.startswith(f"[optimize] {name}: {cycles} ")
-                       for line in searched):
-                fail(f"launch.optimize did not print {name}: {cycles}")
-            if not any(line.startswith(f"[optimize] {name}: cached config ")
-                       and f" {cycles} " in line for line in deployed):
-                fail(f"launch.optimize --deploy did not read back {name}: "
-                     f"{cycles}")
-        session = OptimizationSession(strategy="greedy", cache_dir=cache_dir)
-        configs = {name: session.deploy(name).config
-                   for name in OPTIMIZE_LINES}
-    finally:
-        shutil.rmtree(cache_dir)
+    pair = [*OPTIMIZE_LINES, "--strategy", "greedy", "--cache-dir",
+            cache_dir]
+    searched, _ = _optimize_cli(*pair)
+    deployed, _ = _optimize_cli(*pair, "--deploy")
+    for name, cycles in OPTIMIZE_LINES.items():
+        if not any(line.startswith(f"[optimize] {name}: {cycles} ")
+                   for line in searched):
+            fail(f"launch.optimize did not print {name}: {cycles}")
+        if not any(line.startswith(f"[optimize] {name}: cached config ")
+                   and f" {cycles} " in line for line in deployed):
+            fail(f"launch.optimize --deploy did not read back {name}: "
+                 f"{cycles}")
+    session = OptimizationSession(strategy="greedy", cache_dir=cache_dir)
+    configs = {name: session.deploy(name).config for name in OPTIMIZE_LINES}
     return _deployed_pair(configs, seed=1), configs
 
 
@@ -3675,14 +3842,12 @@ def _fleet_cells(lines):
     return cells
 
 
-def fleet_phase(cache_dir):
+def fleet_phase(cache_dir, one_dir):
     """(b) The paper's PPO agent, on the card, over qwen1.5-4b's kernel
     fleet through ``launch.optimize --arch`` into ``cache_dir`` (a fresh
-    cache, kept for 6(g)); then the six deployed kernels on the card
-    through the registry."""
-    import shutil
-    import tempfile
-
+    cache, kept for 6(g)), and one cell at the default budget into
+    ``one_dir``; then the six deployed kernels on the card through the
+    registry."""
     import torch
     from repro_torch.kernels import get_kernel
     from repro_torch.sched import OptimizationSession, Scenario
@@ -3690,39 +3855,33 @@ def fleet_phase(cache_dir):
     print(f"  budget: --timesteps {FLEET_TIMESTEPS} a cell, cut from the "
           f"default 8192 so that the {FLEET_CELLS} cells fit the run; one "
           f"cell at the default below", flush=True)
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    one_dir = tempfile.mkdtemp(prefix="chip_smoke_cell_",
-                               dir=os.path.join(ROOT, "build"))
-    try:
-        fleet = ["--arch", FLEET_ARCH, "--cache-dir", cache_dir]
-        searched, wall = _optimize_cli(*fleet, "--timesteps",
-                                       str(FLEET_TIMESTEPS))
-        cells = _fleet_cells(searched)
-        if len(cells) != FLEET_CELLS:
-            fail(f"the fleet printed {len(cells)} PPO cells, not "
-                 f"{FLEET_CELLS}")
-        for (name, bucket), c in cells.items():
-            if c["baseline"] != FLEET_O3[name] \
-                    or not c["optimized"] <= c["baseline"] \
-                    or not c["agent_device"].startswith("cuda"):
-                fail(f"fleet cell {name}@{bucket}: {c} (want a start at "
-                     f"{FLEET_O3[name]}, an end at or below it, the agent "
-                     f"on the card)")
-        deployed, _ = _optimize_cli(*fleet, "--deploy")
-        back = {(m.group(1), m.group(2)): (int(m.group(4)), int(m.group(5)))
-                for m in map(_DEPLOYED.match, deployed) if m}
-        if back != {key: (c["baseline"], c["optimized"])
-                    for key, c in cells.items()}:
-            fail(f"--deploy read back {back}")
-        one, one_wall = _optimize_cli("softmax", "--scenarios", FLEET_BUCKET,
-                                      "--cache-dir", one_dir)
-        one_cell = next(iter(_fleet_cells(one).values()))
-        session = OptimizationSession(cache_dir=cache_dir)
-        configs = {name: session.deploy(
-            name, scenario=Scenario.parse(FLEET_BUCKET)).config
-            for name in FLEET_O3}
-    finally:
-        shutil.rmtree(one_dir)
+    fleet = ["--arch", FLEET_ARCH, "--cache-dir", cache_dir]
+    searched, wall = _optimize_cli(*fleet, "--timesteps",
+                                   str(FLEET_TIMESTEPS))
+    cells = _fleet_cells(searched)
+    if len(cells) != FLEET_CELLS:
+        fail(f"the fleet printed {len(cells)} PPO cells, not "
+             f"{FLEET_CELLS}")
+    for (name, bucket), c in cells.items():
+        if c["baseline"] != FLEET_O3[name] \
+                or not c["optimized"] <= c["baseline"] \
+                or not c["agent_device"].startswith("cuda"):
+            fail(f"fleet cell {name}@{bucket}: {c} (want a start at "
+                 f"{FLEET_O3[name]}, an end at or below it, the agent "
+                 f"on the card)")
+    deployed, _ = _optimize_cli(*fleet, "--deploy")
+    back = {(m.group(1), m.group(2)): (int(m.group(4)), int(m.group(5)))
+            for m in map(_DEPLOYED.match, deployed) if m}
+    if back != {key: (c["baseline"], c["optimized"])
+                for key, c in cells.items()}:
+        fail(f"--deploy read back {back}")
+    one, one_wall = _optimize_cli("softmax", "--scenarios", FLEET_BUCKET,
+                                  "--cache-dir", one_dir)
+    one_cell = next(iter(_fleet_cells(one).values()))
+    session = OptimizationSession(cache_dir=cache_dir)
+    configs = {name: session.deploy(
+        name, scenario=Scenario.parse(FLEET_BUCKET)).config
+        for name in FLEET_O3}
     summary = {
         "cells": {f"{n}@{b}": c for (n, b), c in cells.items()},
         "fleet_wall_s": wall, "timesteps": FLEET_TIMESTEPS,
@@ -3992,52 +4151,74 @@ def tiling_gate(deployed):
 # phase 6 (e)-(g): guided searches, the cost model, tuned schedules served
 # ---------------------------------------------------------------------------
 
-def guided_phase():
+def guided_phase(cache_dirs):
     """(e) The oracle-ranked guided searches on the pair: ``launch.optimize
-    matmul_leakyrelu bmm --strategy beam``, then ``lookahead``, each into a
-    fresh cache, print the reference's cycles and memo line, and
-    ``--deploy`` reads the artifacts back; then K3 and K4 at the beam
-    artifacts' configs through the registry (``_deployed_pair``)."""
-    import shutil
-    import tempfile
-
+    matmul_leakyrelu bmm --strategy beam``, then ``lookahead``, each into
+    its fresh cache ``cache_dirs[strategy]``, print the reference's cycles
+    and memo line, and ``--deploy`` reads the artifacts back; then K3 and
+    K4 at the beam artifacts' configs through the registry
+    (``_deployed_pair``)."""
     from repro_torch.sched import OptimizationSession
 
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     walls, configs = {}, None
     for strategy, cycles in GUIDED_LINES.items():
-        cache_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{strategy}_",
-                                     dir=os.path.join(ROOT, "build"))
-        try:
-            pair = [*cycles, "--strategy", strategy, "--cache-dir",
-                    cache_dir]
-            searched, walls[strategy] = _optimize_cli(*pair)
-            deployed, _ = _optimize_cli(*pair, "--deploy")
-            for name, want in cycles.items():
-                if not any(line.startswith(f"[optimize] {name}: {want} ")
-                           and f", {strategy}-oracle, " in line
-                           for line in searched):
-                    fail(f"--strategy {strategy} did not print {name}: "
-                         f"{want}")
-                if not any(line.startswith(f"[optimize] {name}: cached "
-                                           f"config ") and f" {want} " in line
-                           for line in deployed):
-                    fail(f"--strategy {strategy} --deploy did not read back "
-                         f"{name}: {want}")
-            if not any(line.startswith(GUIDED_MEMO[strategy])
+        cache_dir = cache_dirs[strategy]
+        pair = [*cycles, "--strategy", strategy, "--cache-dir",
+                cache_dir]
+        searched, walls[strategy] = _optimize_cli(*pair)
+        deployed, _ = _optimize_cli(*pair, "--deploy")
+        for name, want in cycles.items():
+            if not any(line.startswith(f"[optimize] {name}: {want} ")
+                       and f", {strategy}-oracle, " in line
                        for line in searched):
-                fail(f"--strategy {strategy} did not print "
-                     f"{GUIDED_MEMO[strategy]!r}")
-            if strategy == "beam":
-                session = OptimizationSession(strategy="greedy",
-                                              cache_dir=cache_dir)
-                configs = {name: session.deploy(name).config
-                           for name in cycles}
-        finally:
-            shutil.rmtree(cache_dir)
+                fail(f"--strategy {strategy} did not print {name}: "
+                     f"{want}")
+            if not any(line.startswith(f"[optimize] {name}: cached "
+                                       f"config ") and f" {want} " in line
+                       for line in deployed):
+                fail(f"--strategy {strategy} --deploy did not read back "
+                     f"{name}: {want}")
+        if not any(line.startswith(GUIDED_MEMO[strategy])
+                   for line in searched):
+            fail(f"--strategy {strategy} did not print "
+                 f"{GUIDED_MEMO[strategy]!r}")
+        if strategy == "beam":
+            session = OptimizationSession(strategy="greedy",
+                                          cache_dir=cache_dir)
+            configs = {name: session.deploy(name).config
+                       for name in cycles}
     print("  guided searches as the reference's: " + json.dumps(
         {"wall_s": walls, "beam_configs": configs}), flush=True)
     return _deployed_pair(configs, seed=5)
+
+
+def start_searches(caches):
+    """Start phase 6's command lines beside phase 3, which measures no
+    time (``_start_side_by_side``): (a)'s, (b)'s, (c)'s and (e)'s
+    host-bound searches, each with its ``--deploy`` after it, (b)'s one
+    cell at the default budget, and (g)'s refusal over an empty cache,
+    into ``caches``.  Each sub-phase of phase 6 then reads its runs'
+    output and holds it as if it had run them."""
+    opt, serve = "repro_torch.launch.optimize", "repro_torch.launch.serve"
+    pair = (*OPTIMIZE_LINES, "--strategy", "greedy", "--cache-dir",
+            caches["cache"])
+    fleet = ("--arch", FLEET_ARCH, "--cache-dir", caches["fleet"])
+    ssm = ("--arch", SSM_ARCH, "--strategy", "greedy", "--cache-dir",
+           caches["ssm"])
+    chains = [[(opt, *pair), (opt, *pair, "--deploy")],
+              [(opt, *fleet, "--timesteps", str(FLEET_TIMESTEPS)),
+               (opt, *fleet, "--deploy")],
+              [(opt, "softmax", "--scenarios", FLEET_BUCKET, "--cache-dir",
+                caches["cell"])],
+              [(opt, *ssm), (opt, *ssm, "--deploy")],
+              [(serve, "--arch", FLEET_ARCH, "--full", "--qps", "4",
+                "--requests", str(TUNED_REQUESTS), "--schedule-cache",
+                caches["empty"], "--strict-schedules")]]
+    for strategy, cycles in GUIDED_LINES.items():
+        guided = (*cycles, "--strategy", strategy, "--cache-dir",
+                  caches[strategy])
+        chains.append([(opt, *guided), (opt, *guided, "--deploy")])
+    return _start_side_by_side(chains)
 
 
 def start_costmodel():
@@ -4052,14 +4233,15 @@ def start_costmodel():
     started = _start_cli("repro_torch.launch.evaluate", "--budget",
                          str(EVAL_BUDGET), "--memo-dir", memo_dir,
                          "--train-cost-model", "--out", out)
-    return dict(started, memo_dir=memo_dir, json=out)
+    started.update(memo_dir=memo_dir, json=out)   # the waiter writes here
+    return started
 
 
 def await_costmodel(started, timeout=900):
     """Wait for :func:`start_costmodel`'s process to end (its wall time
     kept for :func:`costmodel_phase`)."""
     started["proc"].wait(timeout=timeout)
-    started["wall"] = time.perf_counter() - started["t0"]
+    started["ended"].join()
     print(f"  launch.evaluate (beside phase 3) ended after "
           f"{started['wall']:.1f} s", flush=True)
 
@@ -4213,7 +4395,7 @@ def _tuned(plan, stats, cells):
             and not stats["warnings"] and stats["schedule_fallbacks"] == 0)
 
 
-def tuned_serve_phase(cache_dir):
+def tuned_serve_phase(cache_dir, empty):
     """(g) Tuned schedules served: ``launch.serve --arch qwen1.5-4b --full
     --qps 4 --requests 8 --schedule-cache DIR --strict-schedules`` over the
     cache the PPO fleet (b) wrote prints an 18-line plan and no fallback
@@ -4223,39 +4405,31 @@ def tuned_serve_phase(cache_dir):
     ``--strict-schedules`` it serves with 18 ``not optimized (-O3
     baseline)`` lines, the warning and 18 ``schedule_fallbacks``.  The
     two serving runs call the launcher's ``main`` in this process
-    (``_serve_in_process``)."""
-    import shutil
-    import tempfile
-
-    empty = tempfile.mkdtemp(prefix="chip_smoke_empty_",
-                             dir=os.path.join(ROOT, "build"))
-    try:
-        proc, lines, wall = _run_cli(
-            "repro_torch.launch.serve", "--arch", FLEET_ARCH, "--full",
-            "--qps", "4", "--requests", str(TUNED_REQUESTS),
-            "--schedule-cache", empty, "--strict-schedules", timeout=600)
-        if proc.returncode == 0 or "FileNotFoundError" not in proc.stderr \
-                or any(line.startswith("[serve] tokens/s") for line in lines):
-            fail(f"--strict-schedules over an empty cache did not refuse "
-                 f"before serving (exit {proc.returncode}):\n"
-                 f"{proc.stderr[-2000:]}")
-        print(f"  an empty cache under --strict-schedules: exit "
-              f"{proc.returncode}, {proc.stderr.strip().splitlines()[-1]}",
-              flush=True)
-        tuned, plan, stats = _serve_in_process(FLEET_ARCH, cache_dir,
-                                               "--strict-schedules")
-        if not _tuned(plan, stats, FLEET_CELLS):
-            fail(f"the PPO fleet's cache did not give an {FLEET_CELLS}-line "
-                 f"tuned plan without fallbacks: {plan} {stats}")
-        untuned, plan, ustats = _serve_in_process(FLEET_ARCH, empty)
-        if plan != ["not optimized (-O3 baseline)"] * FLEET_CELLS \
-                or ustats["schedule_fallbacks"] != FLEET_CELLS \
-                or len(ustats["warnings"]) != 1 \
-                or f" {FLEET_CELLS} kernel(s) " not in ustats["warnings"][0]:
-            fail(f"an empty cache without --strict-schedules: {plan} "
-                 f"{ustats}")
-    finally:
-        shutil.rmtree(empty)
+    (``_serve_in_process``); ``empty`` is an empty cache."""
+    proc, lines, wall = _run_cli(
+        "repro_torch.launch.serve", "--arch", FLEET_ARCH, "--full",
+        "--qps", "4", "--requests", str(TUNED_REQUESTS),
+        "--schedule-cache", empty, "--strict-schedules", timeout=600)
+    if proc.returncode == 0 or "FileNotFoundError" not in proc.stderr \
+            or any(line.startswith("[serve] tokens/s") for line in lines):
+        fail(f"--strict-schedules over an empty cache did not refuse "
+             f"before serving (exit {proc.returncode}):\n"
+             f"{proc.stderr[-2000:]}")
+    print(f"  an empty cache under --strict-schedules: exit "
+          f"{proc.returncode}, {proc.stderr.strip().splitlines()[-1]}",
+          flush=True)
+    tuned, plan, stats = _serve_in_process(FLEET_ARCH, cache_dir,
+                                           "--strict-schedules")
+    if not _tuned(plan, stats, FLEET_CELLS):
+        fail(f"the PPO fleet's cache did not give an {FLEET_CELLS}-line "
+             f"tuned plan without fallbacks: {plan} {stats}")
+    untuned, plan, ustats = _serve_in_process(FLEET_ARCH, empty)
+    if plan != ["not optimized (-O3 baseline)"] * FLEET_CELLS \
+            or ustats["schedule_fallbacks"] != FLEET_CELLS \
+            or len(ustats["warnings"]) != 1 \
+            or f" {FLEET_CELLS} kernel(s) " not in ustats["warnings"][0]:
+        fail(f"an empty cache without --strict-schedules: {plan} "
+             f"{ustats}")
     print("  tuned schedules served: " + json.dumps(
         {"tuned": stats, "untuned": ustats, "strict_refusal_s": wall}),
         flush=True)
@@ -4279,6 +4453,39 @@ def tuned_ssm_serve_phase(cache_dir):
 
 
 # ---------------------------------------------------------------------------
+
+def main_paths(profile):
+    """Phases 4 to 5d, the models' main paths on the card: {path: the
+    kernels' launches on it}."""
+    phase("4 serving main paths")
+    launches = {"serve": serve_phase("qwen1.5-4b", profile),
+                "serve_ssm": serve_phase(SSM_ARCH, profile),
+                "serve_hybrid": serve_phase(HYBRID_ARCH, profile),
+                "serve_hybrid_spill": preempt_phase(HYBRID_ARCH),
+                "serve_moe": serve_phase(MOE_ARCH, profile),
+                "serve_mla": serve_phase(MLA_ARCH, profile),
+                "serve_mla_fork": fork_phase(MLA_ARCH),
+                "serve_encdec": encdec_serve_phase(ENCDEC_ARCH, profile)}
+
+    phase("5 training main paths")
+    launches["train"] = train_phase("stablelm-3b", profile, roofline=True)
+    launches["train_ssm"] = train_phase(SSM_ARCH, profile)
+    launches["train_hybrid"] = train_phase(HYBRID_ARCH, profile)
+    launches["train_moe"] = train_phase(MOE_ARCH, profile)
+    launches["train_mla"] = train_phase(MLA_ARCH, profile)
+    launches["train_encdec"] = train_phase(ENCDEC_ARCH, profile)
+    launches["train_dots"] = remat_phase()
+
+    phase("5b pipeline train step")
+    launches["train_pipe"] = pipeline_phase()
+
+    phase("5c GSPMD train step")
+    launches["train_gspmd"] = gspmd_phase()
+
+    phase("5d serving with a mesh")
+    launches["serve_mesh"] = serve_mesh_phase()
+    return launches
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4320,70 +4527,50 @@ def main() -> int:
     records = kernel_phase()
 
     phase("3 device against host")
-    costmodel = start_costmodel()
-    device_host_phase("qwen1.5-4b")
-    device_host_phase(SSM_ARCH)
-    device_host_phase(MOE_ARCH)
-    device_host_phase(MLA_ARCH, f64_witness=True)
-    device_host_train_step("stablelm-3b")
-    device_host_train_step(SSM_ARCH)
-    device_host_train_step(HYBRID_ARCH, n_layers=12)
-    device_host_train_step(MOE_ARCH)
-    device_host_train_step(MLA_ARCH)
-    device_host_encdec(ENCDEC_ARCH)
-    device_host_train_step(ENCDEC_ARCH, n_layers=4, enc_layers=2,
-                           dec_layers=2)
-
-    await_costmodel(costmodel)
-
-    phase("4 serving main paths")
-    launches = {"serve": serve_phase("qwen1.5-4b", args.profile),
-                "serve_ssm": serve_phase(SSM_ARCH, args.profile),
-                "serve_hybrid": serve_phase(HYBRID_ARCH, args.profile),
-                "serve_hybrid_spill": preempt_phase(HYBRID_ARCH),
-                "serve_moe": serve_phase(MOE_ARCH, args.profile),
-                "serve_mla": serve_phase(MLA_ARCH, args.profile),
-                "serve_mla_fork": fork_phase(MLA_ARCH),
-                "serve_encdec": encdec_serve_phase(ENCDEC_ARCH,
-                                                   args.profile)}
-
-    phase("5 training main paths")
-    launches["train"] = train_phase("stablelm-3b", args.profile,
-                                    roofline=True)
-    launches["train_ssm"] = train_phase(SSM_ARCH, args.profile)
-    launches["train_hybrid"] = train_phase(HYBRID_ARCH, args.profile)
-    launches["train_moe"] = train_phase(MOE_ARCH, args.profile)
-    launches["train_mla"] = train_phase(MLA_ARCH, args.profile)
-    launches["train_encdec"] = train_phase(ENCDEC_ARCH, args.profile)
-
-    phase("5b pipeline train step")
-    launches["train_pipe"] = pipeline_phase()
-
-    phase("5c GSPMD train step")
-    launches["train_gspmd"] = gspmd_phase()
-
-    phase("5d serving with a mesh")
-    launches["serve_mesh"] = serve_mesh_phase()
-
-    phase("6 optimizer main paths")
-    launches["optimize"], pair_configs = optimize_phase()
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    fleet_cache = tempfile.mkdtemp(prefix="chip_smoke_fleet_",
-                                   dir=os.path.join(ROOT, "build"))
-    ssm_cache = tempfile.mkdtemp(prefix="chip_smoke_ssm_",
-                                 dir=os.path.join(ROOT, "build"))
+    caches = {name: tempfile.mkdtemp(prefix=f"chip_smoke_{name}_",
+                                     dir=os.path.join(ROOT, "build"))
+              for name in ("cache", "fleet", "cell", "ssm", *GUIDED_LINES,
+                           "empty")}
     try:
-        launches["fleet"], fleet_configs = fleet_phase(fleet_cache)
-        launches["fleet_ssm"], ssd_config = ssm_fleet_phase(ssm_cache)
+        costmodel = start_costmodel()
+        side = start_searches(caches)
+        for check in (lambda: device_host_phase("qwen1.5-4b"),
+                      lambda: device_host_phase(SSM_ARCH),
+                      lambda: device_host_phase(MOE_ARCH),
+                      lambda: device_host_phase(MLA_ARCH, f64_witness=True),
+                      lambda: device_host_train_step("stablelm-3b"),
+                      lambda: device_host_train_step(SSM_ARCH),
+                      lambda: device_host_train_step(HYBRID_ARCH,
+                                                     n_layers=12),
+                      lambda: device_host_train_step(MOE_ARCH),
+                      lambda: device_host_train_step(MLA_ARCH),
+                      lambda: device_host_encdec(ENCDEC_ARCH),
+                      lambda: device_host_train_step(
+                          ENCDEC_ARCH, n_layers=4, enc_layers=2,
+                          dec_layers=2)):
+            t0 = time.perf_counter()
+            check()
+            print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
+            _step_side_by_side(side)
+        _end_side_by_side(side)
+        await_costmodel(costmodel)
+        launches = main_paths(args.profile)
+
+        phase("6 optimizer main paths")
+        launches["optimize"], pair_configs = optimize_phase(caches["cache"])
+        launches["fleet"], fleet_configs = fleet_phase(caches["fleet"],
+                                                       caches["cell"])
+        launches["fleet_ssm"], ssd_config = ssm_fleet_phase(caches["ssm"])
         tiling_gate(dict(fleet_configs, **pair_configs, ssd=ssd_config))
-        launches["guided"] = guided_phase()
+        launches["guided"] = guided_phase(caches)
         costmodel_phase(costmodel)
         launches["serve_tuned"], launches["serve_untuned"] = \
-            tuned_serve_phase(fleet_cache)
-        launches["serve_ssm_tuned"] = tuned_ssm_serve_phase(ssm_cache)
+            tuned_serve_phase(caches["fleet"], caches["empty"])
+        launches["serve_ssm_tuned"] = tuned_ssm_serve_phase(caches["ssm"])
     finally:
-        shutil.rmtree(fleet_cache)
-        shutil.rmtree(ssm_cache)
+        for cache in caches.values():
+            shutil.rmtree(cache)
 
     phase("7 kernels")
     kernels = []

@@ -250,16 +250,30 @@ def flash_attention_backward(q, k, v, grad_out, *, causal, window, q_offset,
     return dq, dk, dv
 
 
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         schema="(Tensor q, Tensor k, Tensor v, bool causal, "
+                                "int window, int q_offset, float? scale) "
+                                "-> Tensor")
+def flash_attention_op(q, k, v, causal, window, q_offset, scale):
+    """:func:`flash_attention` as an operator the dispatcher sees, the
+    launch :class:`FlashAttentionFunction` makes: ``remat_policy="dots"``
+    names it (``ops.PRODUCTS``), so its output is saved and the recompute
+    does not launch the kernel again."""
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset, scale=scale)
+
+
 class FlashAttentionFunction(torch.autograd.Function):
-    """``flash_attention`` with a gradient: the kernel forward, the plain
-    version's gradient backward (recomputed from the saved inputs)."""
+    """``flash_attention`` with a gradient: the kernel forward (through
+    :func:`flash_attention_op`), the plain version's gradient backward
+    (recomputed from the saved inputs)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, scale):
         ctx.save_for_backward(q, k, v)
         ctx.args = dict(causal=causal, window=window, q_offset=q_offset,
                         scale=scale)
-        return flash_attention(q, k, v, **ctx.args)
+        return flash_attention_op(q, k, v, **ctx.args)
 
     @staticmethod
     def backward(ctx, grad_out):

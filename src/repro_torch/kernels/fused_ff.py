@@ -171,14 +171,26 @@ def fused_ff(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, *,
     return out
 
 
+@torch.library.custom_op("repro_torch::fused_ff", mutates_args=(),
+                         schema="(Tensor x, Tensor w_gate, Tensor w_up) "
+                                "-> Tensor")
+def fused_ff_op(x, w_gate, w_up):
+    """:func:`fused_ff` as an operator the dispatcher sees, the launch
+    :class:`FusedFFFunction` makes: ``remat_policy="dots"`` names it
+    (``ops.PRODUCTS``), so its output is saved and the recompute does not
+    launch the kernel again."""
+    return fused_ff(x, w_gate, w_up)
+
+
 class FusedFFFunction(torch.autograd.Function):
-    """``fused_ff`` with gradients for x, Wg and Wu: the kernel forward,
-    the plain version's gradient backward."""
+    """``fused_ff`` with gradients for x, Wg and Wu: the kernel forward
+    (through :func:`fused_ff_op`), the plain version's gradient
+    backward."""
 
     @staticmethod
     def forward(ctx, x, w_gate, w_up):
         ctx.save_for_backward(x, w_gate, w_up)
-        return fused_ff(x, w_gate, w_up)
+        return fused_ff_op(x, w_gate, w_up)
 
     @staticmethod
     def backward(ctx, grad_out):

@@ -35,6 +35,18 @@ from repro_torch.kernels import ssd as _ssd_mod
 
 Impl = Optional[Literal["ref", "cuda"]]
 
+# What ``remat_policy="dots"`` saves (``models/lm.py::_remat``, the
+# reference's ``dots_saveable``, which saves ``dot_general``'s outputs):
+# the aten matrix products the plain versions lower to, and the model
+# kernels that fuse products, K2, K6 and K7, as the operators their
+# autograd Functions launch through.  K1 is no product: it is recomputed.
+PRODUCTS = frozenset((
+    torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
+    torch.ops.aten.baddbmm, torch.ops.aten.addbmm, torch.ops.aten.mv,
+    torch.ops.aten.addmv, torch.ops.aten.dot,
+    torch.ops.repro_torch.fused_ff, torch.ops.repro_torch.flash_attention,
+    torch.ops.repro_torch.ssd_chunk))
+
 _forced: Impl = None     # what ``forced`` set, for every thread
 
 

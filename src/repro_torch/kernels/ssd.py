@@ -222,16 +222,27 @@ def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                      c[:, :, None], chunk=chunk)[:, :, 0]
 
 
+@torch.library.custom_op("repro_torch::ssd_chunk", mutates_args=(),
+                         schema="(Tensor x, Tensor a, Tensor b, Tensor c, "
+                                "int chunk) -> Tensor")
+def ssd_chunk_op(x, a, b, c, chunk):
+    """:func:`ssd_chunk` as an operator the dispatcher sees, the launch
+    :class:`SSDFunction` makes: ``remat_policy="dots"`` names it
+    (``ops.PRODUCTS``), so its output is saved and the recompute does not
+    launch the kernel again."""
+    return ssd_chunk(x, a, b, c, chunk=chunk)
+
+
 class SSDFunction(torch.autograd.Function):
-    """``ssd_chunk`` with gradients for x, a, b and c: the kernel forward,
-    the plain version's gradient backward (recomputed from the saved
-    inputs)."""
+    """``ssd_chunk`` with gradients for x, a, b and c: the kernel forward
+    (through :func:`ssd_chunk_op`), the plain version's gradient backward
+    (recomputed from the saved inputs)."""
 
     @staticmethod
     def forward(ctx, x, a, b, c, chunk):
         ctx.save_for_backward(x, a, b, c)
         ctx.chunk = chunk
-        return ssd_chunk(x, a, b, c, chunk=chunk)
+        return ssd_chunk_op(x, a, b, c, chunk)
 
     @staticmethod
     def backward(ctx, grad_y):

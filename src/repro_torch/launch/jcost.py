@@ -52,8 +52,8 @@ attention's backward pass runs outside the call and is counted op by op.
 The figures are one rank's.  ``launch.dryrun`` multiplies them by the
 rank count for the global figures, which over-counts work that every
 rank repeats (replicated compute), where the reference's jaxpr of the
-global program counts it once: the GSPMD step's embedding and head,
-replicated over ``model``, are the known case (ROADMAP A14b-L1).
+global program counts it once: the GSPMD step's layers that compute
+replicated over ``model`` (ROADMAP §A.4) are the known case.
 """
 
 from __future__ import annotations

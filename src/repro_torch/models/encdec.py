@@ -22,7 +22,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import sharding as shd
 from repro_torch.models.lm import (_apply_mlp, _apply_norm, _mlp_spec,
                                    _norm_spec, _remat, _unstack,
-                                   apply_attn, embed_forward, head_forward)
+                                   apply_attn, embed_forward, head_forward,
+                                   vocab_axis, vocab_gather)
 from repro_torch.utils.tree import tree_map
 from repro_torch.nn.core import (apply_dense, init_params, stack_specs,
                                  torch_dtype)
@@ -93,37 +94,50 @@ def encode(params: Dict, frames: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
     """frames: (B, S_enc, d_model) stubbed frontend embeddings -> the
     normed encoder states (B, S_enc, d_model) in ``cfg.dtype``.  Each
-    layer is one :func:`repro_torch.models.lm._remat` unit."""
+    layer is one :func:`repro_torch.models.lm._remat` unit, recomputed
+    whole whatever ``remat_policy`` says, as the reference's."""
     x = frames.to(torch_dtype(cfg.dtype))
     for layer_p in _unstack(params["enc_layers"], cfg.enc_layers):
-        x = _remat(cfg, functools.partial(_enc_block, cfg, layer_p), x)
+        x = _remat(cfg, functools.partial(_enc_block, cfg, layer_p), x,
+                   "nothing")
     return _apply_norm(cfg, params["enc_norm"], x)
 
 
 def decode_train(params: Dict, tokens: torch.Tensor, enc_out: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, vocab=None) -> torch.Tensor:
     """tokens (B, S) over ``enc_out`` -> f32 logits (B, S, vocab).  Each
-    layer is one remat unit that reads ``enc_out`` from its closure: the
-    non-reentrant checkpoint recomputes the layer over the same tensor,
-    so ``enc_out``'s gradient sums every layer's."""
-    x = embed_forward(params, tokens, cfg)
+    layer is one remat unit (recomputed whole, as the encoder's) that
+    reads ``enc_out`` from its closure: the non-reentrant checkpoint
+    recomputes the layer over the same tensor, so ``enc_out``'s gradient
+    sums every layer's.  ``vocab``: ``params``' table is this rank's
+    block of the vocabulary over that axis, and so are the logits."""
+    x = embed_forward(params, tokens, cfg, vocab)
     for layer_p in _unstack(params["dec_layers"], cfg.dec_layers):
         x = _remat(cfg, functools.partial(_dec_block, cfg, layer_p, enc_out),
-                   x)
+                   x, "nothing")
     return head_forward(params, x, cfg)
 
 
 def forward(params: Dict, frames: torch.Tensor, tokens: torch.Tensor,
-            cfg: ModelConfig, mesh=None) -> torch.Tensor:
+            cfg: ModelConfig, mesh=None,
+            vocab_block: bool = False) -> torch.Tensor:
     """frames (B, S_enc, d_model), tokens (B, S) -> f32 logits
     (B, S, vocab).  With ``mesh`` (the GSPMD step, run by every rank)
     ``params`` holds this rank's blocks by ``param_shardings`` and the
     inputs its batch block: the reference only places the parameters,
     and the port all-gathers every leaf before the forward (the gather's
-    backward reduce-scatters the gradient to the block) and computes
-    replicated over ``model``."""
+    backward reduce-scatters the gradient to the block) and computes the
+    layers replicated over ``model``.  The embedding and the head are
+    vocabulary-parallel as :func:`repro_torch.models.lm.forward`'s: the
+    table keeps its ``model`` block, and the logits are all-gathered over
+    ``model``, or with ``vocab_block`` left as this rank's block."""
+    vocab = None
     if mesh is not None:
         specs = shd.param_shardings(model_spec(cfg), mesh)
-        params = tree_map(lambda x, s: shd.gather_for_use(x, s, mesh),
-                          params, specs)
-    return decode_train(params, tokens, encode(params, frames, cfg), cfg)
+        params = {k: tree_map(lambda x, s: shd.gather_for_use(
+            x, s, mesh, ("model",) if k == "embed" else ()), v, specs[k])
+            for k, v in params.items()}
+        vocab = vocab_axis(cfg, mesh)
+    logits = decode_train(params, tokens, encode(params, frames, cfg), cfg,
+                          vocab)
+    return logits if vocab_block else vocab_gather(logits, vocab)

@@ -25,7 +25,13 @@ MLP's columns (their row-parallel outputs psum) and the experts
 (dispatched by all-to-all, :func:`repro_torch.nn.moe.apply_moe_ep`).
 The blocks with no such body compute replicated over ``model``: the SSM
 layers, the hybrid's Mamba-2 layers, MLA, the moe family's shared
-experts, and the encoder-decoder; so do the embedding and the head.
+experts, and the encoder-decoder's layers.  The embedding and the head
+are vocabulary-parallel where ``model`` divides the vocabulary
+(:func:`vocab_axis`): the table (or ``lm_head``) is gathered over its
+FSDP axes only, the lookup psums over ``model`` (:func:`vocab_embed`)
+and each rank computes the logits of its block of the vocabulary, which
+the GSPMD step's loss takes as they are
+(``train.step.cross_entropy``) and :func:`forward` all-gathers.
 ``cfg.seq_parallel`` keeps the dense and moe residual stream sharded on
 the sequence over ``model`` between blocks (Megatron-SP: all-gathered
 at a sublayer's entry, reduce-scattered after its row-parallel output;
@@ -41,11 +47,15 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 import torch.utils.checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import collectives as col
 from repro_torch.dist import sharding as shd
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import matmul, wide
 from repro_torch.nn.attention import NO_WINDOW
 from repro_torch.nn.core import init_params, stack_specs, torch_dtype
 from repro_torch.nn.mla import MLAConfig
@@ -176,19 +186,79 @@ def window_schedule(cfg: ModelConfig) -> np.ndarray:
     return np.where(is_global, NO_WINDOW, cfg.window).astype(np.int32)
 
 
+def head_weight(params: Dict, cfg: ModelConfig) -> torch.Tensor:
+    """The head's weight, (d_model, vocabulary): the tied table's
+    transpose (a view), or ``lm_head``'s ``out.w``.  From a spec tree,
+    the weight's :class:`repro_torch.dist.sharding.P` in that order."""
+    if cfg.tie_embeddings:
+        w = params["embed"]["table"]
+        return shd.P(w[1], w[0]) if isinstance(w, shd.P) else w.T
+    return params["lm_head"]["out"]["w"]
+
+
+def vocab_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """f32 logits ``x @ w`` of a (d_model, vocabulary) head weight or of
+    a block of its columns, as ``nn.unembed`` and ``nn.apply_lm_head``
+    compute them (the same bits: ``w.to`` keeps the transposed table's
+    layout)."""
+    xf = wide(x)
+    return matmul(xf, w.to(xf.dtype))
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor,
+                vocab=None) -> torch.Tensor:
+    """The rows of ``tokens`` in the embedding table.  With ``vocab`` (a
+    bound axis of the mesh), ``table`` is this rank's block of the rows
+    split over it in coordinate order: each rank looks up the tokens its
+    block holds, reads zeros for the others, and the rows are psummed
+    over ``vocab``.  The psum's backward psums the cotangent, so each
+    block's gradient is its rows' whole gradient."""
+    if vocab is None:
+        return table[tokens]
+    n = table.shape[0]
+    t = tokens - vocab.index * n
+    hit = ((t >= 0) & (t < n)).to(table.dtype)
+    return col.psum(table[t.clamp(0, n - 1)] * hit[..., None], vocab)
+
+
+def vocab_gather(logits: torch.Tensor, vocab=None) -> torch.Tensor:
+    """Whole-vocabulary logits from each rank's block of the columns
+    (``vocab``: the axis they are split over, or None: whole already)."""
+    if vocab is None:
+        return logits
+    return col.all_gather(logits, vocab, logits.ndim - 1, tiled=True)
+
+
+def vocab_axis(cfg: ModelConfig, mesh):
+    """The bound axis over which ``param_shardings`` splits the
+    vocabulary (the embedding table's rows, ``lm_head``'s columns) on
+    ``mesh``: ``model`` where it is there and divides ``cfg.vocab``,
+    else None (no mesh, or the rules' divisibility fallback, which
+    keeps the vocabulary whole)."""
+    if mesh is None:
+        return None
+    spec = shd.logical_specs(nn.embedding_spec(cfg.vocab, cfg.d_model),
+                             mesh)["table"]
+    return (mesh.axis("model") if shd.model_size(mesh) > 1
+            and "model" in shd.entry_axes(spec[0]) else None)
+
+
 def head_forward(params: Dict, x: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    """Final norm + (tied) unembedding: residual stream -> f32 logits."""
+    """Final norm + (tied) unembedding: residual stream -> f32 logits;
+    of a block of the vocabulary where ``params`` holds a block of the
+    table or ``lm_head``."""
     x = _apply_norm(cfg, params["final_norm"], x)
-    if cfg.tie_embeddings:
-        return nn.unembed(params["embed"], x)
-    return nn.apply_lm_head(params["lm_head"], x)
+    return vocab_logits(x, head_weight(params, cfg))
 
 
-def embed_forward(params: Dict, tokens: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
-    """Token embedding (with the gemma sqrt(d) scale) -> residual stream."""
-    return scale_embedding(nn.apply_embedding(params["embed"], tokens), cfg)
+def embed_forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
+                  vocab=None) -> torch.Tensor:
+    """Token embedding (with the gemma sqrt(d) scale) -> residual stream;
+    ``vocab``: the table is this rank's block over it
+    (:func:`vocab_embed`)."""
+    return scale_embedding(vocab_embed(params["embed"]["table"], tokens,
+                                       vocab), cfg)
 
 
 def scale_embedding(e: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -304,19 +374,42 @@ def _unstack(stacked: Dict, n: int) -> List[Dict]:
     return out
 
 
-def _remat(cfg: ModelConfig, body, x: torch.Tensor) -> torch.Tensor:
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """The selective checkpoint's policy under ``remat_policy="dots"``:
+    save the products (``ops.PRODUCTS``), recompute every other op, an
+    allocation such as ``aten.empty`` above all (a kernel writes into the
+    tensor it returns)."""
+    return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in ops.PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, body, x: torch.Tensor,
+           policy: Optional[str] = None) -> torch.Tensor:
     """``body(x)``; with ``cfg.remat`` under ``torch.utils.checkpoint``
-    (non-reentrant): only ``x`` is kept and ``body`` is recomputed in the
-    backward pass, the counterpart of
-    ``jax.checkpoint(policy=nothing_saveable)``."""
+    (non-reentrant), the counterpart of ``jax.checkpoint`` at ``policy``
+    (default ``cfg.remat_policy``).  ``"nothing"``
+    (``nothing_saveable``): only ``x`` is kept and ``body`` is recomputed
+    in the backward pass.  ``"dots"`` (``dots_saveable``): the outputs of
+    the matrix products are kept too, and the recompute takes them
+    instead of running the products again (:func:`_dots_saveable`).
+
+    The model kernels launch through ctypes, which no dispatch policy
+    sees, so they have a rule of their own.  K2 (``fused_ff``), K6
+    (``flash_attention``) and K7 (``ssd``) fuse products that
+    ``dots_saveable`` would save: their autograd Functions launch through
+    custom operators that ``ops.PRODUCTS`` names, so under ``"dots"``
+    their outputs are saved and the recompute does not launch them.  K1
+    (``rmsnorm``) is recomputed.  A dense step at L layers thus launches
+    K1 4L + 1, K2 L and K6 L times under ``"dots"``, against 4L + 1, 2L
+    and 2L under ``"nothing"``."""
     if not cfg.remat:
         return body(x)
-    if cfg.remat_policy != "nothing":
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r}: only 'nothing' (recompute "
-            f"the whole layer) is ported")
+    extra = {}
+    if (policy or cfg.remat_policy) == "dots":
+        extra["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_saveable)
     return torch.utils.checkpoint.checkpoint(
-        body, x, use_reentrant=False, preserve_rng_state=False)
+        body, x, use_reentrant=False, preserve_rng_state=False, **extra)
 
 
 class Placement:
@@ -334,6 +427,16 @@ class Placement:
         self.sp = bool(cfg.seq_parallel and self.tp is not None
                        and cfg.family in ("dense", "moe")
                        and seq_len % m == 0)
+        self.vocab = vocab_axis(cfg, mesh)
+
+    def top(self, params: Dict) -> Dict:
+        """The embedding, the final norm and the head (``_TOP_KEYS``) for
+        use: gathered over their FSDP axes, each rank keeping its
+        vocabulary block over ``model`` (the only ``model`` entry their
+        specs can have)."""
+        return {k: tree_map(lambda x, s: shd.gather_for_use(
+            x, s, self.mesh, ("model",)), params[k], self.specs[k])
+            for k in _TOP_KEYS if k in params}
 
     def _keeps_model(self, path, spec) -> bool:
         """Whether a block computes on this leaf's ``model`` shard: the
@@ -438,8 +541,9 @@ def _hybrid_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     """Zamba2: groups of ``shared_attn_every`` Mamba-2 layers, each group
     followed by the one shared attention + MLP block.  Each group (its
     SSM layers and the shared block) is one :func:`_remat` unit, as the
-    reference checkpoints ``group_fn``; the shared block's gradient is
-    the sum over its applications.  With ``place`` the shared block is
+    reference checkpoints ``group_fn``, recomputing the whole group
+    whatever ``remat_policy`` says; the shared block's gradient is the
+    sum over its applications.  With ``place`` the shared block is
     gathered once and computes on its ``model`` shards, and each Mamba-2
     layer is gathered whole inside its group."""
     k = cfg.shared_attn_every
@@ -459,7 +563,8 @@ def _hybrid_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
         return dense_block(cfg, shared, h, **kw)
 
     for g in range(0, cfg.n_layers, k):
-        x = _remat(cfg, functools.partial(group_fn, layers[g: g + k]), x)
+        x = _remat(cfg, functools.partial(group_fn, layers[g: g + k]), x,
+                   "nothing")
     return x
 
 
@@ -467,20 +572,21 @@ _TOP_KEYS = ("embed", "final_norm", "lm_head")
 
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
-            mesh=None) -> torch.Tensor:
+            mesh=None, vocab_block: bool = False) -> torch.Tensor:
     """tokens (B, S) -> f32 logits (B, S, vocab), dense, moe, ssm and
     hybrid families.  With ``mesh`` (run by every rank; see the module
     docstring) ``params`` holds this rank's blocks and ``tokens`` its
     batch block, and the logits are that block's, on every rank of the
-    ``model`` axis."""
+    ``model`` axis; with ``vocab_block`` too, only this rank's block of
+    the vocabulary's columns where :func:`vocab_axis` splits it (the
+    GSPMD step's loss)."""
     decoder_only(cfg, "forward")
-    place = None
+    place = vocab = None
     top = params
     if mesh is not None:
         place = Placement(cfg, mesh, tokens.shape[1], model_spec(cfg))
-        top = {k: place.gather(params[k], place.specs[k], False)
-               for k in _TOP_KEYS if k in params}
-    x = embed_forward(top, tokens, cfg)
+        top, vocab = place.top(params), place.vocab
+    x = embed_forward(top, tokens, cfg, vocab)
     if place is not None:
         x = place.enter(x)
     if cfg.family == "dense":
@@ -500,4 +606,5 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
         x = _hybrid_forward(params, x, cfg, place)
     if place is not None:
         x = place.leave(x)
-    return head_forward(top, x, cfg)
+    logits = head_forward(top, x, cfg)
+    return logits if vocab_block else vocab_gather(logits, vocab)

@@ -54,15 +54,16 @@ from repro_torch.dist import collectives as col
 from repro_torch.dist import sharding as shd
 from repro_torch.models.lm import (Placement, _apply_mlp, _apply_norm,
                                    _layer_specs, embed_forward, head_forward,
-                                   mla_config, moe_config, scale_embedding,
-                                   ssm_config, window_schedule)
+                                   head_weight, mla_config, moe_config,
+                                   scale_embedding, ssm_config, vocab_embed,
+                                   vocab_gather, vocab_logits,
+                                   window_schedule)
 from repro_torch.nn.attention import (NO_WINDOW, decode_positions,
                                       masked_decode_attention,
                                       paged_decode_attention,
                                       paged_update_cache,
                                       split_decode_attention,
                                       update_cache_block)
-from repro_torch.kernels.ref import matmul, wide
 from repro_torch.nn.core import apply_dense, torch_dtype
 from repro_torch.nn.mla import (apply_mla_decode, apply_mla_paged_decode,
                                 init_mla_cache)
@@ -439,17 +440,9 @@ class _OnMesh:
         tokens in its vocabulary block (others' read zeros, psummed over
         ``model``), its width block all-gathered (FSDP's ``data``), then
         this rank's rows."""
-        spec = self.place.specs["embed"]["table"]
-        table = params["embed"]["table"]
-        vocab, width = self._split(spec)
-        tokens = self._rows(tokens, True)
-        if vocab is None:
-            e = table[tokens]
-        else:
-            n = table.shape[0]
-            t = tokens - vocab.index * n
-            hit = ((t >= 0) & (t < n)).to(table.dtype)
-            e = col.psum(table[t.clamp(0, n - 1)] * hit[..., None], vocab)
+        vocab, width = self._split(self.place.specs["embed"]["table"])
+        e = vocab_embed(params["embed"]["table"], self._rows(tokens, True),
+                        vocab)
         for ax in reversed(width):
             e = col.all_gather(e, ax, e.ndim - 1, tiled=True)
         return scale_embedding(self._rows(e, False), self.cfg)
@@ -463,22 +456,16 @@ class _OnMesh:
         norm = self.gather({"n": params["final_norm"]},
                            {"n": specs["final_norm"]}, None)["n"]
         x = _apply_norm(self.cfg, norm, x)
-        if self.cfg.tie_embeddings:
-            w, spec = params["embed"]["table"].T, specs["embed"]["table"]
-        else:           # (d, vocab), no bias (``nn.lm_head_spec``)
-            w, spec = params["lm_head"]["out"]["w"], \
-                specs["lm_head"]["out"]["w"]
-            spec = (spec[1], spec[0])
-        vocab, width = self._split(spec)
+        # (d, vocab): the head's weight and its spec in that order
+        spec = head_weight(specs, self.cfg)
+        vocab, width = self._split((spec[1], spec[0]))
         if width:          # every rank's rows, on this rank's width block
             x = shd.shard_leaf(self._rows(x, True),
-                               shd.P(None, None, spec[1]), self.mesh)
-        xf = wide(x)
-        logits = matmul(xf, w.to(xf.dtype))
+                               shd.P(None, None, spec[0]), self.mesh)
+        logits = vocab_logits(x, head_weight(params, self.cfg))
         if width:
             logits = self._rows(col.psum(logits, width), False)
-        return (logits if vocab is None else
-                col.all_gather(logits, vocab, logits.ndim - 1, tiled=True))
+        return vocab_gather(logits, vocab)
 
 
 def _attn_mlp(cfg: ModelConfig, p: Dict, x: torch.Tensor, caches: List,

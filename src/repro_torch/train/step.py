@@ -13,7 +13,8 @@ the partition written out: each rank holds the parameters' and AdamW
 moments' blocks by ``param_shardings`` (:func:`sharded_state_specs`),
 takes its block of each microbatch by ``batch_spec``, and runs the
 forward with ``mesh`` (:func:`repro_torch.models.lm.forward`: FSDP
-gathers, tensor and expert parallelism over ``model``).  Every
+gathers, tensor and expert parallelism over ``model``, and the
+embedding, head and loss on each rank's block of the vocabulary).  Every
 collective's backward is its exact transpose, so autograd of the ranks'
 program is the gradient of the global loss once each rank weighs its
 loss so that the ranks' losses sum to it: the owner of a batch block is
@@ -61,21 +62,50 @@ class TrainState(NamedTuple):
     ef: object = None
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token NLL in f32.  logits (B, S, V); labels (B, S) ints."""
-    logp = torch.log_softmax(wide(logits), dim=-1)
-    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
-    return nll.mean()
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab=None) -> torch.Tensor:
+    """Mean token NLL in f32.  logits (B, S, V); labels (B, S) ints.
+
+    With ``vocab`` (a bound axis) ``logits`` is this rank's block of the
+    vocabulary's columns, the blocks in coordinate order, and the NLL is
+    vocabulary-parallel: log(sum of exp(logits - max)) + max minus the
+    label's logit, the max over ``vocab`` from an all-gather of the row
+    maxima (detached: the NLL does not depend on it), the sum psummed
+    over ``vocab``, and the label's logit taken by the rank whose block
+    holds it (masked, then psummed).  The psums' backward psums the
+    cotangent, so however the ranks weigh their losses, each rank's
+    block gets its softmax gradient."""
+    if vocab is None:
+        logp = torch.log_softmax(wide(logits), dim=-1)
+        nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+        return nll.mean()
+    z = wide(logits)
+    n = z.shape[-1]
+    with torch.no_grad():
+        top = col.all_gather(z.amax(-1), vocab, 0).amax(0)
+    z = z - top[..., None]
+    total = col.psum(torch.exp(z).sum(-1), vocab)
+    t = labels.long() - vocab.index * n
+    picked = torch.gather(z, -1, t.clamp(0, n - 1)[..., None])[..., 0]
+    hit = (t >= 0) & (t < n)
+    label = col.psum(torch.where(hit, picked, torch.zeros_like(picked)),
+                     vocab)
+    return (torch.log(total) - label).mean()
 
 
 def loss_fn(params: Dict, batch: Dict, cfg: ModelConfig,
             mesh=None) -> Tuple[torch.Tensor, Dict]:
+    """The mean token NLL of ``batch`` and its metrics.  With ``mesh``
+    (the GSPMD step) the forward leaves each rank its block of the
+    vocabulary where ``lm.vocab_axis`` splits it, and the loss is
+    :func:`cross_entropy`'s vocabulary-parallel form."""
     if cfg.family == "encdec":
         logits = encdec.forward(params, batch["frames"], batch["tokens"],
-                                cfg, mesh=mesh)
+                                cfg, mesh=mesh, vocab_block=True)
     else:
-        logits = lm.forward(params, batch["tokens"], cfg, mesh=mesh)
-    loss = cross_entropy(logits, batch["labels"])
+        logits = lm.forward(params, batch["tokens"], cfg, mesh=mesh,
+                            vocab_block=True)
+    loss = cross_entropy(logits, batch["labels"], lm.vocab_axis(cfg, mesh))
     return loss, {"loss": loss}
 
 

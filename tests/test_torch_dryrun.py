@@ -238,6 +238,53 @@ def test_pipe_mesh_train_cell_pipeline_or_gspmd_fallback(subproc):
     assert "PIPE-OK" in subproc(_PIPE_CODE, timeout=300)
 
 
+_VOCAB_CODE = """
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch.configs import get_config
+from repro_torch.launch import jcost
+from repro_torch.launch import roofline as rl
+from repro_torch.launch.dryrun import fake_process_group
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.specs import cell
+fake_process_group(8)
+mesh = make_host_mesh(model=4, device="cpu")
+assert mesh.shape == {"data": 2, "model": 4}, mesh.shape
+base = get_config("stablelm-3b", reduced=True)
+
+def products(n, mesh, batch):
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fn, args = cell(base.replace(n_layers=n), "train", 32, batch, mesh)
+        with rl.count_collectives() as c, jcost.counting() as mode:
+            fn(*args)
+    return mode.cost.matmul_flops, c
+
+# the products outside the layers: the count at 1 layer less the slope;
+# the rank's batch block (8 over data 2) against a mesh-less batch of 4
+(m1, coll), (m2, _) = products(1, mesh, 8), products(2, mesh, 8)
+(l1, _), (l2, _) = products(1, None, 4), products(2, None, 4)
+head, meshless_head = m1 - (m2 - m1), l1 - (l2 - l1)
+assert head > 0 and head * 4 == meshless_head, (head, meshless_head)
+model = mesh.axis_ranks("model")
+table = base.vocab * base.d_model * 4
+over_model = [b for kind, b, r in coll.ops
+              if kind == "all-gather" and r == model]
+assert sum(over_model) < table, (over_model, table)
+print("VOCAB-OK", head, meshless_head, over_model)
+"""
+
+
+def test_train_step_head_is_vocabulary_parallel(subproc):
+    """Reduced stablelm-3b's GSPMD train step on (data 2, model 4) over
+    a fake process group: the matrix products outside the layers (the
+    head's forward and backward), counted by ``launch.jcost`` as the
+    count at 1 layer less the slope from 1 to 2, are a quarter of the
+    mesh-less step's at the rank's batch block; and
+    ``count_collectives`` sees no all-gather of the table over
+    ``model`` (the all-gathers over ``model`` together move less than
+    the table's bytes)."""
+    assert "VOCAB-OK" in subproc(_VOCAB_CODE, timeout=300)
+
+
 # ---------------------------------------------------------------------------
 # parity with the reference's mesh-less cost_of
 # ---------------------------------------------------------------------------

@@ -8,7 +8,9 @@ their transposes under ``shard_map``; ``apply_moe_ep`` and
 ``apply_moe_ep_replicated`` on (data=2, model=2) against the
 reference's, with the reference test's layer
 (``tests/test_dist.py::test_moe_ep_matches_dense``) at its capacity
-factor 8.0 (no drops) and at the config's 1.25 (drops)."""
+factor 8.0 (no drops) and at the config's 1.25 (drops); the
+vocabulary-parallel loss and lookup against the port's mesh-less
+ones."""
 
 import numpy as np
 import pytest
@@ -132,6 +134,44 @@ def test_collectives_match_jax_and_its_transposes(tmp_path, reference):
             np.testing.assert_allclose(g, reference["g_" + name][i],
                                        atol=1e-6, rtol=0,
                                        err_msg=f"{name} gradient, index {i}")
+
+
+def test_vocabulary_parallel_loss_and_lookup(tmp_path):
+    """The GSPMD step's vocabulary-parallel pieces on (data=2, model=2),
+    vocabulary 10 in blocks of 5: ``cross_entropy(..., vocab)`` on each
+    rank's rows and columns gives its rows' mean NLL on both model ranks,
+    and with the loss weighed as the step weighs it (model rank 0 alone)
+    the psums' backward hands every rank its block of the whole loss's
+    softmax gradient; ``lm.vocab_embed`` in each rank's block of the
+    table gives the rows of the whole table, and each block's gradient,
+    summed over the data ranks, is its rows' whole gradient.  Held to the
+    port's mesh-less loss and lookup within 1e-6."""
+    from repro_torch.train import cross_entropy
+    gen = np.random.default_rng(3)
+    logits = (4 * gen.standard_normal((4, 3, 10))).astype(np.float32)
+    labels = gen.integers(0, 10, (4, 3)).astype(np.int64)
+    table = gen.standard_normal((10, 6)).astype(np.float32)
+    c = gen.standard_normal((4, 3, 6)).astype(np.float32)
+    outs = _spawn(tmp_path, ranks.vocab_parallel, logits, labels, table, c)
+    whole = torch.from_numpy(logits).requires_grad_()
+    (g,) = torch.autograd.grad(
+        cross_entropy(whole, torch.from_numpy(labels)), whole)
+    tab = torch.from_numpy(table).requires_grad_()
+    e = tab[torch.from_numpy(labels)]
+    (gt,) = torch.autograd.grad((torch.from_numpy(c) * e).sum(), tab)
+    dtable = np.zeros_like(table)
+    for o in outs:
+        d, m = o["coords"]["data"], o["coords"]["model"]
+        rows, cols = slice(2 * d, 2 * d + 2), slice(5 * m, 5 * m + 5)
+        want = float(cross_entropy(whole[rows].detach(),
+                                   torch.from_numpy(labels[rows])))
+        assert abs(o["loss"] - want) <= 1e-6 * abs(want), (o["loss"], want)
+        np.testing.assert_allclose(o["dlogits"], g.numpy()[rows, :, cols],
+                                   atol=1e-6, rtol=0)
+        np.testing.assert_allclose(o["lookup"], e.detach().numpy()[rows],
+                                   atol=1e-6, rtol=0)
+        dtable[cols] += o["dtable"]
+    np.testing.assert_allclose(dtable, gt.numpy(), atol=1e-6, rtol=0)
 
 
 _MOE_KW = dict(n_experts=8, top_k=2, d_model=32, d_ff=64)

@@ -84,6 +84,40 @@ def collectives(rank, out_dir):
     _save(out_dir, f"collectives_{rank}.pt", out)
 
 
+def vocab_parallel(rank, out_dir, logits_np, labels_np, table_np, c_np):
+    """The GSPMD step's vocabulary-parallel loss and lookup on a (data=2,
+    model=2) mesh: rank (d, m) holds rows 2d, 2d + 1 of the global
+    logits, labels and tokens, and block m of the vocabulary (logits'
+    columns, the table's rows).  It saves its loss as the step weighs it
+    (1 / data on model rank 0, 0 elsewhere) with that loss's gradient for
+    its logit block, and its lookup of the tokens (``labels``) with the
+    gradient of <c, lookup> (owned by model rank 0) for its table
+    block."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.train import cross_entropy
+    mesh = make_host_mesh(model=2, device="cpu")
+    vocab = mesh.axis("model")
+    owner = float(mesh.coords["model"] == 0)
+    rows = shd.P("data")
+    logits = shd.shard_leaf(torch.from_numpy(logits_np),
+                            shd.P("data", None, "model"), mesh)
+    logits = logits.contiguous().requires_grad_()
+    labels = shd.shard_leaf(torch.from_numpy(labels_np), rows, mesh)
+    loss = cross_entropy(logits, labels, vocab)
+    (g,) = torch.autograd.grad(loss * owner / 2, logits)
+    table = shd.shard_leaf(torch.from_numpy(table_np), shd.P("model"), mesh)
+    table = table.contiguous().requires_grad_()
+    e = lm.vocab_embed(table, labels, vocab)
+    c = shd.shard_leaf(torch.from_numpy(c_np), rows, mesh)
+    (gt,) = torch.autograd.grad((c * e).sum() * owner, table)
+    _save(out_dir, f"vocab_parallel_{rank}.pt", {
+        "coords": dict(mesh.coords), "loss": float(loss),
+        "dlogits": g.numpy(), "lookup": e.detach().numpy(),
+        "dtable": gt.numpy()})
+
+
 def moe_ep(rank, out_dir, p_np, x_np, c_np, moe_kw):
     """``apply_moe_ep`` and ``apply_moe_ep_replicated`` on a (data=2,
     model=2) mesh from the global parameters ``p_np`` and tokens ``x_np``
