@@ -16,7 +16,10 @@ Phases, each printed on lines of its own:
    and zamba2-2.7b's norms, mamba2-1.3b's ln1 and gated norm, zamba2-2.7b's
    gated norm, olmoe-1b-7b's q/k norms, deepseek-v2-lite-16b's latent
    norm), the training paths' 8192 x 2560, 8192 x 4096, 8192 x 5120, 8192
-   x 2048, 131072 x 128 and 8192 x 512 and a ragged shape; K2 ``fused_ff``
+   x 2048, 131072 x 128 and 8192 x 512 and a ragged shape (the narrow
+   rows' instance timed beside ``block_row`` by the C entry point), and
+   a bf16 width sweep of 8192 rows by 128 to 4096 columns (narrow
+   instance, ``block_row``, ``F.rms_norm``: ``rmsnorm_sweep``); K2 ``fused_ff``
    in bf16 and f32 at the serving path's 8 x 2560 . 2560 x 6912, the
    decode threshold's neighbours (M 1, 3, 9, 16, 32), ragged shapes, the
    training path's 8192 rows, zamba2-2.7b's shared MLP (8 and 8192 rows .
@@ -582,6 +585,12 @@ def alternatives(mod, cases, check, iters=30):
     return out
 
 
+# K1's bf16 outputs may differ by one bf16 rounding (2^-7 relative) where
+# f32 sums in another order land on either side of a rounding boundary;
+# f32 by rsqrtf's 2 ulp
+RMS_TOL = {"bfloat16": (1e-5, 2 ** -7), "float32": (1e-5, 1e-5)}
+
+
 def rmsnorm_checks(gen, records):
     """K1 at the serving paths' 8 x 2560 (qwen1.5-4b; zamba2-2.7b's ln1),
     8 x 2048 and 8 x 4096 (mamba2-1.3b's ln1 and gated norm; also the moe
@@ -594,17 +603,14 @@ def rmsnorm_checks(gen, records):
     launching the instance ``select_tiling`` names; in bf16 at the path
     shapes, timed beside ``F.rms_norm``, with the instance of every br of
     ``CONFIGS`` that divides the rows (through ``br=``, as a deployed
-    config calls) timed beside the default (``block_row``, the
-    model's)."""
+    config calls) timed beside the default (the model's: a narrow
+    instance for rows of at most ``NARROW_ROW_BYTES``, then also
+    ``block_row`` by the C entry point, else ``block_row``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels import rmsnorm as rms_mod
 
-    # bf16 outputs may differ by one bf16 rounding (2^-7 relative) where
-    # f32 sums in another order land on either side of a rounding
-    # boundary; f32 by rsqrtf's 2 ulp.
-    tol = {"bfloat16": (1e-5, 2 ** -7), "float32": (1e-5, 1e-5)}
     for dname, dt in (("bfloat16", torch.bfloat16),
                       ("float32", torch.float32)):
         for rows, cols, path in ((LANES, D_MODEL, "serve"), (13, 1001, None),
@@ -637,7 +643,7 @@ def rmsnorm_checks(gen, records):
             tiling = expect_tiling(f"rmsnorm {shape}", ran,
                                    rms_mod.select_tiling(dt, x.shape))
             err = check_close(f"rmsnorm {shape} {ran}", got, plain,
-                              *tol[dname])
+                              *RMS_TOL[dname])
             del got
             if path is None or dname != "bfloat16":
                 continue
@@ -649,7 +655,12 @@ def rmsnorm_checks(gen, records):
                     cases.append((rms_mod.select_tiling(dt, x.shape, br=br),
                                   call, call))
             alts = alternatives(rms_mod, cases, lambda out, t: check_close(
-                f"rmsnorm {shape} {t}", out, plain, *tol[dname]))
+                f"rmsnorm {shape} {t}", out, plain, *RMS_TOL[dname]))
+            if tiling != rms_mod.BLOCK_ROW:
+                # the wide rows' instance, which these rows took before
+                # the narrow ones, by the library's C entry point
+                alts[rms_mod.BLOCK_ROW] = rmsnorm_at_timed(
+                    rms_mod.BLOCK_ROW, x, g, plain, RMS_TOL[dname], shape)
             el = x.element_size()
             records.append(record(
                 "rmsnorm", path, shape, err,
@@ -659,6 +670,94 @@ def rmsnorm_checks(gen, records):
                 timed(lambda: F.rms_norm(x, (cols,), g, eps=1e-6)),
                 tiling=tiling, alternatives=alts))
             del x, g, plain
+
+
+def rmsnorm_at(tiling, x, g):
+    """K1's ``tiling`` on ``x`` (rows, cols) and ``g`` by the library's C
+    entry point, whatever instance ``select_tiling`` would name: so the
+    narrow instances and ``block_row`` are timed at the same rows.  It
+    bypasses the wrapper and its launch counts."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rmsnorm as rms_mod
+
+    y = torch.empty_like(x)
+    err = _build.library().repro_rmsnorm(
+        x.data_ptr(), g.data_ptr(), y.data_ptr(), *x.shape, 1e-6,
+        _build.tiling_ids("repro_rmsnorm_tilings", rms_mod.TILINGS)[tiling],
+        _build.DTYPE_CODES[x.dtype], _build.stream_handle(x.device))
+    _build.check(err, f"rmsnorm ({tiling})")
+    return y
+
+
+def rmsnorm_at_timed(tiling, x, g, plain, tol, shape):
+    """``rmsnorm_at`` checked against ``plain`` and timed: {"ms",
+    "device_ms", "max_abs_err"}."""
+    import torch
+    got = rmsnorm_at(tiling, x, g)
+    torch.cuda.synchronize()
+    err = check_close(f"rmsnorm {shape} {tiling} (C entry)", got, plain,
+                      *tol)
+    del got
+    ms, dev = timed(lambda: rmsnorm_at(tiling, x, g))
+    print(f"    {tiling}: {ms:.4f} ms (device {dev:.4f})", flush=True)
+    return {"ms": ms, "device_ms": dev, "max_abs_err": err}
+
+
+SWEEP_ROWS = 8192
+SWEEP_COLS = (128, 256, 512, 1024, 2048, 4096)
+
+
+def rmsnorm_sweep(gen, records):
+    """K1 in bf16 at 8192 rows of each width of ``SWEEP_COLS``: the
+    smallest narrow instance that holds the row (``narrow_tiling``, none
+    past the widest) against ``block_row``, both by the C entry point,
+    and ``F.rms_norm``, one line each; the record's kernel time is the
+    narrow instance's where there is one.  This sweep sets
+    ``rmsnorm.NARROW_ROW_BYTES``: a width at or below it whose narrow
+    instance is not the faster is reported as ABOVE THE CROSSING."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rms_mod
+
+    tol = RMS_TOL["bfloat16"]
+    dt = torch.bfloat16
+    for cols in SWEEP_COLS:
+        x = (torch.randn(SWEEP_ROWS, cols, device="cuda", generator=gen)
+             * 0.5).to(dt)
+        g = (torch.randn(cols, device="cuda", generator=gen) * 0.5
+             + 1.0).to(dt)
+        shape = f"{SWEEP_ROWS}x{cols} bfloat16"
+        plain = ops.rmsnorm(x, g, impl="ref")
+        narrow = rms_mod.narrow_tiling(dt, cols)
+        alts = {rms_mod.BLOCK_ROW: rmsnorm_at_timed(
+            rms_mod.BLOCK_ROW, x, g, plain, tol, shape)}
+        if narrow is not None:
+            alts[narrow] = rmsnorm_at_timed(narrow, x, g, plain, tol, shape)
+        kernel = narrow or rms_mod.BLOCK_ROW
+        lib = timed(lambda: F.rms_norm(x, (cols,), g, eps=1e-6))
+        selected = rms_mod.select_tiling(dt, x.shape)
+        rec = record(
+            "rmsnorm", "sweep", shape, alts[kernel]["max_abs_err"],
+            (alts[kernel]["ms"], alts[kernel]["device_ms"]),
+            event_ms(lambda: ops.rmsnorm(x, g, impl="ref")),
+            (2 * SWEEP_ROWS * cols + cols) * x.element_size(),
+            4 * SWEEP_ROWS * cols, "bfloat16", lib, tiling=kernel,
+            selected=selected, alternatives=alts)
+        records.append(rec)
+        faster = (narrow is not None and alts[narrow]["device_ms"]
+                  < alts[rms_mod.BLOCK_ROW]["device_ms"])
+        within = cols * x.element_size() <= rms_mod.NARROW_ROW_BYTES
+        print(f"  sweep rmsnorm {shape}: {narrow or 'no narrow instance'}"
+              + (f" device {alts[narrow]['device_ms']:.4f} ms" if narrow
+                 else "")
+              + f", block_row {alts[rms_mod.BLOCK_ROW]['device_ms']:.4f} ms, "
+              f"F.rms_norm {lib[1]:.4f} ms, bound {rec['bound_ms']:.4f} ms; "
+              f"selected {selected}"
+              + ("; ABOVE THE CROSSING" if within and not faster else ""),
+              flush=True)
+        del x, g, plain
 
 
 def wgmma_at(tiling, x, w_gate, w_up):
@@ -1410,6 +1509,8 @@ def kernel_phase():
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = []
     rmsnorm_checks(gen, records)
+    # its own draw, so the kernels after it see the inputs they always did
+    rmsnorm_sweep(torch.Generator(device="cuda").manual_seed(1), records)
     fused_ff_checks(gen, records)
     flash_attention_checks(gen, records)
     gemm_checks(gen, records)

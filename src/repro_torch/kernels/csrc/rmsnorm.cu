@@ -14,36 +14,59 @@
 // 81 of them a decode pass.  Fusing the norm into its neighbours would
 // remove that cost; the reference has no such kernel, so none is here.
 //
-// Design: one block of 256 threads owns br consecutive rows and
-// normalises them one after another.  Sweep 1 loads a row with 16-byte
-// vector loads (8 bf16 or 4 f32 a thread and load, neighbouring threads on
-// neighbouring addresses) and accumulates the f32 sum of squares; a
-// warp-shuffle tree and shared memory reduce it across the block in a
-// fixed order, so the result is deterministic.  Sweep 2 reads the row
-// again (from L1 / L2) with gamma and writes x * r * gamma with vector
-// stores.  The reduction's shared slots alternate between two sets from
-// row to row: a row's barrier orders every read of the slots two rows
-// back before the writes that reuse them.
+// Two designs, chosen per call by the tiling id the wrapper passes (its
+// select_tiling maps the dtype, the shape and the deployed br to a name
+// of kTilings below).
 //
-// The instances, chosen per call by the tiling id the wrapper passes (its
-// select_tiling maps the dtype, the shape and the deployed br to a name of
-// kTilings below): block_row (a block a row) for calls that name no br
-// (the model's), block_br8, _br16, _br32 for the br values of CONFIGS,
-// and scalar (a block a row, element loads) for rows whose width is not a
-// multiple of the 16-byte vector or whose pointers are not 16-byte
-// aligned.  On the H100 (700 W) a design of one warp a row, the row held
-// in registers and read once, measured slower than block_row at every
-// model shape (8 x 2560, 8192 x 2560, 8192 x 4096 bf16; PERF.md): with 64
+// Narrow rows, lanesL_vecR (calls that name no br, rows of at most
+// NARROW_ROW_BYTES = 2048 bytes: olmoe-1b-7b's 128-wide q/k norms,
+// deepseek-v2-lite-16b's 512-wide MLA latent norm).  A group of L lanes
+// of a warp owns a row, each lane R of its 16-byte vectors in registers,
+// so the row is read from memory once; the sum of squares is reduced by
+// shuffles among those L lanes, with no shared memory and no barrier;
+// gamma, the reference's loop-invariant tile, is loaded once into the
+// same lanes' registers.  The grid is one wave of the card (the occupancy
+// API's blocks an SM times the SMs) walking the rows a warp at a time,
+// and the next row's loads are issued before the current row is reduced,
+// so a lane keeps two rows' vectors in flight.  Vectors past the row's
+// end are predicated off.  The instances are the smallest L x R that
+// holds a row: lanes8_vec1, lanes16_vec1 (bf16 128), lanes32_vec1 (f32
+// 128, bf16 256), lanes32_vec2 (bf16 512), lanes32_vec4 (f32 512, bf16
+// 1024).  Measured on the H100 (700 W; device time, bf16, PERF.md): at
+// 131072 x 128 0.0247 ms against block_row's 0.1525 and F.rms_norm's
+// 0.0878 (bound 0.0200); across 8192 rows of 128 to 1024 columns 1.9-4.8x
+// faster than block_row.  At 2048 columns 32 lanes of 8 vectors (188
+// registers, one block an SM) only tied block_row (0.0249 and 0.0250 ms),
+// so that width and wider keep block_row, and no R = 8 instance is built.
+//
+// Wide rows, block_row (the model's other calls) and block_br8, _br16,
+// _br32 (the br values of CONFIGS, at any width): one block of 256
+// threads owns br consecutive rows and normalises them one after another.
+// Sweep 1 loads a row with 16-byte vector loads (8 bf16 or 4 f32 a
+// thread and load, neighbouring threads on neighbouring addresses) and
+// accumulates the f32 sum of squares; a warp-shuffle tree and shared
+// memory reduce it across the block in a fixed order, so the result is
+// deterministic.  Sweep 2 reads the row again (from L1 / L2) with gamma
+// and writes x * r * gamma with vector stores.  The reduction's shared
+// slots alternate between two sets from row to row: a row's barrier
+// orders every read of the slots two rows back before the writes that
+// reuse them.  At the wide model shapes (8 x 2560, 8192 x 2560, 8192 x
+// 4096 bf16; PERF.md) a design of one warp a row, the row held in
+// registers and read once, measured slower than block_row: with 64
 // warps an SM, many small blocks keep as many bytes in flight as warps
 // holding whole rows, and at 8 rows eight SMs share the work that one
 // block of 8 warps does alone.  The br instances trail block_row as br
 // grows (device time in bf16 at 8192 x 2560: br 8 1.02x, br 16 1.29x,
 // br 32 1.98x; PERF.md): 512 or 256 blocks leave half or more of the
 // SMs' thread slots empty, and a block's rows run one after another, so
-// few loads are in flight.  Loading the next row before the current
-// row's barrier is what is left.  ptxas (`python -m
-// repro_torch.kernels._build --ptxas`): 32 registers for every 16-byte
-// instance in either type, 39 (bf16) and 32 (f32) for scalar, no spills.
+// few loads are in flight.
+//
+// scalar (a block a row, element loads) takes rows whose width is not a
+// multiple of the 16-byte vector or whose pointers are not 16-byte
+// aligned.  ptxas (`python -m repro_torch.kernels._build --ptxas`): 32
+// registers for every block instance in either type, 39 (bf16) and 32
+// (f32) for scalar; the narrow instances 40 (bf16) and 30-32 (f32) at
+// R = 1, 60 and 46 at R = 2, 98 and 64 at R = 4; no spills.
 
 #include "common.cuh"
 
@@ -120,6 +143,93 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// lanes{L}_vec{R}: narrow rows, a group of L lanes a row
+// ---------------------------------------------------------------------------
+
+// The R vectors a lane holds of row `row` (its part `part` of the L
+// lanes): vectors part, part + L, ..., part + (R - 1) L, zeros past the
+// row's end or past the last row.
+template <int L, int R>
+__device__ __forceinline__ void load_row(uint4 (&v)[R],
+                                         const uint4* __restrict__ x,
+                                         int row, int rows, int nvec,
+                                         int part) {
+  const uint4* xr = x + static_cast<size_t>(row) * nvec;
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    v[k] = row < rows && part + k * L < nvec ? xr[part + k * L]
+                                             : make_uint4(0, 0, 0, 0);
+}
+
+// A warp holds 32 / L rows at once, each in registers: the row is read
+// once, the sum of squares is reduced by shuffles among the row's L lanes
+// only (no shared memory, no barrier), and gamma, loaded once into the
+// same lanes' registers, serves every row the warp walks.  The grid is
+// one wave of the card and walks the rows a warp at a time, so every lane
+// of a warp takes the same trips and each shuffle has all 32; the next
+// row's loads are issued before the current row is reduced.
+template <typename T, int L, int R>
+__global__ void __launch_bounds__(kThreads)
+    rmsnorm_narrow_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                          T* __restrict__ y, int rows, int cols, float eps) {
+  static_assert(L == 8 || L == 16 || L == 32, "L lanes of one warp");
+  constexpr int V = 16 / sizeof(T);  // elements per 16-byte vector
+  constexpr int kRowsPerWarp = 32 / L;
+  const int nvec = cols / V;
+  const int lane = threadIdx.x % 32, sub = lane / L, part = lane % L;
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  uint4* yv = reinterpret_cast<uint4*>(y);
+
+  uint4 g[R];
+  load_row<L, R>(g, reinterpret_cast<const uint4*>(gamma), 0, 1, nvec, part);
+
+  const int stride = gridDim.x * (kThreads / 32) * kRowsPerWarp;
+  int base = (blockIdx.x * (kThreads / 32) + threadIdx.x / 32) * kRowsPerWarp;
+  uint4 cur[R];
+  load_row<L, R>(cur, xv, base + sub, rows, nvec, part);
+  for (; base < rows; base += stride) {
+    const int row = base + sub;
+    uint4 next[R];
+    load_row<L, R>(next, xv, row + stride, rows, nvec, part);
+
+    float ss = 0.f;  // zeros past the row's end add nothing
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const T* e = reinterpret_cast<const T*>(&cur[k]);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float f = to_f32(e[i]);
+        ss = fmaf(f, f, ss);
+      }
+    }
+    // a butterfly over the row's lanes: every lane adds the same pairs in
+    // the same order, so all hold the same, deterministic total
+#pragma unroll
+    for (int o = L / 2; o > 0; o >>= 1)
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    const float r = rsqrtf(ss / static_cast<float>(cols) + eps);
+
+    if (row < rows) {
+      uint4* yr = yv + static_cast<size_t>(row) * nvec;
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        if (part + k * L >= nvec) continue;
+        uint4 ro;
+        const T* ex = reinterpret_cast<const T*>(&cur[k]);
+        const T* eg = reinterpret_cast<const T*>(&g[k]);
+        T* eo = reinterpret_cast<T*>(&ro);
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          eo[i] = from_f32<T>(to_f32(ex[i]) * r * to_f32(eg[i]));
+        yr[part + k * L] = ro;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) cur[k] = next[k];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // the instances
 // ---------------------------------------------------------------------------
 
@@ -147,6 +257,48 @@ cudaError_t launch(const void* x, const void* gamma, void* y, int rows,
                                            stream);
 }
 
+// A row of at most L x R whole vectors; as many blocks as the card holds
+// at once (from the occupancy API, once per instance), fewer if the rows
+// need fewer.
+template <typename T, int L, int R>
+cudaError_t launch_narrow_t(const void* x, const void* gamma, void* y,
+                            int rows, int cols, float eps,
+                            cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  if (!(cols % V == 0 && cols / V <= L * R && aligned(x, 16) &&
+        aligned(gamma, 16) && aligned(y, 16)))
+    return cudaErrorInvalidValue;
+  auto kernel = rmsnorm_narrow_kernel<T, L, R>;
+  static int per_sm = 0, sms = 0;   // blocks an SM holds, SMs: per instance
+  if (per_sm == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kThreads, 0);
+    if (err != cudaSuccess) return err;
+  }
+  constexpr int kRowsPerBlock = kThreads / L;
+  const int need = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  const int wave = per_sm * sms;
+  kernel<<<need < wave ? need : wave, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(gamma),
+      static_cast<T*>(y), rows, cols, eps);
+  return cudaGetLastError();
+}
+
+template <int L, int R>
+cudaError_t launch_narrow(const void* x, const void* gamma, void* y, int rows,
+                          int cols, float eps, int dtype,
+                          cudaStream_t stream) {
+  if (dtype == kF32)
+    return launch_narrow_t<float, L, R>(x, gamma, y, rows, cols, eps, stream);
+  return launch_narrow_t<__nv_bfloat16, L, R>(x, gamma, y, rows, cols, eps,
+                                              stream);
+}
+
 // The tilings a call may name, by id (kernels/rmsnorm.py::TILINGS lists the
 // same names in the same order).
 struct Tiling {
@@ -159,6 +311,11 @@ const Tiling kTilings[] = {
     {"block_br8", &launch<true, 8>},
     {"block_br16", &launch<true, 16>},
     {"block_br32", &launch<true, 32>},
+    {"lanes8_vec1", &launch_narrow<8, 1>},
+    {"lanes16_vec1", &launch_narrow<16, 1>},
+    {"lanes32_vec1", &launch_narrow<32, 1>},
+    {"lanes32_vec2", &launch_narrow<32, 2>},
+    {"lanes32_vec4", &launch_narrow<32, 4>},
 };
 constexpr int kNumTilings = sizeof(kTilings) / sizeof(kTilings[0]);
 

@@ -37,12 +37,35 @@ launches = 0
 launches_by_tiling: collections.Counter = collections.Counter()
 
 # The kernel instances compiled in csrc/rmsnorm.cu, by id (its kTilings):
-# element loads a block a row (unaligned or ragged rows), then 16-byte
-# vectors a block a row (calls that name no br) and with br rows a block
-# (the br values of CONFIGS).
+# element loads a block a row (unaligned or ragged rows), 16-byte vectors
+# a block a row (the model's calls on wide rows) and with br rows a block
+# (the br values of CONFIGS), then the narrow-row instances lanesL_vecR:
+# L lanes of a warp hold a row, R vectors a lane, in registers (the
+# model's calls on rows of at most NARROW_ROW_BYTES).
 SCALAR, BLOCK_ROW = "scalar", "block_row"
 BLOCK_BR = (8, 16, 32)
-TILINGS = (SCALAR, BLOCK_ROW) + tuple(f"block_br{br}" for br in BLOCK_BR)
+NARROW = ((8, 1), (16, 1), (32, 1), (32, 2), (32, 4))   # (L, R)
+NARROW_TILINGS = tuple(f"lanes{lanes}_vec{vec}" for lanes, vec in NARROW)
+TILINGS = ((SCALAR, BLOCK_ROW) + tuple(f"block_br{br}" for br in BLOCK_BR)
+           + NARROW_TILINGS)
+
+# The widest row, in bytes, that a call naming no br sends to a narrow
+# instance: the widest instance's, 32 lanes x 4 vectors.  chip_smoke.py's
+# width sweep (bf16, 8192 rows) set the table: each narrow width ran
+# faster than block_row, and at 4096 bytes (2048 columns) 32 lanes of 8
+# vectors (188 registers, one block an SM) only tied it (csrc/rmsnorm.cu's
+# note), so that instance is not built.
+NARROW_ROW_BYTES = 16 * max(lanes * vec for lanes, vec in NARROW)
+
+
+def narrow_tiling(dtype: torch.dtype, cols: int) -> Optional[str]:
+    """The smallest narrow instance whose L x R vectors hold a row of
+    ``cols`` elements of ``dtype``, or None where none does."""
+    nvec = -(-cols * dtype.itemsize // 16)
+    for (lanes, vec), name in zip(NARROW, NARROW_TILINGS):
+        if lanes * vec >= nvec:
+            return name
+    return None
 
 
 @functools.lru_cache(maxsize=1024)
@@ -53,13 +76,20 @@ def select_tiling(dtype: torch.dtype, shape: Sequence[int], *,
     ``rmsnorm`` launches for x of ``shape`` (rows, cols) in ``dtype`` at
     the deployed ``br`` (``cols`` is the config's width, checked by the
     wrapper): ``scalar`` for rows whose width is not a multiple of the
-    16-byte vector or tensors not 16-byte aligned (``aligned``); else
-    ``block_row`` when br is None or 1 (the model's calls), and the
-    instance of ``br`` rows a block otherwise.  A br with no compiled
-    instance raises, listing the instances."""
+    16-byte vector or tensors not 16-byte aligned (``aligned``); else,
+    when br is None (the model's calls), the smallest narrow instance
+    that holds the row (:func:`narrow_tiling`) for rows of at most
+    ``NARROW_ROW_BYTES`` and ``block_row`` for wider ones; ``block_row``
+    for br 1, and the instance of ``br`` rows a block for any other br,
+    at any width.  A br with no compiled instance raises, listing the
+    instances."""
     if not aligned or shape[1] % (16 // dtype.itemsize):
         return SCALAR
-    if br is None or br == 1:
+    if br is None:
+        if shape[1] * dtype.itemsize <= NARROW_ROW_BYTES:
+            return narrow_tiling(dtype, shape[1])
+        return BLOCK_ROW
+    if br == 1:
         return BLOCK_ROW
     name = f"block_br{br}"
     if name not in TILINGS:

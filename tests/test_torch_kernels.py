@@ -82,6 +82,24 @@ def test_rmsnorm_matches_pallas_and_oracle(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,cols", [(256, 128), (64, 512)])
+def test_rmsnorm_narrow_rows_match_pallas_and_oracle(dtype, rows, cols):
+    """The narrow rows the model normalises (olmoe-1b-7b's 128-wide q/k
+    norms, deepseek-v2-lite-16b's 512-wide latent norm), which the card
+    sends to the narrow-row instances."""
+    rng = np.random.default_rng(cols)
+    x = (rng.standard_normal((rows, cols)) * 0.5).astype(np.float32)
+    g = (rng.standard_normal(cols) * 0.5 + 1.0).astype(np.float32)
+    (jx, tx), (jg, tg) = _pair(x, dtype), _pair(g, dtype)
+    got = rms_mod.rmsnorm(tx, tg)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    for want in (pallas_rmsnorm(jx, jg, br=8, interpret=True),
+                 jref.rmsnorm(jx, jg)):
+        np.testing.assert_allclose(_f32(got), _f32(want),
+                                   atol=RMS_ATOL[dtype], rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fused_ff_matches_pallas_and_oracle(dtype):
     rng = np.random.default_rng(2)
     x, wg, wu = ((rng.standard_normal((128, 128)) * 0.5).astype(np.float32)

@@ -458,6 +458,61 @@ def test_model_calls_take_the_documented_defaults():
     assert sm_mod.select_tiling(BF16, (40960, 4096)) == "block_br1"
 
 
+# the model's narrow K1 rows: olmoe-1b-7b's q/k norms (head dim 128) in
+# training (B 4 x S 2048 x 16 heads), in the GSPMD step (4 heads a rank)
+# and at decode (8 lanes x 16 heads); deepseek-v2-lite-16b's MLA latent
+# norm (512) in training and at decode
+_NARROW_PATHS = [((131072, 128), "lanes16_vec1", "lanes32_vec1"),
+                 ((32768, 128), "lanes16_vec1", "lanes32_vec1"),
+                 ((8192, 512), "lanes32_vec2", "lanes32_vec4"),
+                 ((128, 128), "lanes16_vec1", "lanes32_vec1"),
+                 ((8, 512), "lanes32_vec2", "lanes32_vec4")]
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("shape,bf16,f32", _NARROW_PATHS,
+                         ids=[f"{r}x{c}" for (r, c), _, _ in _NARROW_PATHS])
+def test_rmsnorm_narrow_path_shapes_select_the_narrow_instances(
+        shape, bf16, f32, dtype):
+    """A call naming no br on a row of at most NARROW_ROW_BYTES runs the
+    smallest narrow instance that holds the row; one vector wider runs
+    block_row; a deployed br keeps its instance at the narrow widths;
+    unaligned or ragged narrow rows keep scalar."""
+    want = bf16 if dtype == BF16 else f32
+    assert rms_mod.select_tiling(dtype, shape) == want in rms_mod.TILINGS
+    assert rms_mod.narrow_tiling(dtype, shape[1]) == want
+    rows, cols = shape
+    vec = 16 // dtype.itemsize
+    widest = rms_mod.NARROW_ROW_BYTES // dtype.itemsize
+    assert rms_mod.select_tiling(dtype, (rows, widest)) \
+        in rms_mod.NARROW_TILINGS
+    assert rms_mod.select_tiling(dtype, (rows, widest + vec)) == "block_row"
+    assert rms_mod.select_tiling(dtype, (8, 128), br=8) == "block_br8"
+    if rows % 8 == 0:
+        assert rms_mod.select_tiling(dtype, shape, br=8) == "block_br8"
+    assert rms_mod.select_tiling(dtype, shape, aligned=False) == "scalar"
+    assert rms_mod.select_tiling(dtype, (rows, cols + 1)) == "scalar"
+    assert rms_mod.select_tiling(dtype, (rows, cols - 1)) == "scalar"
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("lanes,vec", rms_mod.NARROW)
+def test_rmsnorm_narrow_rows_take_the_smallest_instance_that_holds_them(
+        lanes, vec, dtype):
+    """A row of exactly L x R vectors takes lanesL_vecR, a row of fewer
+    (down to one more than the next smaller instance holds) too, and one
+    vector more the next instance (block_row past the widest)."""
+    per_vec = 16 // dtype.itemsize
+    i = rms_mod.NARROW.index((lanes, vec))
+    name = f"lanes{lanes}_vec{vec}"
+    smaller = rms_mod.NARROW[i - 1][0] * rms_mod.NARROW[i - 1][1] if i else 0
+    for nvec in (lanes * vec, smaller + 1):
+        assert rms_mod.narrow_tiling(dtype, nvec * per_vec) == name
+    above = rms_mod.narrow_tiling(dtype, (lanes * vec + 1) * per_vec)
+    assert above == (rms_mod.NARROW_TILINGS[i + 1]
+                     if i + 1 < len(rms_mod.NARROW) else None)
+
+
 @pytest.mark.parametrize("name,shape,cfg", [
     ("rmsnorm", (64, 2048), {"br": 4}),
     ("rmsnorm", (64, 2048), {"br": 64}),
@@ -501,6 +556,8 @@ def test_each_k1_k2_k5_instance_is_explicitly_instantiated(source, name):
         assert (fn, [int(a) for a in args]) == ("launch_gemv", nums)
     elif name.startswith("block_br"):
         assert (fn, args) == ("launch", ["true", str(nums[0])])
+    elif name.startswith("lanes"):     # lanesL_vecR: L lanes, R vectors
+        assert (fn, [int(a) for a in args]) == ("launch_narrow", nums)
     elif name == "block_row":
         assert (fn, args) == ("launch", ["true", "1"])
     elif source in ("softmax.cu", "rmsnorm.cu"):
