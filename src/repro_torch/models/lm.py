@@ -61,6 +61,7 @@ from repro_torch.nn.core import init_params, stack_specs, torch_dtype
 from repro_torch.nn.mla import MLAConfig
 from repro_torch.nn.moe import MoEConfig
 from repro_torch.nn.ssm import SSMConfig
+from repro_torch.utils import spans
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -248,8 +249,9 @@ def head_forward(params: Dict, x: torch.Tensor,
     """Final norm + (tied) unembedding: residual stream -> f32 logits;
     of a block of the vocabulary where ``params`` holds a block of the
     table or ``lm_head``."""
-    x = _apply_norm(cfg, params["final_norm"], x)
-    return vocab_logits(x, head_weight(params, cfg))
+    with spans.span(spans.HEAD):
+        x = _apply_norm(cfg, params["final_norm"], x)
+        return vocab_logits(x, head_weight(params, cfg))
 
 
 def embed_forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
@@ -257,8 +259,9 @@ def embed_forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     """Token embedding (with the gemma sqrt(d) scale) -> residual stream;
     ``vocab``: the table is this rank's block over it
     (:func:`vocab_embed`)."""
-    return scale_embedding(vocab_embed(params["embed"]["table"], tokens,
-                                       vocab), cfg)
+    with spans.span(spans.EMBED):
+        return scale_embedding(vocab_embed(params["embed"]["table"], tokens,
+                                           vocab), cfg)
 
 
 def scale_embedding(e: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -285,25 +288,26 @@ def apply_attn(cfg: ModelConfig, p: Dict, x: torch.Tensor, *,
     from the shard shapes (a single KV head stays whole) and the output
     projection psums the partials (``sp``: reduce-scatters them over the
     sequence)."""
-    if cfg.mla:
-        return nn.apply_mla(p, x, mla_config(cfg), causal=causal,
-                            q_offset=q_offset, chunk=cfg.attn_chunk)
-    S = x.shape[1]
-    if tp_axis is None:
-        n_heads, n_kv = cfg.n_heads, cfg.n_kv_heads
-    else:
-        n_heads = p["wq"]["w"].shape[1] // cfg.head_dim
-        n_kv = p["wk"]["w"].shape[1] // cfg.head_dim
-    q, k, v = nn.qkv_project(p, x, n_heads, n_kv, cfg.head_dim)
-    if cfg.qk_norm:
-        q = nn.apply_rmsnorm(p["q_norm"], q)
-        k = nn.apply_rmsnorm(p["k_norm"], k)
-    positions = (q_offset + torch.arange(S, device=x.device))[None, :]
-    q = nn.apply_rope(q, positions, cfg.rope_theta)
-    k = nn.apply_rope(k, positions, cfg.rope_theta)
-    o = nn.chunked_attention(q, k, v, causal=causal, window=window,
-                             chunk=cfg.attn_chunk, q_offset=q_offset)
-    return nn.out_project(p, o, tp_axis=tp_axis, sp=sp)
+    with spans.span(spans.ATTN):
+        if cfg.mla:
+            return nn.apply_mla(p, x, mla_config(cfg), causal=causal,
+                                q_offset=q_offset, chunk=cfg.attn_chunk)
+        S = x.shape[1]
+        if tp_axis is None:
+            n_heads, n_kv = cfg.n_heads, cfg.n_kv_heads
+        else:
+            n_heads = p["wq"]["w"].shape[1] // cfg.head_dim
+            n_kv = p["wk"]["w"].shape[1] // cfg.head_dim
+        q, k, v = nn.qkv_project(p, x, n_heads, n_kv, cfg.head_dim)
+        if cfg.qk_norm:
+            q = nn.apply_rmsnorm(p["q_norm"], q)
+            k = nn.apply_rmsnorm(p["k_norm"], k)
+        positions = (q_offset + torch.arange(S, device=x.device))[None, :]
+        q = nn.apply_rope(q, positions, cfg.rope_theta)
+        k = nn.apply_rope(k, positions, cfg.rope_theta)
+        o = nn.chunked_attention(q, k, v, causal=causal, window=window,
+                                 chunk=cfg.attn_chunk, q_offset=q_offset)
+        return nn.out_project(p, o, tp_axis=tp_axis, sp=sp)
 
 
 def _sublayer_in(cfg: ModelConfig, norm_p: Dict, x: torch.Tensor, tp_axis,
@@ -401,15 +405,28 @@ def _remat(cfg: ModelConfig, body, x: torch.Tensor,
     their outputs are saved and the recompute does not launch them.  K1
     (``rmsnorm``) is recomputed.  A dense step at L layers thus launches
     K1 4L + 1, K2 L and K6 L times under ``"dots"``, against 4L + 1, 2L
-    and 2L under ``"nothing"``."""
+    and 2L under ``"nothing"``.
+
+    The checkpoint's second and later calls of ``body`` (the recompute
+    in the backward pass) run under :func:`repro_torch.utils.spans.recompute`."""
     if not cfg.remat:
         return body(x)
     extra = {}
     if (policy or cfg.remat_policy) == "dots":
         extra["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _dots_saveable)
+    calls = 0
+
+    def run(h: torch.Tensor) -> torch.Tensor:
+        nonlocal calls
+        calls += 1
+        if calls == 1:
+            return body(h)
+        with spans.recompute():
+            return body(h)
+
     return torch.utils.checkpoint.checkpoint(
-        body, x, use_reentrant=False, preserve_rng_state=False, **extra)
+        run, x, use_reentrant=False, preserve_rng_state=False, **extra)
 
 
 class Placement:

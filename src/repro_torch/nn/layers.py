@@ -17,6 +17,7 @@ from repro_torch.dist.collectives import psum, psum_scatter
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import matmul, wide
 from repro_torch.nn.core import ParamSpec, apply_dense, dense
+from repro_torch.utils import spans
 
 
 # ---------------------------------------------------------------------------
@@ -31,9 +32,10 @@ def apply_rmsnorm(p: Dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """f32 math, eps 1e-6, output in x's type — one ``ops.rmsnorm`` over
     the rows of x flattened to (rows, last axis)."""
     d = x.shape[-1]
-    y = ops.rmsnorm(x.reshape(-1, d).contiguous(), p["scale"].to(x.dtype),
-                    eps=eps)
-    return y.reshape(x.shape)
+    with spans.span(spans.NORM):
+        y = ops.rmsnorm(x.reshape(-1, d).contiguous(),
+                        p["scale"].to(x.dtype), eps=eps)
+        return y.reshape(x.shape)
 
 
 def layernorm_spec(d: int) -> Dict:
@@ -42,11 +44,13 @@ def layernorm_spec(d: int) -> Dict:
 
 
 def apply_layernorm(p: Dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    xf = wide(x)
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * p["scale"].to(y.dtype) + p["bias"].to(y.dtype)).to(x.dtype)
+    with spans.span(spans.NORM):
+        xf = wide(x)
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        return (y * p["scale"].to(y.dtype)
+                + p["bias"].to(y.dtype)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -82,12 +86,13 @@ def apply_swiglu(p: Dict, x: torch.Tensor, tp_axis=None,
     cotangent — the reference's Megatron column→row pattern
     (:func:`tp_reduce`; ``sp``: reduce-scattered over the sequence)."""
     d = x.shape[-1]
-    h = ops.fused_ff(x.reshape(-1, d).contiguous(),
-                     p["gate"]["w"].to(x.dtype), p["up"]["w"].to(x.dtype))
-    if tp_axis is None:
-        return apply_dense(p["down"], h).reshape(*x.shape[:-1], -1)
-    y = matmul(h, p["down"]["w"].to(h.dtype))
-    return tp_reduce(y.reshape(*x.shape[:-1], -1), tp_axis, sp)
+    with spans.span(spans.MLP):
+        h = ops.fused_ff(x.reshape(-1, d).contiguous(),
+                         p["gate"]["w"].to(x.dtype), p["up"]["w"].to(x.dtype))
+        if tp_axis is None:
+            return apply_dense(p["down"], h).reshape(*x.shape[:-1], -1)
+        y = matmul(h, p["down"]["w"].to(h.dtype))
+        return tp_reduce(y.reshape(*x.shape[:-1], -1), tp_axis, sp)
 
 
 def gelu_mlp_spec(d_model: int, d_ff: int, bias: bool = True) -> Dict:
@@ -99,16 +104,18 @@ def gelu_mlp_spec(d_model: int, d_ff: int, bias: bool = True) -> Dict:
 
 def apply_gelu_mlp(p: Dict, x: torch.Tensor, tp_axis=None,
                    sp: bool = False) -> torch.Tensor:
-    # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(apply_dense(p["up"], x), approximate="tanh")
-    if tp_axis is None:
-        return apply_dense(p["down"], h)
-    # the down bias is replicated over the TP axis: add it once, after the
-    # partial-sum psum (folding it into apply_dense would count it TP times)
-    y = tp_reduce(matmul(h, p["down"]["w"].to(h.dtype)), tp_axis, sp)
-    if "w_b" in p["down"]:
-        y = y + p["down"]["w_b"].to(y.dtype)
-    return y
+    with spans.span(spans.MLP):
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(apply_dense(p["up"], x), approximate="tanh")
+        if tp_axis is None:
+            return apply_dense(p["down"], h)
+        # the down bias is replicated over the TP axis: add it once, after
+        # the partial-sum psum (folding it into apply_dense would count it
+        # TP times)
+        y = tp_reduce(matmul(h, p["down"]["w"].to(h.dtype)), tp_axis, sp)
+        if "w_b" in p["down"]:
+            y = y + p["down"]["w_b"].to(y.dtype)
+        return y
 
 
 # ---------------------------------------------------------------------------

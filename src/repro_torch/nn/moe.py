@@ -24,6 +24,13 @@ The router's f32 product and the experts' three products are PyTorch
 products, as the reference computes them outside any Pallas kernel; the
 shared experts go through :func:`repro_torch.nn.layers.apply_swiglu`
 (``ops.fused_ff``, K2 on the card), as the dense MLP does.
+
+Under a profiler the router opens the span ``repro_torch.moe.router``
+and each layer ``repro_torch.moe.experts`` (the shared experts' own
+``repro_torch.mlp`` nested in it), and each layer's forward counts
+``moe.pairs_routed`` (the (token, expert) pairs the router chose) and
+``moe.pairs_computed`` (the pairs the experts ran):
+:mod:`repro_torch.utils.spans`.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from repro_torch.dist import collectives as col
 from repro_torch.kernels.ref import matmul, wide
 from repro_torch.nn.core import ParamSpec
 from repro_torch.nn.layers import apply_swiglu
+from repro_torch.utils import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,13 +86,19 @@ def router_probs(p: Dict, x: torch.Tensor, cfg: MoEConfig):
     """(gate values (..., k), gate indices (..., k), probabilities (...,
     E)): the softmax of the f32 router logits and its top k, largest
     first."""
-    xf = wide(x)
-    lead = x.shape[:-1]
-    logits = matmul(xf.reshape(-1, x.shape[-1]),
-                    p["router"]["w"].to(xf.dtype)).reshape(*lead, -1)
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, gate_idx = torch.topk(probs, cfg.top_k, dim=-1)
-    return gate_vals, gate_idx, probs
+    with spans.span(spans.MOE_ROUTER):
+        xf = wide(x)
+        lead = x.shape[:-1]
+        logits = matmul(xf.reshape(-1, x.shape[-1]),
+                        p["router"]["w"].to(xf.dtype)).reshape(*lead, -1)
+        probs = torch.softmax(logits, dim=-1)
+        gate_vals, gate_idx = torch.topk(probs, cfg.top_k, dim=-1)
+        return gate_vals, gate_idx, probs
+
+
+def _count_pairs(tokens: int, computed: int, cfg: MoEConfig) -> None:
+    spans.count("moe.pairs_routed", tokens * cfg.top_k)
+    spans.count("moe.pairs_computed", computed)
 
 
 def _expert_ffn(experts: Dict, xb: torch.Tensor) -> torch.Tensor:
@@ -104,17 +118,19 @@ def apply_moe_dense(p: Dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     other terms are exact zeros."""
     B, S, D = x.shape
     T, E = B * S, cfg.n_experts
-    gate_vals, gate_idx, _ = router_probs(p, x, cfg)
-    xt = x.reshape(T, D)
-    y_all = _expert_ffn(p["experts"], xt.expand(E, T, D))      # (E, T, d)
-    tok = torch.arange(T, device=x.device)
-    picked = y_all[gate_idx.reshape(T, cfg.top_k).T, tok]      # (k, T, d)
-    gates = gate_vals.reshape(T, cfg.top_k).T[..., None]       # (k, T, 1)
-    y = (gates * picked.to(gates.dtype)).sum(dim=0)
-    out = y.reshape(B, S, D).to(x.dtype)
-    if cfg.n_shared:
-        out = out + apply_swiglu(p["shared"], x)
-    return out
+    _count_pairs(T, T * E, cfg)
+    with spans.span(spans.MOE_EXPERTS):
+        gate_vals, gate_idx, _ = router_probs(p, x, cfg)
+        xt = x.reshape(T, D)
+        y_all = _expert_ffn(p["experts"], xt.expand(E, T, D))  # (E, T, d)
+        tok = torch.arange(T, device=x.device)
+        picked = y_all[gate_idx.reshape(T, cfg.top_k).T, tok]  # (k, T, d)
+        gates = gate_vals.reshape(T, cfg.top_k).T[..., None]   # (k, T, 1)
+        y = (gates * picked.to(gates.dtype)).sum(dim=0)
+        out = y.reshape(B, S, D).to(x.dtype)
+        if cfg.n_shared:
+            out = out + apply_swiglu(p["shared"], x)
+        return out
 
 
 def capacity(cfg: MoEConfig, tokens: int) -> int:
@@ -177,6 +193,7 @@ def _ep_block(p: Dict, xs: torch.Tensor, cfg: MoEConfig, axis) -> torch.Tensor:
     e_local = cfg.n_experts // ep
     buf, slot, _, flat_g = dispatch(p, xs, cfg)
     cap = buf.shape[1]
+    _count_pairs(xs.shape[0] * xs.shape[1], cfg.n_experts * cap, cfg)
     # dim 0 of the exchanged buffer indexes the SOURCE rank: put it next
     # to capacity before flattening per local expert
     buf = col.all_to_all(buf.reshape(ep, e_local, cap, D), axis, 0, 0)
@@ -199,36 +216,40 @@ def apply_moe_ep(p: Dict, x: torch.Tensor, cfg: MoEConfig, mesh,
     stream), and so is the output."""
     ax = mesh.axis(axis)
     assert cfg.n_experts % ax.size == 0, (cfg.n_experts, ax.size)
-    xs = x if seq_sharded else col.block_of(x, ax, 1)
-    out = _ep_block(p, xs, cfg, ax)
-    if not seq_sharded:
-        out = col.all_gather(out, ax, 1, tiled=True)
-    if cfg.n_shared:
-        out = out + apply_swiglu(p["shared"], x)
-    return out
+    with spans.span(spans.MOE_EXPERTS):
+        xs = x if seq_sharded else col.block_of(x, ax, 1)
+        out = _ep_block(p, xs, cfg, ax)
+        if not seq_sharded:
+            out = col.all_gather(out, ax, 1, tiled=True)
+        if cfg.n_shared:
+            out = out + apply_swiglu(p["shared"], x)
+        return out
 
 
 def apply_moe_ep_replicated(p: Dict, x: torch.Tensor, cfg: MoEConfig, mesh,
                             axis: str = "model") -> torch.Tensor:
     """EP for token counts too small to shard on ``axis``: every rank
     computes its local experts on all of its tokens ``x`` (the same on
-    every rank of ``axis``) and the gate-weighted sum is a ``psum``."""
+    every rank of ``axis``) and the gate-weighted sum is a ``psum``.  Its
+    counters count the layer's whole work, which each rank shares."""
     ax = mesh.axis(axis)
     B, S, D = x.shape
     T = B * S
     e_local = cfg.n_experts // ax.size
-    xt = x.reshape(T, D)
-    gate_vals, gate_idx, _ = router_probs(p, xt, cfg)
-    onehot = F.one_hot(gate_idx, cfg.n_experts).to(gate_vals.dtype)
-    weights = (gate_vals[..., None] * onehot).sum(dim=1)   # (T, E)
-    lo = ax.index * e_local
-    w_local = weights[:, lo:lo + e_local]               # (T, e_local)
-    y_local = _expert_ffn(p["experts"], xt.expand(e_local, T, D))
-    y = (w_local.T[..., None] * wide(y_local)).sum(dim=0)
-    out = col.psum(y, ax).reshape(B, S, D).to(x.dtype)
-    if cfg.n_shared:
-        out = out + apply_swiglu(p["shared"], x)
-    return out
+    _count_pairs(T, T * cfg.n_experts, cfg)
+    with spans.span(spans.MOE_EXPERTS):
+        xt = x.reshape(T, D)
+        gate_vals, gate_idx, _ = router_probs(p, xt, cfg)
+        onehot = F.one_hot(gate_idx, cfg.n_experts).to(gate_vals.dtype)
+        weights = (gate_vals[..., None] * onehot).sum(dim=1)   # (T, E)
+        lo = ax.index * e_local
+        w_local = weights[:, lo:lo + e_local]               # (T, e_local)
+        y_local = _expert_ffn(p["experts"], xt.expand(e_local, T, D))
+        y = (w_local.T[..., None] * wide(y_local)).sum(dim=0)
+        out = col.psum(y, ax).reshape(B, S, D).to(x.dtype)
+        if cfg.n_shared:
+            out = out + apply_swiglu(p["shared"], x)
+        return out
 
 
 def apply_moe_ep_plain(p: Dict, x: torch.Tensor, cfg: MoEConfig, dp: int,

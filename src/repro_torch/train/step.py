@@ -47,6 +47,7 @@ from repro_torch.dist.pipeline import get_schedule
 from repro_torch.kernels.ref import wide
 from repro_torch.models import encdec, lm
 from repro_torch.optim.adamw import AdamState, Optimizer, apply_updates
+from repro_torch.utils import spans
 from repro_torch.utils.tree import (global_norm, sum_squares, tree_leaves,
                                     tree_map, tree_unflatten)
 
@@ -75,22 +76,23 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     holds it (masked, then psummed).  The psums' backward psums the
     cotangent, so however the ranks weigh their losses, each rank's
     block gets its softmax gradient."""
-    if vocab is None:
-        logp = torch.log_softmax(wide(logits), dim=-1)
-        nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
-        return nll.mean()
-    z = wide(logits)
-    n = z.shape[-1]
-    with torch.no_grad():
-        top = col.all_gather(z.amax(-1), vocab, 0).amax(0)
-    z = z - top[..., None]
-    total = col.psum(torch.exp(z).sum(-1), vocab)
-    t = labels.long() - vocab.index * n
-    picked = torch.gather(z, -1, t.clamp(0, n - 1)[..., None])[..., 0]
-    hit = (t >= 0) & (t < n)
-    label = col.psum(torch.where(hit, picked, torch.zeros_like(picked)),
-                     vocab)
-    return (torch.log(total) - label).mean()
+    with spans.span(spans.LOSS):
+        if vocab is None:
+            logp = torch.log_softmax(wide(logits), dim=-1)
+            nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+            return nll.mean()
+        z = wide(logits)
+        n = z.shape[-1]
+        with torch.no_grad():
+            top = col.all_gather(z.amax(-1), vocab, 0).amax(0)
+        z = z - top[..., None]
+        total = col.psum(torch.exp(z).sum(-1), vocab)
+        t = labels.long() - vocab.index * n
+        picked = torch.gather(z, -1, t.clamp(0, n - 1)[..., None])[..., 0]
+        hit = (t >= 0) & (t < n)
+        label = col.psum(torch.where(hit, picked, torch.zeros_like(picked)),
+                         vocab)
+        return (torch.log(total) - label).mean()
 
 
 def loss_fn(params: Dict, batch: Dict, cfg: ModelConfig,
@@ -163,11 +165,13 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, mesh=None,
     def train_step(state: TrainState, batch: Dict):
         loss, grads = compute_grads(state.params, batch, cfg,
                                     num_microbatches)
-        updates, opt_state = opt.update(grads, state.opt_state, state.params)
-        with torch.no_grad():
-            params = apply_updates(state.params, updates)
-        metrics = {"loss": loss, "grad_norm": global_norm(grads),
-                   "step": state.step + 1}
+        with spans.span(spans.OPTIM):
+            updates, opt_state = opt.update(grads, state.opt_state,
+                                            state.params)
+            with torch.no_grad():
+                params = apply_updates(state.params, updates)
+            gnorm = global_norm(grads)
+        metrics = {"loss": loss, "grad_norm": gnorm, "step": state.step + 1}
         return TrainState(params, opt_state, state.step + 1), metrics
 
     return train_step
@@ -251,12 +255,15 @@ def _gspmd_train_step(cfg: ModelConfig, opt: Optimizer, mesh,
                 scale = 1.0 / n
                 loss = loss * scale
                 grads = [g * scale for g in grads]
-            gnorm = _global_norm(grads, norm_axes, mesh)
-            grads = tree_unflatten(state.params, _clip(grads, gnorm, opt))
-        updates, opt_state = opt.update(grads, state.opt_state,
-                                        state.params)
-        with torch.no_grad():
-            params = apply_updates(state.params, updates)
+        with spans.span(spans.OPTIM):
+            with torch.no_grad():
+                gnorm = _global_norm(grads, norm_axes, mesh)
+                grads = tree_unflatten(state.params,
+                                       _clip(grads, gnorm, opt))
+            updates, opt_state = opt.update(grads, state.opt_state,
+                                            state.params)
+            with torch.no_grad():
+                params = apply_updates(state.params, updates)
         metrics = {"loss": loss, "grad_norm": gnorm, "step": state.step + 1}
         return TrainState(params, opt_state, state.step + 1), metrics
 
@@ -510,14 +517,17 @@ def make_sharded_train_step(cfg: ModelConfig, opt: Optimizer, mesh, *,
                 else:
                     grads = tree_map(lambda g: col.pmean(g, ax["pod"]),
                                      grads)
-            # true global grad norm from the per-leaf reduction plan
-            gnorm = _global_norm(tree_leaves(grads), flat_norm_axes, mesh)
-            grads = tree_unflatten(grads, _clip(tree_leaves(grads), gnorm,
-                                                opt))
-        updates, opt_state = opt.update(grads, state.opt_state,
-                                        state.params)
-        with torch.no_grad():
-            params = apply_updates(state.params, updates)
+        with spans.span(spans.OPTIM):
+            with torch.no_grad():
+                # true global grad norm from the per-leaf reduction plan
+                gnorm = _global_norm(tree_leaves(grads), flat_norm_axes,
+                                     mesh)
+                grads = tree_unflatten(grads, _clip(tree_leaves(grads),
+                                                    gnorm, opt))
+            updates, opt_state = opt.update(grads, state.opt_state,
+                                            state.params)
+            with torch.no_grad():
+                params = apply_updates(state.params, updates)
         metrics = {"loss": loss, "grad_norm": gnorm, "step": state.step + 1}
         return TrainState(params, opt_state, state.step + 1, ef), metrics
 
