@@ -545,21 +545,25 @@ def record(name, path, shape, err, times, plain_ms, nbytes, ops, dtype,
     device ms) pairs (``timed``) of the kernel and of the one PyTorch call
     that computes the same function (None where there is none; a
     composite of several calls goes in ``extra`` as
-    ``library_composite_ms`` / ``library_composite_device_ms``)."""
+    ``library_composite_ms`` / ``library_composite_device_ms``; a kernel's
+    backward gives its own ``source`` and ``replaces`` there, with
+    ``backward=True``)."""
     t_bound, by = bound(nbytes, ops, dtype)
     src, replaces, _ = KERNELS[name]
     ms, dev_ms = times
     library_ms, library_dev_ms = library_times or (None, None)
-    rec = dict(name=name, route="cuda", source=src, replaces=replaces,
-               max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-               bound_ms=t_bound, bound_by=by, library_ms=library_ms,
-               library_device_ms=library_dev_ms, shape=shape, path=path,
-               **extra)
+    rec = dict(dict(name=name, route="cuda", source=src, replaces=replaces,
+                    max_abs_err=err, ms=ms, device_ms=dev_ms,
+                    plain_ms=plain_ms, bound_ms=t_bound, bound_by=by,
+                    library_ms=library_ms, library_device_ms=library_dev_ms,
+                    shape=shape, path=path), **extra)
     lib = ("" if library_ms is None else
            f"  library {library_ms:.4f} ms (device {library_dev_ms:.4f})")
     comp = ("" if "library_composite_ms" not in extra else
             f"  cuBLAS composite {extra['library_composite_ms']:.4f} ms "
             f"(device {extra['library_composite_device_ms']:.4f})")
+    if extra.get("backward"):
+        name = f"{name} backward"
     print(f"  time {name} {shape} ({path}): kernel {ms:.4f} ms (device "
           f"{dev_ms:.4f})  plain {plain_ms:.4f} ms  bound {t_bound:.4g} ms "
           f"({by}){lib}{comp}", flush=True)
@@ -1111,6 +1115,122 @@ def flash_attention_checks(gen, records):
                         atol_for("bfloat16", plain), 0.0)
 
 
+def flash_attention_backward_checks(gen, records):
+    """K6's backward kernel (``flash_attention_grad``, through the
+    Function's gradient) against autograd through the plain version, at
+    ``gradient_checks``' tolerances (atol 2^-8 of the largest plain
+    gradient, rtol 2^-7), at every shape this script's paths give it:
+    stablelm-3b's (4, 32, 2048, 80) causal (``train``) and its shards
+    (``train_pipe``, ``train_gspmd``), olmoe-1b-7b's (4, 16, 2048, 128)
+    causal (``train_moe``) and its GSPMD shard, deepseek-v2-lite-16b's
+    MLA heads (4, 16, 2048, q and k 192, v 128) causal (``train_mla``),
+    whisper-large-v3's (4, 20, 2048, 64) non-causal and causal
+    (``train_encdec``); at the benchmark's 4k cells' calls, stablelm-3b's
+    (2, 32, 4096, 80) and MLA's (2, 16, 4096, 192 / 128); and as shape
+    checks, on no path, grouped KV heads with a window and a query offset
+    and whisper's 448 tokens over 1500 frames (non-causal, Sq != Sk).
+    Each must launch the instance ``select_backward_tiling`` names.  The
+    path shapes are timed beside their bound (the five products at the
+    bf16 peak), the plain backward and SDPA's backward (the backend
+    PyTorch picks)."""
+    import collections
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ops
+    from repro_torch.nn.attention import NO_WINDOW
+
+    wh, wd = ENCDEC_HEADS, ENCDEC_HEAD_DIM
+    cases = [  # B, H, KH, Sq, Sk, D, Dv, causal, window, q_offset, path
+        (BATCH, HEADS, HEADS, SEQ, SEQ, HEAD_DIM, HEAD_DIM, True, NO_WINDOW,
+         0, "train"),
+        (1, HEADS // 2, HEADS // 2, SEQ, SEQ, HEAD_DIM, HEAD_DIM, True,
+         NO_WINDOW, 0, "train_pipe"),
+        (BATCH // 2, HEADS // 2, HEADS // 2, SEQ, SEQ, HEAD_DIM, HEAD_DIM,
+         True, NO_WINDOW, 0, "train_gspmd"),
+        (BATCH, MOE_HEADS, MOE_HEADS, SEQ, SEQ, MOE_HEAD_DIM, MOE_HEAD_DIM,
+         True, NO_WINDOW, 0, "train_moe"),
+        (BATCH, MOE_HEADS // 4, MOE_HEADS // 4, SEQ, SEQ, MOE_HEAD_DIM,
+         MOE_HEAD_DIM, True, NO_WINDOW, 0, "train_gspmd"),
+        (BATCH, MOE_HEADS, MOE_HEADS, SEQ, SEQ, MLA_QK_DIM, MLA_V_DIM, True,
+         NO_WINDOW, 0, "train_mla"),
+        (BATCH, wh, wh, SEQ, SEQ, wd, wd, False, NO_WINDOW, 0,
+         "train_encdec"),
+        (BATCH, wh, wh, SEQ, SEQ, wd, wd, True, NO_WINDOW, 0,
+         "train_encdec"),
+        (2, HEADS, HEADS, 4096, 4096, HEAD_DIM, HEAD_DIM, True, NO_WINDOW,
+         0, "train_4k"),
+        (2, MOE_HEADS, MOE_HEADS, 4096, 4096, MLA_QK_DIM, MLA_V_DIM, True,
+         NO_WINDOW, 0, "train_mla_4k"),
+        (2, 8, 2, 1000, 1000, HEAD_DIM, HEAD_DIM, True, 256, 24, None),
+        (BATCH, wh, wh, ENCDEC_CONTEXT, ENCDEC_AUDIO_FRAMES, wd, wd, False,
+         NO_WINDOW, 0, None),
+    ]
+    for (B, H, KH, Sq, Sk, D, Dv, causal, window, q_offset,
+         path) in cases:
+        def rnd(*shape):
+            return torch.randn(*shape, device="cuda",
+                               generator=gen).to(torch.bfloat16)
+        q, k, v = rnd(B, H, Sq, D), rnd(B, KH, Sk, D), rnd(B, KH, Sk, Dv)
+        dy = rnd(B, H, Sq, Dv)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        win = "" if window == NO_WINDOW else f" window {window}"
+        dims = f"{D}" if Dv == D else f"{D}/{Dv}"
+        shape = (f"({B},{H},{Sq},{dims}) kv ({KH},{Sk}) "
+                 f"{'causal' if causal else 'full'}{win}"
+                 f"{f' q_offset {q_offset}' if q_offset else ''} bfloat16")
+        mine = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = collections.Counter(fa_mod.backward_launches_by_tiling)
+        got = torch.autograd.grad(ops.flash_attention(*mine, **kw), mine, dy)
+        torch.cuda.synchronize()
+        tiling = expect_tiling(
+            f"flash_attention backward {shape}",
+            sorted(fa_mod.backward_launches_by_tiling - before),
+            fa_mod.select_backward_tiling(torch.bfloat16, q.shape, dv=Dv))
+        plain = [t.clone().requires_grad_() for t in (q, k, v)]
+
+        def plain_grad():
+            return torch.autograd.grad(
+                ops.flash_attention(*plain, impl="ref", **kw), plain, dy)
+        want = plain_grad()
+        errs = []
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            if not torch.isfinite(a).all():
+                fail(f"flash_attention backward {shape}: {name} is not "
+                     f"finite")
+            errs.append(check_close(
+                f"grad flash_attention {name} {shape}", a, b,
+                2 ** -8 * b.float().abs().max().item(), 2 ** -7))
+        del mine, got, want
+        if path is None:
+            continue
+        lse = torch.empty((B, H, -(-Sq // fa_mod.ROW_PAD) * fa_mod.ROW_PAD),
+                          device="cuda", dtype=torch.float32)
+        out = fa_mod.flash_attention(q, k, v, **kw, lse=lse)
+        pairs = (sum(min(q_offset + i + 1, Sk) for i in range(Sq))
+                 if causal else Sq * Sk)
+        el = q.element_size()
+        sdpa = [t.clone().requires_grad_() for t in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*sdpa, is_causal=causal)
+        records.append(record(
+            "flash_attention", path, shape, max(errs),
+            timed(lambda: fa_mod.flash_attention_grad(
+                q, k, v, out, lse, dy, scale=None, **kw), 10),
+            event_ms(plain_grad, iters=1, warmup=0),
+            (B * H * Sq * 2 * (D + Dv) + 2 * B * KH * Sk * (D + Dv)) * el
+            + 4 * lse.numel(),
+            2 * B * H * (3 * D + 2 * Dv) * pairs, "bfloat16",
+            timed(lambda: torch.autograd.grad(sdpa_out, sdpa, dy,
+                                              retain_graph=True), 10),
+            tiling=tiling, backward=True,
+            source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            replaces="no TPU kernel (the JAX package differentiates "
+                     "attention with XLA): the plain f32 backward"))
+        del q, k, v, dy, plain, out, lse, sdpa, sdpa_out
+        torch.cuda.empty_cache()
+
+
 def _f64_tolerance(plain, exact, floor):
     """atol at a path's shape: twice the plain version's own error against
     an f64 evaluation of the same function (kernel and plain version round
@@ -1452,11 +1572,12 @@ def ssd_segments_times(ssd_mod, x, a, b, c):
 def gradient_checks(gen):
     """Each kernel's ``autograd.Function`` against autograd through its
     plain version, at the training paths' shapes in bf16 (K7's a in f32,
-    strongly decaying to show no NaN in the gradient).  Both backward
+    strongly decaying to show no NaN in the gradient); K6's, a kernel of
+    its own, in :func:`flash_attention_backward_checks`.  Both backward
     passes compute the plain version's gradient in f32 and round it to
     bf16 once, so they may differ by one bf16 rounding (2^-7 relative)
-    where f32 sums in another order (K6's backward runs a batch row at a
-    time) land on either side of a rounding boundary."""
+    where f32 sums in another order land on either side of a rounding
+    boundary."""
     import torch
     from repro_torch.kernels import ops
 
@@ -1471,16 +1592,6 @@ def gradient_checks(gen):
                      [rnd(ROWS, D_MODEL, scale=0.5),
                       rnd(D_MODEL, D_FF, scale=D_MODEL ** -0.5),
                       rnd(D_MODEL, D_FF, scale=D_MODEL ** -0.5)]),
-        "flash_attention": (
-            lambda impl, q, k, v: ops.flash_attention(q, k, v, impl=impl),
-            [rnd(BATCH, HEADS, SEQ, HEAD_DIM) for _ in range(3)]),
-        # deepseek-v2-lite-16b's MLA heads: dv shaped like v
-        "flash_attention (D 192, Dv 128)": (
-            lambda impl, q, k, v: ops.flash_attention(
-                q, k, v, impl=impl, scale=MLA_QK_DIM ** -0.5),
-            [rnd(BATCH, MOE_HEADS, SEQ, MLA_QK_DIM),
-             rnd(BATCH, MOE_HEADS, SEQ, MLA_QK_DIM),
-             rnd(BATCH, MOE_HEADS, SEQ, MLA_V_DIM)]),
         "ssd": (lambda impl, x, a, b, c: ops.ssd_chunk(x, a, b, c,
                                                        impl=impl),
                 list(ssd_inputs(gen, SSM_SHAPE, torch.bfloat16,
@@ -1513,6 +1624,7 @@ def kernel_phase():
     rmsnorm_sweep(torch.Generator(device="cuda").manual_seed(1), records)
     fused_ff_checks(gen, records)
     flash_attention_checks(gen, records)
+    flash_attention_backward_checks(gen, records)
     gemm_checks(gen, records)
     softmax_checks(gen, records)
     ssd_checks(gen, records)
@@ -1811,6 +1923,9 @@ def _reset_launches():
         mod.launches = 0
         if hasattr(mod, "launches_by_tiling"):
             mod.launches_by_tiling.clear()
+    from repro_torch.kernels import flash_attention as fa_mod
+    fa_mod.backward_launches = fa_mod.plain_backward_calls = 0
+    fa_mod.backward_launches_by_tiling.clear()
 
 
 class _Launches(dict):
@@ -2373,6 +2488,17 @@ def train_phase(arch, profile_dir, roofline=False):
     if launches != want:
         fail("the training path did not go through the kernels once per "
              "site and pass")
+    # K6's gradient: the backward kernel once per attention a step (the
+    # forward runs twice, in the pass and in remat's recompute)
+    from repro_torch.kernels import flash_attention as fa_mod
+    bwd = (fa_mod.backward_launches, fa_mod.plain_backward_calls)
+    print(f"  K6 backward kernel launches {bwd[0]} "
+          f"({dict(fa_mod.backward_launches_by_tiling)}), plain backward "
+          f"calls {bwd[1]}; expected {want['flash_attention'] // 2} and 0",
+          flush=True)
+    if bwd != (want["flash_attention"] // 2, 0):
+        fail("the training path's attention gradient did not run the "
+             "backward kernel once per site")
     steady = [r["seconds"] for r in log[1:]]
     stats = {
         "n_layers": cfg.n_layers, "steps": len(log), "wall_s": wall,
@@ -2397,6 +2523,8 @@ def train_phase(arch, profile_dir, roofline=False):
 # one step under each policy (None: no remat)
 DOTS_LAYERS = 4
 REMAT_POLICIES = (None, "nothing", "dots")
+# further runs of "dots", for the spread of one policy's grad-norm
+REMAT_REPEATS = 2
 
 
 def remat_sites(cfg, policy):
@@ -2419,8 +2547,12 @@ def remat_phase():
     run's loss, grad-norm, seconds, peak memory and K1/K2/K6 launches
     (held to ``remat_sites``); ``"dots"``'s loss equal to ``"nothing"``'s
     and its grad-norm within 1e-6 relative; peak memory ordered
-    ``"nothing"`` < ``"dots"`` < no remat.  Returns ``"dots"``'s
-    launches."""
+    ``"nothing"`` < ``"dots"`` < no remat.  ``"dots"`` runs
+    ``REMAT_REPEATS`` times more: K6's backward kernel adds dq in no fixed
+    order, so one policy's grad-norm may differ from run to run, and that
+    spread must stay under a tenth of the 1e-6 for the comparison of two
+    policies to mean anything.
+    Returns ``"dots"``'s launches."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import lm
@@ -2432,7 +2564,8 @@ def remat_phase():
     batch = _pipe_batch(base, 0)
     opt = _pipe_opt()
     runs, launches = {}, None
-    for policy in REMAT_POLICIES:
+    for run, policy in enumerate(REMAT_POLICIES
+                                 + ("dots",) * REMAT_REPEATS):
         cfg = base.replace(remat=policy is not None,
                            remat_policy=policy or "nothing")
         state = TrainState(tree_map(torch.clone, params),
@@ -2448,7 +2581,8 @@ def remat_phase():
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         seconds = time.perf_counter() - t0
         launches = _read_launches()
-        runs[str(policy)] = {
+        again = run - len(REMAT_POLICIES) + 2
+        runs[str(policy) if again < 2 else f"dots {again}"] = {
             "loss": loss, "grad_norm": gnorm, "step_s": seconds,
             "max_memory_allocated_gb":
                 torch.cuda.max_memory_allocated() / 1e9,
@@ -2463,8 +2597,12 @@ def remat_phase():
     torch.cuda.empty_cache()
     dots, nothing, off = runs["dots"], runs["nothing"], runs["None"]
     rel = abs(dots["grad_norm"] - nothing["grad_norm"]) / nothing["grad_norm"]
+    repeats = [runs[f"dots {i}"] for i in range(2, REMAT_REPEATS + 2)]
+    again = max(abs(r["grad_norm"] - dots["grad_norm"])
+                for r in repeats) / dots["grad_norm"]
     print(f"  remat policies ({base.name}, {DOTS_LAYERS} layers, {base.dtype}, "
-          f"{BATCH} x {SEQ}) " + json.dumps(dict(runs, grad_norm_rel=rel)),
+          f"{BATCH} x {SEQ}) " + json.dumps(dict(
+              runs, grad_norm_rel=rel, grad_norm_repeat_rel=again)),
           flush=True)
     if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
                for r in runs.values()):
@@ -2472,6 +2610,9 @@ def remat_phase():
     if dots["loss"] != nothing["loss"] or not rel <= 1e-6:
         fail("remat_policy 'dots' computes another step than 'nothing' "
              "(loss equal, grad-norm within 1e-6 relative)")
+    if any(r["loss"] != dots["loss"] for r in repeats) or not again <= 1e-7:
+        fail(f"one remat policy's grad-norm spreads by {again:.3g} relative "
+             f"from run to run, over a tenth of the policies' 1e-6 bound")
     peaks = [r["max_memory_allocated_gb"] for r in (nothing, dots, off)]
     if not peaks[0] < peaks[1] < peaks[2]:
         fail(f"peak memory not ordered 'nothing' < 'dots' < no remat: "
@@ -4681,7 +4822,8 @@ def main() -> int:
         # in bf16
         entry = {k: v for k, v in next(
             r for r in mine if r["path"] == headline
-            and r["shape"].endswith("bfloat16")).items()
+            and r["shape"].endswith("bfloat16")
+            and not r.get("backward")).items()
                  if k not in ("shape", "path")}
         by_path = {p: launches[p][name] for p in launches}
         if not sum(by_path.values()):

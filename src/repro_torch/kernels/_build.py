@@ -47,10 +47,14 @@ _SIGNATURES = {
     "repro_rmsnorm": [_P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P],
     # (x, wg, wu, out, work, M, K, N, splits, tiling, dtype, stream)
     "repro_fused_ff": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # (q, k, v, o, B, H, KH, Sq, Sk, D, Dv, scale, causal, window,
+    # (q, k, v, o, lse, B, H, KH, Sq, Sk, D, Dv, scale, causal, window,
     #  q_offset, tiling, dtype, stream)
-    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              ctypes.c_float, _I, _I, _I, _I, _I, _P],
+    "repro_flash_attention": [_P] * 5 + [_I] * 7 + [ctypes.c_float, _I, _I,
+                                                     _I, _I, _I, _P],
+    # (q, k, v, o, lse, dout, dq, dk, dv, dq_acc, delta, B, H, KH, Sq, Sk,
+    #  D, Dv, scale, causal, window, q_offset, tiling, stream)
+    "repro_flash_attention_backward": [_P] * 11 + [_I] * 7
+    + [ctypes.c_float, _I, _I, _I, _I, _P],
     # (a, b, out, M, K, N, negative_slope, tiling, dtype, stream)
     "repro_matmul_leakyrelu": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I,
                                _I, _P],
@@ -66,7 +70,8 @@ _SIGNATURES = {
 }
 
 # the kernels' lists of tiling names, by id, comma-separated (no arguments)
-_TILING_LISTS = ("repro_flash_attention_tilings", "repro_gemm_tilings",
+_TILING_LISTS = ("repro_flash_attention_tilings",
+                 "repro_flash_attention_backward_tilings", "repro_gemm_tilings",
                  "repro_rmsnorm_tilings", "repro_fused_ff_tilings",
                  "repro_softmax_tilings", "repro_ssd_tilings")
 

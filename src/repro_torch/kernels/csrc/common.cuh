@@ -25,6 +25,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even
 }
 
+// Rows of attention's per-row f32 buffers (the forward's log-sum-exp, the
+// backward's delta) a head holds: Sq rounded up to a multiple of this, so
+// that the backward copies whole tiles of them with 16-byte aligned bulk
+// copies (kernels/flash_attention.py::ROW_PAD).
+constexpr int kRowPad = 64;
+
 inline bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }

@@ -56,7 +56,9 @@
 // MN-major B (the transpose bit).  Rounding P to bf16 before P V is
 // FlashAttention's own trade; the reference multiplies in f32.  Slices
 // whose rows see none of a tile's keys skip it.  The epilogue divides by
-// l and writes o as bf16 pairs.  The producer gives its registers to the
+// l and writes o as bf16 pairs; under grad (the wrapper passes an lse
+// buffer) it also writes each row's base-2 log-sum-exp, m * scale * log2 e
+// + log2 l, the input of the backward kernel (flash_attention_bwd.cu).  The producer gives its registers to the
 // consumers (setmaxnreg: 24 and 240 of the 168 a thread starts with).
 //
 // Head dims.  q and K are K-major operands (the reduction runs over D):
@@ -293,15 +295,17 @@ __global__ void __launch_bounds__(kThreads, BQ * BK <= 64 * 64 ? 2 : 1)
   }
 }
 
+// The SIMT kernel writes no log-sum-exp: the gradient of its calls is the
+// plain version's.
 template <typename T, int BQ, int BK, int DP, int DV = DP>
 cudaError_t launch_dp(const void* q, const void* k, const void* v, void* o,
-                      int B, int H, int KH, int Sq, int Sk, int D, int Dv,
-                      float scale, int causal, int window, int q_offset,
-                      cudaStream_t stream) {
+                      float* lse, int B, int H, int KH, int Sq, int Sk, int D,
+                      int Dv, float scale, int causal, int window,
+                      int q_offset, cudaStream_t stream) {
   constexpr int smem =
       smem_floats(BQ, BK, DP, DV) * static_cast<int>(sizeof(float));
   static_assert(smem <= 227 * 1024, "the f32 tile must fit a block");
-  if (D > DP || Dv > DV) return cudaErrorInvalidValue;
+  if (D > DP || Dv > DV || lse != nullptr) return cudaErrorInvalidValue;
   auto kernel = flash_attention_kernel<T, BQ, BK, DP, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -318,22 +322,23 @@ cudaError_t launch_dp(const void* q, const void* k, const void* v, void* o,
 // and Dv
 template <typename T>
 cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o,
-                        int B, int H, int KH, int Sq, int Sk, int D, int Dv,
-                        float scale, int causal, int window, int q_offset,
-                        cudaStream_t stream) {
+                        float* lse, int B, int H, int KH, int Sq, int Sk,
+                        int D, int Dv, float scale, int causal, int window,
+                        int q_offset, cudaStream_t stream) {
   const int w = D > Dv ? D : Dv;
   if (w <= 32)
-    return launch_dp<T, 64, 64, 32>(q, k, v, o, B, H, KH, Sq, Sk, D, Dv,
+    return launch_dp<T, 64, 64, 32>(q, k, v, o, lse, B, H, KH, Sq, Sk, D, Dv,
                                     scale, causal, window, q_offset, stream);
   if (w <= 64)
-    return launch_dp<T, 64, 64, 64>(q, k, v, o, B, H, KH, Sq, Sk, D, Dv,
+    return launch_dp<T, 64, 64, 64>(q, k, v, o, lse, B, H, KH, Sq, Sk, D, Dv,
                                     scale, causal, window, q_offset, stream);
   if (w <= 80)
-    return launch_dp<T, 64, 64, 80>(q, k, v, o, B, H, KH, Sq, Sk, D, Dv,
+    return launch_dp<T, 64, 64, 80>(q, k, v, o, lse, B, H, KH, Sq, Sk, D, Dv,
                                     scale, causal, window, q_offset, stream);
   if (w <= 128)
-    return launch_dp<T, 64, 64, 128>(q, k, v, o, B, H, KH, Sq, Sk, D, Dv,
-                                     scale, causal, window, q_offset, stream);
+    return launch_dp<T, 64, 64, 128>(q, k, v, o, lse, B, H, KH, Sq, Sk, D,
+                                     Dv, scale, causal, window, q_offset,
+                                     stream);
   return cudaErrorInvalidValue;
 }
 
@@ -391,7 +396,8 @@ __global__ void __launch_bounds__(FaTile<BQ, BK, DQ, DV>::kThreads, 1)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                                  const __grid_constant__ CUtensorMap kmap,
                                  const __grid_constant__ CUtensorMap vmap,
-                                 __nv_bfloat16* __restrict__ o, int H, int KH,
+                                 __nv_bfloat16* __restrict__ o,
+                                 float* __restrict__ lse, int H, int KH,
                                  int Sq, int Sk, int Dv, float scale,
                                  int causal, int window, int q_offset) {
   using T = FaTile<BQ, BK, DQ, DV>;
@@ -602,6 +608,12 @@ __global__ void __launch_bounds__(FaTile<BQ, BK, DQ, DV>::kThreads, 1)
       ell += __shfl_xor_sync(0xffffffffu, ell, 1);
       ell += __shfl_xor_sync(0xffffffffu, ell, 2);
       inv[r] = 1.f / fmaxf(ell, 1e-30f);
+      // the row's log-sum-exp in the base-2 units of exp2's argument:
+      // p = 2^(s * scale * log2 e - lse)
+      const int row = r0 + 8 * r;
+      if (lse != nullptr && lane % 4 == 0 && row < Sq)
+        lse[static_cast<size_t>(bh) * ((Sq + kRowPad - 1) / kRowPad * kRowPad) +
+            row] = m[i][r] * sl2 + log2f(ell);
     }
 #pragma unroll
     for (int j = 0; j < DV / 8; ++j)
@@ -619,9 +631,9 @@ __global__ void __launch_bounds__(FaTile<BQ, BK, DQ, DV>::kThreads, 1)
 
 template <int BQ, int BK, int DQ, int DV = DQ>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                         int B, int H, int KH, int Sq, int Sk, int D, int Dv,
-                         float scale, int causal, int window, int q_offset,
-                         cudaStream_t stream) {
+                         float* lse, int B, int H, int KH, int Sq, int Sk,
+                         int D, int Dv, float scale, int causal, int window,
+                         int q_offset, cudaStream_t stream) {
   using T = FaTile<BQ, BK, DQ, DV>;
   if (D > DQ || Dv > DV || D % 8 || Dv % 8 || !aligned(q, 16) ||
       !aligned(k, 16) || !aligned(v, 16) || !aligned(o, 4))
@@ -642,14 +654,14 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   if (attr != cudaSuccess) return attr;
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   kernel<<<grid, T::kThreads, T::kSmem, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), H, KH, Sq, Sk, Dv,
-      scale, causal, window, q_offset);
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), lse, H, KH, Sq, Sk,
+      Dv, scale, causal, window, q_offset);
   return cudaGetLastError();
 }
 
 using Launcher = cudaError_t (*)(const void*, const void*, const void*, void*,
-                                 int, int, int, int, int, int, int, float, int,
-                                 int, int, cudaStream_t);
+                                 float*, int, int, int, int, int, int, int,
+                                 float, int, int, int, cudaStream_t);
 
 // The tilings a call may name, by id (kernels/flash_attention.py::TILINGS
 // lists the same names in the same order), with the launcher of each type
@@ -680,8 +692,8 @@ const Tiling kTilings[] = {
 constexpr int kNumTilings = sizeof(kTilings) / sizeof(kTilings[0]);
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int B, int H, int KH, int Sq, int Sk, int D, int Dv,
-                     float scale, int causal, int window, int q_offset,
+                     float* lse, int B, int H, int KH, int Sq, int Sk, int D,
+                     int Dv, float scale, int causal, int window, int q_offset,
                      int tiling, int dtype, cudaStream_t stream) {
   if (tiling < 0 || tiling >= kNumTilings) return cudaErrorInvalidValue;
   if (B == 0 || H == 0 || Sq == 0) return cudaSuccess;
@@ -691,7 +703,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
   const Launcher fn = dtype == kF32 ? kTilings[tiling].f32
                     : dtype == kBF16 ? kTilings[tiling].bf16 : nullptr;
   if (fn == nullptr) return cudaErrorInvalidValue;   // no such instance
-  return fn(q, k, v, o, B, H, KH, Sq, Sk, D, Dv, scale, causal, window,
+  return fn(q, k, v, o, lse, B, H, KH, Sq, Sk, D, Dv, scale, causal, window,
             q_offset, stream);
 }
 
@@ -716,14 +728,16 @@ extern "C" const char* repro_flash_attention_tilings() {
 
 // q: (B, H, Sq, D); k: (B, KH, Sk, D); v: (B, KH, Sk, Dv); o: (B, H, Sq,
 // Dv); all contiguous, one dtype; run by the kernel of `tiling` (an id of
-// repro_flash_attention_tilings()).  Returns a cudaError_t.
+// repro_flash_attention_tilings()).  lse, where not null, receives each
+// row's log-sum-exp (f32, (B, H, Sq rounded up to kRowPad)): wgmma
+// instances only.  Returns a cudaError_t.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int B, int H,
-                                     int KH, int Sq, int Sk, int D, int Dv,
-                                     float scale, int causal, int window,
-                                     int q_offset, int tiling, int dtype,
-                                     void* stream) {
+                                     const void* v, void* o, float* lse,
+                                     int B, int H, int KH, int Sq, int Sk,
+                                     int D, int Dv, float scale, int causal,
+                                     int window, int q_offset, int tiling,
+                                     int dtype, void* stream) {
   return static_cast<int>(repro::dispatch(
-      q, k, v, o, B, H, KH, Sq, Sk, D, Dv, scale, causal, window, q_offset,
-      tiling, dtype, static_cast<cudaStream_t>(stream)));
+      q, k, v, o, lse, B, H, KH, Sq, Sk, D, Dv, scale, causal, window,
+      q_offset, tiling, dtype, static_cast<cudaStream_t>(stream)));
 }

@@ -12,10 +12,16 @@ tensors the wrapper computes the plain version
 launches the kernel or raises.
 
 :class:`FlashAttentionFunction` is the differentiable form: its forward
-launches the kernel, its backward recomputes the plain version under
-autograd from the saved q, k and v, one batch row and a bounded group of
-KV heads at a time.  The JAX package differentiates its jnp attention
-with XLA's autodiff and has no backward kernel, so none is owed here.
+launches the kernel, which under grad also writes each query row's
+log-sum-exp; its backward, for bf16 CUDA tensors that TMA takes, is the
+hand-written backward kernel (``csrc/flash_attention_bwd.cu``: the
+FlashAttention-2/3 gradient from q, k, v, the output and that
+log-sum-exp, S x S never formed), and otherwise (f32, unaligned bf16,
+CPU tensors) the plain version's gradient, recomputed under autograd
+from the saved q, k and v one batch row and a bounded group of KV heads
+at a time (:func:`flash_attention_backward`, also the kernel's oracle).
+The JAX package differentiates its jnp attention with XLA's autodiff and
+has no backward kernel.
 
 ``make_spec`` / ``CONFIGS`` are the schedule optimizer's view of the
 kernel (its steady-state tile loop and autotune space), as in the
@@ -34,9 +40,13 @@ from repro_torch.kernels import _build, ref
 from repro_torch.sched.spec import KernelSpec, TileIO
 
 # Kernel launches made by this process (the wrapper adds one per launch),
-# in all and by the tiling that ran.
+# in all and by the tiling that ran; the same of the backward kernel, and
+# the backward calls that took the plain version.
 launches = 0
 launches_by_tiling: collections.Counter = collections.Counter()
+backward_launches = 0
+backward_launches_by_tiling: collections.Counter = collections.Counter()
+plain_backward_calls = 0
 
 # The kernel instances compiled in csrc/flash_attention.cu, by id (its
 # kTilings): the SIMT kernel at 64 x 64 (f32 calls that name no config, and
@@ -62,6 +72,15 @@ DEFAULT_BQ = DEFAULT_BK = 128
 _WIDTHS = ((64, 64), (80, 80), (128, 128), (192, 128))
 # shared memory a block may have (the f32 tile's q, K^T, V and P)
 _SMEM_BYTES = 227 * 1024
+# The backward kernel's instances (csrc/flash_attention_bwd.cu's
+# kTilings): one per width pair of ``_WIDTHS``, each block 128 keys
+# against stages of 64 query rows.
+BACKWARD_TILINGS = tuple(f"wgmma_bk128_bq64_d{wq}" + ("" if wq == wv
+                                                      else f"_v{wv}")
+                         for wq, wv in _WIDTHS)
+# Rows of the log-sum-exp a head holds: Sq rounded up to this
+# (csrc/common.cuh: kRowPad), so the backward copies whole tiles of it.
+ROW_PAD = 64
 
 
 def f32_block(bq: int, bk: int, width: int):
@@ -157,11 +176,49 @@ def select_tiling(dtype: torch.dtype, q_shape: Sequence[int], *,
     return name
 
 
+def select_backward_tiling(dtype: torch.dtype, q_shape: Sequence[int], *,
+                           dv: Optional[int] = None,
+                           aligned: bool = True) -> Optional[str]:
+    """The backward kernel's instance (a name of ``BACKWARD_TILINGS``) for
+    a call with q of ``q_shape`` (B, H, Sq, D) and v of head dim ``dv``
+    (None: D) in ``dtype``: the first (q/k, v) width pair of ``_WIDTHS``
+    that holds (D, Dv), in bf16 with 16-byte aligned tensors
+    (``aligned``) and head dims that are multiples of 8, the calls whose
+    forward runs a wgmma instance.  None for every other call (f32, and
+    bf16 that TMA cannot take): its gradient is the plain version's."""
+    D = q_shape[-1]
+    Dv = D if dv is None else dv
+    if dtype != torch.bfloat16 or D % 8 or Dv % 8 or not aligned:
+        return None
+    for wq, wv in _WIDTHS:
+        if D <= wq and Dv <= wv:
+            return BACKWARD_TILINGS[_WIDTHS.index((wq, wv))]
+    return None
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _backward_tiling(q, k, v) -> Optional[str]:
+    """The backward instance the Function's gradient of (q, k, v) runs,
+    None where it takes the plain version (any tensor off the card)."""
+    if not all(t.is_cuda for t in (q, k, v)):
+        return None
+    return select_backward_tiling(q.dtype, q.shape, dv=v.shape[-1],
+                                  aligned=_aligned(q, k, v))
+
+
+def _padded_rows(sq: int) -> int:
+    return -(-sq // ROW_PAD) * ROW_PAD
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = ref.NO_WINDOW,
                     q_offset: int = 0, scale: float = None,
                     bq: Optional[int] = None, bk: Optional[int] = None,
-                    d: Optional[int] = None) -> torch.Tensor:
+                    d: Optional[int] = None,
+                    lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, H, Sq, D); k: (B, KH, Sk, D); v: (B, KH, Sk, Dv) ->
     (B, H, Sq, Dv) in q's type.  Dv may differ from D (MLA: 192 and 128)
     where an instance holds the pair (:func:`select_tiling`).
@@ -173,7 +230,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the deployed config chooses the tiling): bf16 on wgmma, f32 on the
     SIMT instance of the config's fitted tile, or ``SIMT`` for a call that
     names none; ``launches_by_tiling`` counts which ran (see
-    ``csrc/flash_attention.cu``)."""
+    ``csrc/flash_attention.cu``).
+
+    ``lse``, where given (the Function's forward under grad), is an f32
+    (B, H, Sq rounded up to ``ROW_PAD``) buffer on q's device that the
+    kernel fills with each row's log-sum-exp, in the base-2 units of its
+    softmax (p = 2^(s * scale * log2 e - lse)); only wgmma instances
+    write it.  Calls that pass none write nothing extra."""
     global launches
     _check_shapes(q, k, v, window, q_offset)
     if (bq is not None and q.shape[2] % bq) \
@@ -205,12 +268,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: the kernel takes B*H <= 65535, "
                          f"got B*H={B * H}")
     tiling = select_tiling(q.dtype, q.shape, bq=bq, bk=bk, d=d, dv=Dv,
-                           aligned=all(t.data_ptr() % 16 == 0
-                                       for t in tensors))
+                           aligned=_aligned(*tensors))
+    if lse is not None and (
+            not tiling.startswith("wgmma_") or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()
+            or tuple(lse.shape) != (B, H, _padded_rows(Sq))):
+        raise ValueError(f"flash_attention: lse must be an f32 (B, H, Sq "
+                         f"padded to {ROW_PAD}) buffer on q's device, for a "
+                         f"wgmma instance; got {tuple(lse.shape)} "
+                         f"{lse.dtype} for {tiling}")
     out = q.new_empty((B, H, Sq, Dv))
     lib = _build.library()
     err = lib.repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KH,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        0 if lse is None else lse.data_ptr(), B, H, KH,
         Sq, Sk, D, Dv, float(scale), int(bool(causal)),
         int(min(window, 2 ** 31 - 1)), int(q_offset),
         _build.tiling_ids("repro_flash_attention_tilings", TILINGS)[tiling],
@@ -250,35 +321,129 @@ def flash_attention_backward(q, k, v, grad_out, *, causal, window, q_offset,
     return dq, dk, dv
 
 
+def flash_attention_grad(q, k, v, out, lse, grad_out, *, causal, window,
+                         q_offset, scale):
+    """(dq, dk, dv) of attention at (q, k, v) by the backward kernel, from
+    the forward's ``out`` and ``lse`` (:func:`flash_attention`'s) and the
+    output's gradient ``grad_out``, in q's type; the instance
+    :func:`select_backward_tiling` names runs, and
+    ``backward_launches_by_tiling`` counts it.  Calls that no instance
+    takes (CPU tensors, f32, unaligned bf16) raise: their gradient is
+    :func:`flash_attention_backward`'s, which the Function calls itself."""
+    global backward_launches
+    _check_shapes(q, k, v, window, q_offset)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    B, H, Sq, D = q.shape
+    KH, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    tensors = (q, k, v, out, grad_out)
+    tiling = _backward_tiling(q, k, v)
+    if tiling is None or not (
+            all(t.device == q.device and t.dtype == q.dtype
+                and t.is_contiguous() for t in tensors)
+            and _aligned(*tensors) and tuple(out.shape) == (B, H, Sq, Dv)
+            and tuple(grad_out.shape) == (B, H, Sq, Dv)
+            and lse.dtype == torch.float32 and lse.device == q.device
+            and tuple(lse.shape) == (B, H, _padded_rows(Sq))):
+        raise ValueError(
+            f"flash_attention_grad: no backward instance takes q "
+            f"{tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}, out {tuple(out.shape)}, grad_out "
+            f"{tuple(grad_out.shape)}, lse {tuple(lse.shape)} on "
+            f"{q.device}; compiled: {', '.join(BACKWARD_TILINGS)}")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dq_acc = q.new_empty((B, H, Sq, D), dtype=torch.float32)
+    delta = q.new_empty((B, H, _padded_rows(Sq)), dtype=torch.float32)
+    err = _build.library().repro_flash_attention_backward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), grad_out.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dq_acc.data_ptr(), delta.data_ptr(), B, H, KH, Sq,
+        Sk, D, Dv, float(scale), int(bool(causal)),
+        int(min(window, 2 ** 31 - 1)), int(q_offset),
+        _build.tiling_ids("repro_flash_attention_backward_tilings",
+                          BACKWARD_TILINGS)[tiling],
+        _build.stream_handle(q.device))
+    _build.check(err, f"flash_attention backward ({tiling})")
+    backward_launches += 1
+    backward_launches_by_tiling[tiling] += 1
+    return dq, dk, dv
+
+
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
                          schema="(Tensor q, Tensor k, Tensor v, bool causal, "
                                 "int window, int q_offset, float? scale) "
-                                "-> Tensor")
+                                "-> (Tensor, Tensor)")
 def flash_attention_op(q, k, v, causal, window, q_offset, scale):
     """:func:`flash_attention` as an operator the dispatcher sees, the
     launch :class:`FlashAttentionFunction` makes: ``remat_policy="dots"``
-    names it (``ops.PRODUCTS``), so its output is saved and the recompute
-    does not launch the kernel again."""
-    return flash_attention(q, k, v, causal=causal, window=window,
-                           q_offset=q_offset, scale=scale)
+    names it (``ops.PRODUCTS``), so its outputs are saved and the
+    recompute does not launch the kernel again.  Every K6 forward the
+    port makes, with or without a gradient to take, is a call of this
+    operator.  Returns (out, lse): the rows' log-sum-exp where a gradient
+    will be taken (q, k or v requires one: the Function's forward under
+    grad) and the backward kernel will take it (:func:`_backward_tiling`),
+    else an empty tensor, and the kernel writes none (serving,
+    evaluation)."""
+    lse = None
+    if any(t.requires_grad for t in (q, k, v)) \
+            and _backward_tiling(q, k, v) is not None:
+        lse = q.new_empty((q.shape[0], q.shape[1], _padded_rows(q.shape[2])),
+                          dtype=torch.float32)
+    out = flash_attention(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset, scale=scale, lse=lse)
+    return out, (q.new_empty((0,), dtype=torch.float32) if lse is None
+                 else lse)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward",
+                         mutates_args=(),
+                         schema="(Tensor q, Tensor k, Tensor v, Tensor out, "
+                                "Tensor lse, Tensor grad_out, bool causal, "
+                                "int window, int q_offset, float? scale) "
+                                "-> (Tensor, Tensor, Tensor)")
+def flash_attention_backward_op(q, k, v, out, lse, grad_out, causal, window,
+                                q_offset, scale):
+    """:func:`flash_attention_grad` as an operator the dispatcher (and a
+    profiler's trace) sees: the backward kernel's launch."""
+    return flash_attention_grad(q, k, v, out, lse, grad_out, causal=causal,
+                                window=window, q_offset=q_offset,
+                                scale=scale)
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """``flash_attention`` with a gradient: the kernel forward (through
-    :func:`flash_attention_op`), the plain version's gradient backward
-    (recomputed from the saved inputs)."""
+    :func:`flash_attention_op`, which writes the log-sum-exp the backward
+    kernel needs), and as the backward the kernel (through
+    :func:`flash_attention_backward_op`) where
+    :func:`select_backward_tiling` names an instance, else the plain
+    version's gradient recomputed from the saved inputs
+    (``plain_backward_calls`` counts those).  The forward saves the
+    output and the log-sum-exp only where the operator wrote one."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, scale):
-        ctx.save_for_backward(q, k, v)
         ctx.args = dict(causal=causal, window=window, q_offset=q_offset,
                         scale=scale)
-        return flash_attention_op(q, k, v, **ctx.args)
+        out, lse = flash_attention_op(q, k, v, **ctx.args)
+        ctx.save_for_backward(q, k, v, *((out, lse) if lse.numel() else ()))
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, grad_out, **ctx.args)
+        global plain_backward_calls
+        saved = ctx.saved_tensors
+        q, k, v = saved[:3]
+        if len(saved) == 3:
+            plain_backward_calls += 1
+            dq, dk, dv = flash_attention_backward(q, k, v, grad_out,
+                                                  **ctx.args)
+        else:
+            out, lse = saved[3:]
+            grad_out = grad_out.contiguous()
+            if not _aligned(grad_out):
+                grad_out = grad_out.clone()
+            dq, dk, dv = flash_attention_backward_op(q, k, v, out, lse,
+                                                     grad_out, **ctx.args)
         return dq, dk, dv, None, None, None, None
 
 

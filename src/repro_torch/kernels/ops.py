@@ -2,11 +2,12 @@
 
 ``impl=None`` (the default) follows the tensor's device: CUDA tensors go
 through the kernel's differentiable form (its ``autograd.Function``: the
-hand-written kernel forward, the plain version's gradient backward), CPU
-tensors through the plain version, which autograd differentiates as it
-is.  ``impl="ref"`` forces the plain PyTorch version on any device (what
-``chip_smoke.py`` holds the kernels against); ``impl="cuda"`` demands the
-kernel and raises for a CPU tensor.  ``with forced("ref"):`` makes every
+hand-written kernel forward, the plain version's gradient backward or
+K6's kernel backward), CPU tensors through the plain version, which
+autograd differentiates as it is.  ``impl="ref"`` forces the plain
+PyTorch version on any device (what ``chip_smoke.py`` holds the kernels
+against); ``impl="cuda"`` demands the kernel and raises for a CPU
+tensor.  ``with forced("ref"):`` makes every
 call inside that passes no ``impl`` take the plain versions, so a whole
 model can be evaluated without the kernels on the card.  Model code
 (``repro_torch.nn``) calls these, so the serving and training paths go

@@ -4,6 +4,7 @@ deployed keywords) to a kernel instance compiled in its ``.cu``.  The
 ``.cu`` files cannot be compiled here, so their tables of instances are
 read as text."""
 
+import collections
 import re
 from pathlib import Path
 
@@ -229,6 +230,7 @@ def _table(source):
 
 @pytest.mark.parametrize("source,names", [
     ("flash_attention.cu", fa_mod.TILINGS),
+    ("flash_attention_bwd.cu", fa_mod.BACKWARD_TILINGS),
     ("gemm.cu", mlr_mod.TILINGS),
     ("rmsnorm.cu", rms_mod.TILINGS),
     ("fused_ff.cu", ff_mod.TILINGS),
@@ -276,6 +278,119 @@ def test_each_instance_is_explicitly_instantiated(source, name):
         else:
             assert f32[0] == "simt::launch_dp" and args[0] == "float"
             assert [int(a) for a in args[1:]] == nums
+
+
+# ---------------------------------------------------------------------------
+# K6's backward kernel: one instance per bf16 width pair, else the plain one
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("D,Dv,want", [
+    (64, 64, "wgmma_bk128_bq64_d64"),          # whisper
+    (80, 80, "wgmma_bk128_bq64_d80"),          # stablelm-3b, zamba2
+    (128, 128, "wgmma_bk128_bq64_d128"),       # olmoe
+    (192, 128, "wgmma_bk128_bq64_d192_v128"),  # deepseek-v2-lite's MLA
+    (32, 32, "wgmma_bk128_bq64_d64"),          # the paper's d 32
+])
+def test_flash_attention_backward_selects_its_width_pair(D, Dv, want):
+    """Each head-dim width pair the forward runs in bf16 has its backward
+    instance, at the first pair that holds (D, Dv), as ``select_tiling``
+    picks the forward's."""
+    shape = (2, 32, 4096, D)
+    assert fa_mod.select_backward_tiling(BF16, shape, dv=Dv) == want
+    assert want in fa_mod.BACKWARD_TILINGS
+    assert fa_mod.select_tiling(BF16, shape, dv=Dv).startswith("wgmma_")
+
+
+@pytest.mark.parametrize("dtype,shape,kw", [
+    (F32, (2, 32, 4096, 80), {}),                      # f32
+    (F32, (2, 16, 4096, 192), {"dv": 128}),
+    (BF16, (2, 32, 4096, 80), {"aligned": False}),     # unaligned
+    (BF16, (2, 8, 1000, 20), {}),                      # D % 8 != 0
+    (BF16, (2, 8, 1000, 64), {"dv": 60}),              # Dv % 8 != 0
+])
+def test_flash_attention_backward_what_tma_cannot_take_is_plain(dtype, shape,
+                                                               kw):
+    """f32 calls, and bf16 that TMA cannot take, name no backward instance:
+    their gradient is the plain version's (an explicit dispatch on the
+    dtype and the shape)."""
+    assert fa_mod.select_backward_tiling(dtype, shape, **kw) is None
+
+
+@pytest.mark.parametrize("name", fa_mod.BACKWARD_TILINGS)
+def test_each_backward_instance_is_explicitly_instantiated(name):
+    """The backward table's launcher of each name instantiates the (q/k,
+    v) widths the name says (v the same as q/k where it names none)."""
+    (launcher,) = dict(_table("flash_attention_bwd.cu"))[name]
+    widths = [int(x) for x in re.findall(r"_[dv](\d+)", name)]
+    assert launcher[0] == "launch_bwd"
+    assert [int(a) for a in _args(launcher[1])] == widths
+    assert re.fullmatch(r"wgmma_bk128_bq64_d\d+(_v\d+)?", name)
+
+
+@pytest.mark.parametrize("causal,window,q_offset", [
+    (True, 1 << 30, 0), (False, 16, 8)])
+def test_flash_attention_cpu_gradient_takes_the_plain_route(
+        causal, window, q_offset, monkeypatch):
+    """On CPU tensors the Function's forward writes no log-sum-exp and its
+    backward is the plain version's: ``plain_backward_calls`` counts it,
+    and no backward kernel launches."""
+    monkeypatch.setattr(fa_mod, "plain_backward_calls", 0)
+    monkeypatch.setattr(fa_mod, "backward_launches", 0)
+    monkeypatch.setattr(fa_mod, "backward_launches_by_tiling",
+                        collections.Counter())
+    q, k, v = (torch.randn(1, h, 40, 16, requires_grad=True)
+               for h in (4, 2, 2))
+    out = fa_mod.FlashAttentionFunction.apply(q, k, v, causal, window,
+                                              q_offset, None)
+    assert len(out.grad_fn.saved_tensors) == 3   # q, k, v: no out, no lse
+    dy = torch.randn_like(out)
+    got = torch.autograd.grad(out, (q, k, v), dy)
+    assert fa_mod.plain_backward_calls == 1
+    assert fa_mod.backward_launches == 0
+    assert not fa_mod.backward_launches_by_tiling
+    assert fa_mod.launches == 0
+    out2, lse = fa_mod.flash_attention_op(q, k, v, causal, window, q_offset,
+                                          None)
+    assert lse.numel() == 0
+    torch.testing.assert_close(out2, out)
+    assert all(g is not None and g.shape == t.shape
+               for g, t in zip(got, (q, k, v)))
+    # the kernel's wrapper takes no CPU tensors: it raises, never falls back
+    with pytest.raises(ValueError, match="no backward instance"):
+        fa_mod.flash_attention_grad(q, k, v, out2, lse, dy, causal=causal,
+                                    window=window, q_offset=q_offset,
+                                    scale=None)
+
+
+@pytest.mark.parametrize("requires_grad", [True, False])
+def test_flash_attention_op_writes_lse_only_for_a_gradient(requires_grad,
+                                                           monkeypatch):
+    """Every K6 forward is a call of the operator
+    ``repro_torch::flash_attention``.  Where the backward kernel would take
+    the call, the operator hands the kernel a log-sum-exp buffer only if
+    q, k or v requires a gradient, and the Function then saves the
+    output and that buffer.  Serving and evaluation pass none, and the
+    kernel writes nothing extra."""
+    seen = []
+
+    def kernel(q, k, v, *, lse=None, **kw):
+        seen.append(lse)
+        return q.new_zeros(q.shape[:-1] + (v.shape[-1],))
+    monkeypatch.setattr(fa_mod, "_backward_tiling",
+                        lambda q, k, v: fa_mod.BACKWARD_TILINGS[0])
+    monkeypatch.setattr(fa_mod, "flash_attention", kernel)
+    q, k, v = (torch.randn(1, 2, 70, 16, requires_grad=requires_grad)
+               for _ in range(3))
+    with torch.set_grad_enabled(requires_grad):
+        out = fa_mod.FlashAttentionFunction.apply(q, k, v, True, 1 << 30, 0,
+                                                  None)
+    (lse,) = seen
+    if requires_grad:
+        assert lse.dtype == torch.float32
+        assert tuple(lse.shape) == (1, 2, 128)   # 70 rows padded to 64s
+        assert len(out.grad_fn.saved_tensors) == 5
+    else:
+        assert lse is None and out.grad_fn is None
 
 
 def test_cpu_calls_launch_nothing_and_count_no_tiling_k1_k2_k5():
