@@ -22,6 +22,14 @@ from portbench import layout
 from portbench.reference.model import (Decoder, attention, linear, rmsnorm,
                                        rope, swiglu)
 
+# The CPU tests' stand-in sizes (portbench/tests/tinycells.py): every
+# width shrunk, three layers (the dense one and two MoE).
+TINY = dict(hidden_size=64, num_attention_heads=4, num_key_value_heads=4,
+            kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+            v_head_dim=16, n_routed_experts=8, num_experts_per_tok=2,
+            n_shared_experts=1, moe_intermediate_size=48,
+            intermediate_size=192, vocab_size=256, num_hidden_layers=3)
+
 
 def attention_dims(c: Dict):
     """(heads, kv heads, D_qk, D_v)."""

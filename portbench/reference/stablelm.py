@@ -9,6 +9,11 @@ from typing import Dict, List
 from portbench import layout
 from portbench.reference.model import Decoder, attention, linear, rope
 
+# The CPU tests' stand-in sizes (portbench/tests/tinycells.py).
+TINY = dict(hidden_size=64, num_attention_heads=4, num_key_value_heads=4,
+            head_dim=16, intermediate_size=128, vocab_size=256,
+            num_hidden_layers=2)
+
 
 def attention_dims(c: Dict):
     """(heads, kv heads, D_qk, D_v)."""

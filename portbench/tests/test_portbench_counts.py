@@ -2,6 +2,8 @@
 
 import json
 import os
+import sys
+import types
 
 import pytest
 
@@ -71,3 +73,50 @@ def test_attention_share_of_the_1k_cell_is_a_quarter():
     c = config("dsv2lite-6l")
     assert counts.attention_flops(c, 1024, 8) * 4 == \
         counts.attention_flops(c, 4096, 2)
+
+
+@pytest.mark.parametrize("name, seq, batch, flops", [
+    ("dsv2lite-6l", 4096, 2, 37804302139392.0),
+    ("stablelm3b", 4096, 2, 147548232744960.0),
+    ("dsv2lite-6l", 1024, 8, 35485019799552.0)])
+def test_model_flops_of_the_cells_to_the_bit(name, seq, batch, flops):
+    # the cells' numbers before model types could give attention_layers
+    # and mixer_flops: neither module gives them, so none moves
+    assert counts.model_flops(config(name), seq, batch) == flops
+
+
+def test_attention_layers_and_mixer_flops_are_honoured(monkeypatch):
+    # a hybrid of 10 layers, 1 of which attends, with 9 Mamba-2 mixers
+    fam = types.ModuleType("portbench.reference.toyhybrid")
+    fam.active_params = lambda c: 1000
+    fam.attention_dims = lambda c: (32, 8, 128, 128)
+    monkeypatch.setitem(sys.modules, fam.__name__, fam)
+    c = {"model_type": "toyhybrid", "num_hidden_layers": 10}
+    every = 10 * 6.0 * 2 * 32 * 4096 ** 2 * 256 / 2
+    assert counts.attention_flops(c, 4096, 2) == every
+    assert counts.mixer_flops(c, 4096, 2) == 0
+    fam.attention_layers = lambda c: 1
+    fam.mixer_flops = lambda c, seq, batch: 9 * counts.ssd_flops(
+        batch, seq, 128, 64, 128)
+    ssd = 9 * 12 * 2 * 4096 * 128 * 64 * 128
+    assert counts.attention_flops(c, 4096, 2) == every / 10
+    assert counts.mixer_flops(c, 4096, 2) == ssd
+    assert counts.model_flops(c, 4096, 2) == \
+        6.0 * 1000 * 4096 * 2 + every / 10 + ssd
+
+
+@pytest.mark.parametrize("x, b, dtype, flops, ms", [
+    # PERF.md's K7 rows: mamba2-1.3b's and zamba2-2.7b's train shapes
+    ((4, 2048, 64, 64), (4, 2048, 1, 128), "bfloat16", 17179869184, 0.0419),
+    ((4, 2048, 80, 64), (4, 2048, 2, 64), "bfloat16", 10737418240, 0.0521),
+    ((4, 2048, 64, 64), (4, 2048, 1, 128), "float32", 17179869184, 0.2564)])
+def test_k7_bounds(x, b, dtype, flops, ms):
+    a = x[:3]
+    got_flops, nbytes = counts.ssd_cost(x, a, b, dtype)
+    assert got_flops == flops == 4 * x[0] * x[1] * x[2] * x[3] * b[3]
+    size = counts.BYTES[dtype]
+    assert nbytes == (2 * x[0] * x[1] * x[2] * x[3] * size
+                      + 4 * x[0] * x[1] * x[2]
+                      + 2 * b[0] * b[1] * b[2] * b[3] * size)
+    assert counts.ssd_bound(x, a, b, dtype) * 1e3 == \
+        pytest.approx(ms, abs=5e-5)

@@ -4,9 +4,14 @@ file of the harness edited."""
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import types
 
+import pytest
+
+import tinycells
 from tinycells import ROOT, tiny_root
 
 DRIVER = '''
@@ -67,3 +72,76 @@ def test_new_files_are_found(tmp_path):
     assert line["correct"] is True
     assert line["metrics"] == {"toy_rate": {"value": 4.0, "unit": "1/s"},
                                "setup_s": {"value": 1.5, "unit": "s"}}
+
+
+# A model type that is a copy of stablelm.py with stand-in sizes of its
+# own: a reference module with its TINY, a configuration, a cell and its
+# limits, as a configuration of a new model type brings them.
+OWN_TINY = """
+TINY = dict(hidden_size=48, num_attention_heads=3, num_key_value_heads=3,
+            head_dim=16, intermediate_size=96, vocab_size=128,
+            num_hidden_layers=3)
+"""
+
+
+def test_a_model_type_is_files_alone(tmp_path):
+    src = str(tmp_path / "checkout")
+    os.mkdir(src)
+    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), src)
+    shutil.copytree(os.path.join(ROOT, "portbench"),
+                    os.path.join(src, "portbench"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench = os.path.join(src, "portbench")
+    with open(os.path.join(bench, "reference", "stablelm.py")) as f:
+        module = f.read() + OWN_TINY
+    with open(os.path.join(bench, "reference", "lmcopy.py"), "w") as f:
+        f.write(module)
+    conf = json.load(open(os.path.join(bench, "configs", "stablelm3b.json")))
+    conf["model_type"] = "lmcopy"
+    json.dump(conf, open(os.path.join(bench, "configs", "lmcopy.json"), "w"))
+    shutil.copy(os.path.join(bench, "limits", "stablelm3b-train-4k.json"),
+                os.path.join(bench, "limits", "lmcopy-train-1k.json"))
+    path = os.path.join(src, "BENCHMARK.json")
+    m = json.load(open(path))
+    m["configs"].append({"name": "lmcopy", "source": conf["source"],
+                         "file": "portbench/configs/lmcopy.json",
+                         "reduced": [], "why": "a test"})
+    m["workloads"].append({"name": "lmcopy-train-1k", "config": "lmcopy",
+                           "traffic": "train-s1024-b8", "chips": 1,
+                           "why": "a test"})
+    json.dump(m, open(path, "w"))
+    # the checkout's own tinycells shrinks every configuration, the new
+    # one by its module's TINY, and the tiny driver runs the new cell
+    code = (
+        "import sys, json, time\n"
+        f"sys.path[:0] = [{src!r}, {os.path.join(bench, 'tests')!r}, "
+        f"{os.path.join(ROOT, 'src')!r}]\n"
+        "import tinycells\n"
+        "from portbench import harness\n"
+        f"root = tinycells.tiny_root({str(tmp_path / 'tiny')!r})\n"
+        "b = harness.Bench(root)\n"
+        "c = b.config('lmcopy')\n"
+        "print('SIZE', c['hidden_size'], c['num_hidden_layers'])\n"
+        "for fault in (None, 'half_batch'):\n"
+        "    a = harness.parse(['--workload', 'lmcopy-train-1k', '--seed', "
+        "'2147483725', '--seconds', '0.2', '--trace', '0'])\n"
+        "    rec = harness.execute(b, a, time.time(), 'cpu', fault)\n"
+        "    out = harness.result(b, rec, {'platform': 'cpu'})\n"
+        "    print('RESULT', json.dumps(out))\n")
+    os.mkdir(tmp_path / "tiny")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=src)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert "SIZE 48 3" in lines
+    sound, fault = (json.loads(x.split(" ", 1)[1]) for x in lines
+                    if x.startswith("RESULT "))
+    assert sound["correct"] is True, sound["checks"]
+    assert fault["correct"] is False, fault["checks"]
+
+
+def test_a_model_type_without_tiny_is_named(monkeypatch):
+    fam = types.ModuleType("portbench.reference.notiny")
+    monkeypatch.setitem(sys.modules, fam.__name__, fam)
+    with pytest.raises(LookupError, match="portbench.reference.notiny"):
+        tinycells.shrink_config({"model_type": "notiny"})

@@ -1,32 +1,27 @@
-"""Tiny stand-ins of the cells for the CPU tests: every width shrunk,
-float32, a few short rows."""
+"""Tiny stand-ins of the cells for the CPU tests: every width shrunk to
+its model type's ``TINY``, float32, a few short rows."""
 
 import copy
 import json
 import os
 import shutil
 
+from portbench.reference import model
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-SHRINK = {
-    "deepseek_v2": dict(hidden_size=64, num_attention_heads=4,
-                        num_key_value_heads=4, kv_lora_rank=32,
-                        qk_nope_head_dim=16, qk_rope_head_dim=8,
-                        v_head_dim=16, n_routed_experts=8,
-                        num_experts_per_tok=2, n_shared_experts=1,
-                        moe_intermediate_size=48, intermediate_size=192,
-                        vocab_size=256, num_hidden_layers=3),
-    "stablelm": dict(hidden_size=64, num_attention_heads=4,
-                     num_key_value_heads=4, head_dim=16,
-                     intermediate_size=128, vocab_size=256,
-                     num_hidden_layers=2),
-}
-
 
 def shrink_config(c):
+    """``c`` at its model type's stand-in sizes: the ``TINY`` dict of its
+    module under ``portbench/reference/``."""
+    family = model.family(c)
+    if not hasattr(family, "TINY"):
+        raise LookupError(f"{family.__name__} gives no TINY: the CPU "
+                          f"tests' stand-in sizes of model type "
+                          f"{c['model_type']!r}")
     c = copy.deepcopy(c)
-    c.update(SHRINK[c["model_type"]])
+    c.update(family.TINY)
     c["port"]["set"]["dtype"] = "float32"
     return c
 
